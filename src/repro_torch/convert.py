@@ -1,0 +1,61 @@
+"""Carry a state across between the JAX package and the port.
+
+Inputs are dicts of numpy arrays keyed by field name (nested dicts for
+``dma`` and ``counters``), the shape ``state_to_numpy`` returns and the
+shape a test builds from the JAX package's ``RuntimeParams`` /
+``EmulatorState`` / ``FaultPlan``. Dtypes are kept (int32, float32), so a
+state crosses over bit for bit. This plays the part weights play for a
+model: both sides start from the same, possibly adversarial, state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.config import FLOAT_PARAM_FIELDS, RuntimeParams
+from .core.counters import Counters
+from .core.dma import DMAState
+from .core.emulator import EmulatorState
+from .core.faults import FaultPlan
+
+
+def _t(v, device, dtype=None):
+    a = np.array(v, dtype=dtype, order="C", copy=True)   # keeps 0-dim
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(d: dict, device=None) -> RuntimeParams:
+    return RuntimeParams(**{
+        f: _t(d[f], device,
+              np.float32 if f in FLOAT_PARAM_FIELDS else np.int32)
+        for f in RuntimeParams._fields})
+
+
+def state_from_numpy(d: dict, device=None) -> EmulatorState:
+    vals = {}
+    for f in EmulatorState._fields:
+        if f == "dma":
+            vals[f] = DMAState(**{k: _t(d[f][k], device, np.int32)
+                                  for k in DMAState._fields})
+        elif f == "counters":
+            vals[f] = Counters(**{k: _t(d[f][k], device)
+                                  for k in Counters._fields})
+        else:
+            vals[f] = _t(d[f], device, np.int32)
+    return EmulatorState(**vals)
+
+
+def faults_from_numpy(d: dict, device=None) -> FaultPlan:
+    return FaultPlan(transient=_t(d["transient"], device, np.int32),
+                     deaths=_t(d["deaths"], device, np.int32))
+
+
+def state_to_numpy(state: EmulatorState) -> dict:
+    def a(x):
+        return x.detach().cpu().numpy()
+    out = {}
+    for f in EmulatorState._fields:
+        v = getattr(state, f)
+        out[f] = ({k: a(x) for k, x in v._asdict().items()}
+                  if isinstance(v, tuple) else a(v))
+    return out

@@ -1,0 +1,20 @@
+"""Core hybrid-memory emulation platform (PyTorch port of ``repro.core``)."""
+from .config import (EmulatorConfig, RuntimeParams, TechnologyParams,
+                     TECHNOLOGIES, paper_platform, small_platform, static_key,
+                     FAST, SLOW)
+from .emulator import Trace, EmulatorState, pad_trace, init_state
+from .faults import FaultPlan, seeded_plan, pad_plan
+from .policies import PolicyRegistry
+from .table import init_table, check_table
+from . import (policies, counters, dma, faults, latency, consistency, table,
+               indexing)
+
+__all__ = [
+    "EmulatorConfig", "RuntimeParams", "TechnologyParams", "TECHNOLOGIES",
+    "paper_platform", "small_platform", "static_key",
+    "FAST", "SLOW", "Trace", "EmulatorState", "pad_trace", "init_state",
+    "FaultPlan", "seeded_plan", "pad_plan",
+    "PolicyRegistry", "init_table", "check_table",
+    "policies", "counters", "dma", "faults", "latency", "consistency",
+    "table", "indexing",
+]

@@ -1,0 +1,118 @@
+"""Performance counters (paper §II-B, Fig 8), PyTorch port of
+``repro.core.counters``.
+
+Counts are int32; bytes, the read-latency sum and energy are float32.
+Each per-chunk sum is taken in float32 and the update keeps the JAX
+package's order of operations, so the float counters agree bit for bit
+(they are hashed into the golden digests).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import SLOW
+
+
+class Counters(NamedTuple):
+    reads_fast: torch.Tensor        # int32 counts
+    writes_fast: torch.Tensor
+    reads_slow: torch.Tensor
+    writes_slow: torch.Tensor
+    bytes_read_fast: torch.Tensor   # float32
+    bytes_write_fast: torch.Tensor
+    bytes_read_slow: torch.Tensor
+    bytes_write_slow: torch.Tensor
+    sum_read_latency: torch.Tensor  # float32, cycles over read requests
+    n_reads: torch.Tensor           # int32
+    max_latency: torch.Tensor       # int32
+    reorder_held: torch.Tensor      # int32 — responses delayed by tag match
+    energy_pj: torch.Tensor         # float32 — dynamic energy estimate
+    poison_faults: torch.Tensor     # int32 — accesses to POISONED pages
+    frames_retired: torch.Tensor    # int32 — frames taken out of service
+    transient_faults: torch.Tensor  # int32 — FaultPlan transient injections
+
+    @staticmethod
+    def zeros(device=None) -> "Counters":
+        vals = []
+        for name in Counters._fields:
+            dt = torch.float32 if name in _FLOAT_FIELDS else torch.int32
+            vals.append(torch.zeros((), dtype=dt, device=device))
+        return Counters(*vals)
+
+
+_FLOAT_FIELDS = frozenset({
+    "bytes_read_fast", "bytes_write_fast", "bytes_read_slow",
+    "bytes_write_slow", "sum_read_latency", "energy_pj"})
+
+
+def update(p, c: Counters, *, device: torch.Tensor,
+           is_write: torch.Tensor, size: torch.Tensor, valid: torch.Tensor,
+           latency: torch.Tensor, held: torch.Tensor,
+           poisoned: torch.Tensor | None = None,
+           retired: torch.Tensor | None = None,
+           injected: torch.Tensor | None = None) -> Counters:
+    """Accumulate one chunk. Request fields are [chunk] tensors; ``p`` is
+    a ``RuntimeParams`` (float32 power coefficients); ``poisoned`` and
+    ``injected`` are bool masks, ``retired`` a bool/int count."""
+    v = valid
+    w = is_write & v
+    r = (~is_write) & v
+    slow = device == SLOW
+    fsize = size.to(torch.float32)
+
+    def cnt(mask):
+        return mask.sum(dtype=torch.int32)
+
+    def byt(mask):
+        return torch.where(mask, fsize, 0.0).sum()
+
+    bits_fast = 8.0 * (byt(r & ~slow) + byt(w & ~slow))
+    energy = (bits_fast * p.power_pj_per_bit_fast
+              + 8.0 * byt(r & slow) * p.power_pj_per_bit_slow_read
+              + 8.0 * byt(w & slow) * p.power_pj_per_bit_slow_write)
+
+    read_lat = torch.where(r, latency, 0)
+    lat_max = torch.where(v, latency, 0).max()
+    return Counters(
+        reads_fast=c.reads_fast + cnt(r & ~slow),
+        writes_fast=c.writes_fast + cnt(w & ~slow),
+        reads_slow=c.reads_slow + cnt(r & slow),
+        writes_slow=c.writes_slow + cnt(w & slow),
+        bytes_read_fast=c.bytes_read_fast + byt(r & ~slow),
+        bytes_write_fast=c.bytes_write_fast + byt(w & ~slow),
+        bytes_read_slow=c.bytes_read_slow + byt(r & slow),
+        bytes_write_slow=c.bytes_write_slow + byt(w & slow),
+        sum_read_latency=c.sum_read_latency +
+        read_lat.to(torch.float32).sum(),
+        n_reads=c.n_reads + cnt(r),
+        max_latency=torch.maximum(c.max_latency, lat_max),
+        reorder_held=c.reorder_held + held,
+        energy_pj=c.energy_pj + energy,
+        poison_faults=c.poison_faults +
+        (0 if poisoned is None else cnt(poisoned)),
+        frames_retired=c.frames_retired +
+        (0 if retired is None else retired.to(torch.int32)),
+        transient_faults=c.transient_faults +
+        (0 if injected is None else cnt(injected)),
+    )
+
+
+def summary(c: Counters) -> dict:
+    """Host-side readable summary (Python numbers)."""
+    g = lambda x: x.item() if hasattr(x, "item") else x
+    n_reads = max(1, g(c.n_reads))
+    return {
+        "reads_fast": g(c.reads_fast), "writes_fast": g(c.writes_fast),
+        "reads_slow": g(c.reads_slow), "writes_slow": g(c.writes_slow),
+        "GB_read": (g(c.bytes_read_fast) + g(c.bytes_read_slow)) / 1e9,
+        "GB_written": (g(c.bytes_write_fast) + g(c.bytes_write_slow)) / 1e9,
+        "mean_read_latency_cyc": g(c.sum_read_latency) / n_reads,
+        "max_latency_cyc": g(c.max_latency),
+        "reorder_held": g(c.reorder_held),
+        "energy_mJ": g(c.energy_pj) / 1e9,
+        "poison_faults": g(c.poison_faults),
+        "frames_retired": g(c.frames_retired),
+        "transient_faults": g(c.transient_faults),
+    }

@@ -1,0 +1,94 @@
+"""Deterministic fault injection (PyTorch port of ``repro.core.faults``).
+
+A :class:`FaultPlan` holds two int32 event tables keyed on the absolute
+``chunk_idx`` of the carried emulator state:
+
+``transient``  int32[nt, 2] rows of (chunk, page): every access to
+               ``page`` within that chunk completes but is marked
+               ``injected``; no table effect. ``chunk = -1`` rows pad.
+``deaths``     int32[nd, 2] rows of (chunk, page), sorted by chunk: the
+               frame under ``page`` dies at the first boundary at or after
+               ``chunk`` whose rescue register is free. ``chunk = NEVER``
+               rows pad.
+
+An empty plan is one sentinel row per class and injects nothing.
+``seeded_plan`` draws with numpy's ``default_rng`` exactly as the JAX
+package does, so the same seed gives the same plan in both.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+NEVER = 2 ** 30
+
+
+class FaultPlan(NamedTuple):
+    transient: torch.Tensor  # int32[nt, 2] (chunk, page); chunk=-1 padding
+    deaths: torch.Tensor     # int32[nd, 2] (chunk, page); chunk=NEVER pad
+
+    @staticmethod
+    def empty(device=None) -> "FaultPlan":
+        return FaultPlan.of(device=device)
+
+    @staticmethod
+    def of(transient=(), deaths=(), device=None) -> "FaultPlan":
+        """Build a plan from explicit (chunk, page) event lists. Deaths
+        are sorted by chunk; empty classes get one sentinel row."""
+        return FaultPlan(
+            transient=_rows(transient, -1, device),
+            deaths=_rows(sorted(map(tuple, deaths)), NEVER, device))
+
+    def to(self, device) -> "FaultPlan":
+        return FaultPlan(self.transient.to(device), self.deaths.to(device))
+
+
+def _rows(events, sentinel_chunk: int, device) -> torch.Tensor:
+    rows = np.asarray(list(events), np.int32).reshape(-1, 2)
+    if rows.shape[0] == 0:
+        rows = np.asarray([[sentinel_chunk, 0]], np.int32)
+    return torch.as_tensor(rows, device=device)
+
+
+def seeded_plan(seed: int, *, pages, n_chunks: int, n_deaths: int = 0,
+                n_transient: int = 0, start_chunk: int = 0,
+                device=None) -> FaultPlan:
+    """A deterministic plan over candidate ``pages``: ``n_deaths``
+    distinct frames die, evenly spread across ``[start_chunk, n_chunks)``,
+    plus ``n_transient`` transient faults at random (chunk, page) points.
+    Same seed, same plan — and the same plan as the JAX package's."""
+    pages = np.asarray(pages, np.int32)
+    rng = np.random.default_rng(seed)
+    deaths = []
+    if n_deaths:
+        if n_deaths > pages.size:
+            raise ValueError(f"n_deaths={n_deaths} > {pages.size} pages")
+        victims = rng.choice(pages, size=n_deaths, replace=False)
+        stamps = np.linspace(start_chunk, max(n_chunks - 1, start_chunk),
+                             n_deaths).astype(np.int64)
+        deaths = list(zip(stamps.tolist(), victims.tolist()))
+    transient = []
+    if n_transient:
+        t_pages = rng.choice(pages, size=n_transient, replace=True)
+        t_chunks = rng.integers(start_chunk, max(n_chunks, start_chunk + 1),
+                                size=n_transient)
+        transient = list(zip(t_chunks.tolist(), t_pages.tolist()))
+    return FaultPlan.of(transient=transient, deaths=deaths, device=device)
+
+
+def pad_plan(plan: FaultPlan, nt: int, nd: int) -> FaultPlan:
+    """Pad a plan's event tables with sentinel rows to (nt, nd); a padded
+    plan injects exactly the same faults."""
+    def pad(rows, n, sentinel):
+        if rows.shape[0] > n:
+            raise ValueError(f"plan has {rows.shape[0]} events > pad {n}")
+        fill = torch.tensor([[sentinel, 0]], dtype=torch.int32,
+                            device=rows.device)
+        return torch.cat([rows, fill.repeat(n - rows.shape[0], 1)])
+    return FaultPlan(transient=pad(plan.transient, nt, -1),
+                     deaths=pad(plan.deaths, nd, NEVER))
+
+
+__all__ = ["FaultPlan", "NEVER", "seeded_plan", "pad_plan"]

@@ -1,0 +1,239 @@
+"""Data placement / migration policies (paper §III-A), PyTorch port of
+``repro.core.policies``.
+
+A policy examines the chunk's access stream plus the packed table and
+proposes at most one page swap for the single DMA engine::
+
+    propose(cfg, params, table, ptr, pages, is_write, valid)
+        -> (want: bool, slow_page: int32, fast_victim: int32, new_ptr)
+
+Victims come from a CLOCK pointer over DRAM frames (the OWNER lane);
+``hotness_global`` is the idealised whole-table reference. ``new_ptr``
+commits only when a wanted swap starts, or unconditionally when nothing
+is wanted (the pin-skip channel) — the emulator enforces that contract.
+
+The six built-in policies are registered in the JAX package's order, so
+a policy's index is the same ``policy_id`` in both packages; the CUDA
+chunk-step kernel compiles the same six in. Policies registered by users
+are not ported yet: a :class:`PolicyRegistry` holds built-in names only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from . import table as table_lib
+from .config import FAST, SLOW
+from .indexing import take, take_lane
+
+POLICIES: dict[str, Callable] = {}
+
+
+def _register(name: str):
+    def deco(fn):
+        POLICIES[name] = fn
+        return fn
+    return deco
+
+
+def get(name: str) -> Callable:
+    if name not in POLICIES:
+        raise KeyError(f"unknown policy {name!r}; have {sorted(POLICIES)}")
+    return POLICIES[name]
+
+
+def policy_id(name: str) -> int:
+    """Index of ``name`` among the built-in policies (registration
+    order) — the ``RuntimeParams.policy_id`` of the full registry."""
+    get(name)
+    return list(POLICIES).index(name)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyRegistry:
+    """An immutable, ordered selection of built-in policies — what a
+    ``policy_id`` indexes. Dispatch clamps the id into range, as the JAX
+    package's ``lax.switch`` does."""
+
+    names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(set(self.names)) != len(self.names):
+            raise ValueError(f"duplicate policy names: {self.names}")
+        for n in self.names:
+            get(n)
+
+    @classmethod
+    def snapshot(cls, names=None) -> "PolicyRegistry":
+        """All built-in policies in registration order when ``names`` is
+        None, else the named subset in the given order."""
+        return cls(tuple(POLICIES if names is None else names))
+
+    @property
+    def fns(self) -> tuple[Callable, ...]:
+        return tuple(POLICIES[n] for n in self.names)
+
+    @property
+    def builtin_ids(self) -> tuple[int, ...]:
+        """Built-in index of each entry (the map the kernel switches on)."""
+        return tuple(policy_id(n) for n in self.names)
+
+    def index(self, name: str) -> int:
+        if name not in self.names:
+            raise KeyError(
+                f"policy {name!r} is not in this registry; have {self.names}")
+        return self.names.index(name)
+
+    def subset(self, names) -> "PolicyRegistry":
+        for n in names:
+            self.index(n)
+        return PolicyRegistry(tuple(names))
+
+    def __contains__(self, name) -> bool:
+        return name in self.names
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __iter__(self):
+        return iter(self.names)
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True of a 1-D bool mask, 0 when there is none
+    (JAX's ``argmax`` over a bool vector)."""
+    return torch.argmax(mask.to(torch.int32))
+
+
+def _chunk_candidate(table, pages, valid, extra_mask=None):
+    """Hottest slow-resident page among this chunk's accesses; pinned
+    pages and retirement tombstones are never candidates. Ties go to the
+    first request."""
+    rows = take(table, pages)
+    ok = valid & (table_lib.device(rows) == SLOW) & \
+        ~table_lib.is_pinned(rows) & ~table_lib.is_retired(rows)
+    if extra_mask is not None:
+        ok = ok & extra_mask
+    heat = torch.where(ok, table_lib.hotness(rows), -1)
+    j = torch.argmax(heat)
+    return pages[j], heat[j]
+
+
+# CLOCK pin-skip lookahead: frames examined per chunk from the pointer.
+CLOCK_WINDOW = 8
+
+
+def _clock_victim(table, ptr, nf):
+    """First eligible CLOCK victim within ``CLOCK_WINDOW`` frames of the
+    pointer (pinned owners and tombstones are stepped over). Returns
+    ``(victim_page, found, skip)``."""
+    offs = torch.arange(CLOCK_WINDOW, dtype=torch.int32, device=table.device)
+    frames = (ptr + offs) % nf
+    owners = take(table_lib.owner(table), frames)
+    rows = take(table, owners)
+    pinned = table_lib.is_pinned(rows) | table_lib.is_retired(rows)
+    first = torch.argmin(pinned.to(torch.int32))   # first False, else 0
+    found = ~pinned[first]
+    victim = owners[first]
+    skip = torch.where(found, first.to(torch.int32), CLOCK_WINDOW)
+    return victim, found, skip
+
+
+@_register("static")
+def static_policy(cfg, params, table, ptr, pages, is_write, valid):
+    """Placement fixed at initialization; never migrate."""
+    z = torch.zeros((), dtype=torch.int32, device=table.device)
+    return torch.zeros((), dtype=torch.bool, device=table.device), z, z, ptr
+
+
+@_register("hotness")
+def hotness_policy(cfg, params, table, ptr, pages, is_write, valid):
+    """Promote the hottest slow page seen in this chunk once it crosses
+    ``hot_threshold``; victim = CLOCK pointer over DRAM frames, skipped
+    if the victim is hotter than the candidate."""
+    cand, heat = _chunk_candidate(table, pages, valid)
+    victim, vfound, skip = _clock_victim(table, ptr, params.n_fast_pages)
+    want = vfound & (heat >= params.hot_threshold) & \
+        (heat > take_lane(table, victim, table_lib.HOTNESS))
+    new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
+    return want, cand, victim, new_ptr
+
+
+@_register("write_bias")
+def write_bias_policy(cfg, params, table, ptr, pages, is_write, valid):
+    """The ``hotness`` rule; the chunk step weights this policy's writes
+    by ``write_weight`` when it accumulates hotness."""
+    return hotness_policy(cfg, params, table, ptr, pages, is_write, valid)
+
+
+@_register("stream")
+def stream_policy(cfg, params, table, ptr, pages, is_write, valid):
+    """Detect a dominant small stride in the chunk's page stream and
+    pre-promote the stream's next page; else the hotness rule."""
+    deltas = torch.where(valid[1:] & valid[:-1], pages[1:] - pages[:-1], 0)
+    span = 4  # recognise strides in [-span, span] \ {0}
+    in_range = (deltas.abs() <= span) & (deltas != 0)
+    hist = torch.zeros(2 * span + 1, dtype=torch.int32, device=table.device)
+    hist.index_add_(0, (deltas + span).clamp(0, 2 * span).to(torch.int64),
+                    in_range.to(torch.int32))
+    stride = torch.argmax(hist).to(torch.int32) - span
+    strength = hist.max()
+    streaming = strength > (pages.shape[0] // 4)
+
+    n = pages.shape[0]
+    order = torch.arange(n, dtype=torch.int32, device=table.device)
+    last = pages[torch.argmax(torch.where(valid, order, -1))]
+    target = (last + stride).clamp(0, table.shape[0] - 1)
+    target_row = take(table, target)
+    target_is_slow = (table_lib.device(target_row) == SLOW) & \
+        ~table_lib.is_pinned(target_row) & ~table_lib.is_retired(target_row)
+
+    hw, hc, _, _ = hotness_policy(cfg, params, table, ptr, pages, is_write,
+                                  valid)
+    victim, vfound, skip = _clock_victim(table, ptr, params.n_fast_pages)
+    want_stream = streaming & target_is_slow & vfound
+    want = want_stream | hw
+    cand = torch.where(want_stream, target, hc)
+    new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
+    return want, cand, victim, new_ptr
+
+
+@_register("hotness_global")
+def hotness_global_policy(cfg, params, table, ptr, pages, is_write, valid):
+    """Idealized reference: global hottest-slow / coldest-fast scan."""
+    dev = table_lib.device(table)
+    hot = table_lib.hotness(table)
+    pinned = table_lib.is_pinned(table) | table_lib.is_retired(table)
+    heat_all = torch.where((dev == SLOW) & ~pinned, hot, -1)
+    cand = torch.argmax(heat_all)
+    heat = heat_all[cand]
+    cold = torch.where((dev == FAST) & ~pinned, hot, 2 ** 30)
+    victim = torch.argmin(cold)
+    want = (heat >= params.hot_threshold) & (heat > hot[victim])
+    return want, cand.to(torch.int32), victim.to(torch.int32), ptr
+
+
+@_register("wear_level")
+def wear_level_policy(cfg, params, table, ptr, pages, is_write, valid,
+                      min_wear=None):
+    """The hotness rule with a wear-aware demotion destination: skip
+    candidates whose slow frame has absorbed more than ``wear_slack``
+    writes beyond ``min_wear`` (the emulator's global min-wear register;
+    None falls back to the chunk-local floor)."""
+    rows = take(table, pages)
+    slow = valid & (table_lib.device(rows) == SLOW)
+    frm = table_lib.frame(rows)
+    frame_wear = take_lane(table, torch.where(slow, frm, 0), table_lib.WEAR)
+    if min_wear is None:
+        wmin = torch.where(slow, frame_wear, 2 ** 30).min()
+    else:
+        wmin = min_wear
+    fresh = frame_wear <= wmin + params.wear_slack
+    cand, cheat = _chunk_candidate(table, pages, valid, extra_mask=fresh)
+    victim, vfound, skip = _clock_victim(table, ptr, params.n_fast_pages)
+    want = vfound & (cheat >= params.hot_threshold) & \
+        (cheat > take_lane(table, victim, table_lib.HOTNESS))
+    new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
+    return want, cand, victim, new_ptr

@@ -1,0 +1,135 @@
+"""Build the port's hand-written CUDA kernels and bind them with ctypes.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
+``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library under
+``build/repro_torch/`` at the root of the checkout (a directory that
+``.gitignore`` lists), named by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+is built or loaded when a module is imported: the first launch (or
+:func:`build_all`) does it.
+
+Every C entry point takes device pointers, ints and PyTorch's current
+stream, launches, and returns ``cudaGetLastError()``; :meth:`CudaKernel.
+launch` raises when that is not 0. Floating point is built with IEEE
+division (``-prec-div=true``, never ``--use_fast_math``): the chunk step's
+cycle math must round exactly as the JAX reference does.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-prec-div=true",
+              "-Xptxas", "-v")
+
+# ctypes argument kinds of the C entry points.
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class CudaKernel:
+    """One CUDA source, its shared library and its launch count.
+
+    ``launches`` is a plain integer that :meth:`launch` raises by one for
+    every launch of the kernel and that nothing else touches; callers
+    reset it to 0 to count the launches of one run.
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes: tuple):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.source = CSRC / f"{name}.cu"
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    @property
+    def library(self) -> pathlib.Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+
+    def start_build(self) -> subprocess.Popen | None:
+        """Start ``nvcc`` on this source unless its library exists;
+        returns the running process (None when nothing to build)."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        return subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish_build(self, proc: subprocess.Popen | None) -> None:
+        if proc is None:
+            return
+        out, _ = proc.communicate()
+        self.build_log = out
+        tmp = pathlib.Path(proc.args[proc.args.index("-o") + 1])
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {self.source.name}:\n{out}")
+        os.replace(tmp, self.library)
+        self.library.with_suffix(".log").write_text(out)
+
+    def build(self) -> None:
+        self.finish_build(self.start_build())
+
+    def _load(self):
+        if self._fn is None:
+            self.build()
+            lib = ctypes.CDLL(str(self.library))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = list(self.argtypes) + [PTR]   # + the stream
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current PyTorch stream; raise if the
+        launch was refused. ``args`` are ints for the C entry point
+        (pointers as ``tensor.data_ptr()``)."""
+        fn = self._load()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"CUDA kernel {self.name} failed to launch: cudaError {err}")
+        self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Build several kernels at once: one ``nvcc`` per source, all started
+    together, then all waited for."""
+    procs = [(k, k.start_build()) for k in kernels]
+    errors = []
+    for k, p in procs:
+        try:
+            k.finish_build(p)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))

@@ -1,0 +1,59 @@
+"""Import hygiene of the port, and no silent fallback.
+
+Every module of ``repro_torch`` (and ``chip_smoke.py``) imports with
+``jax`` and ``repro`` made unimportable; ``chip_smoke.py`` exits nonzero
+and prints no result where there is no CUDA device, or when it stands
+alone without the repository.
+"""
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, "src")
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))
+       or m == "repro"]
+bad = [m for m in bad if sys.modules[m] is not None]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
