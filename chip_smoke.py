@@ -8,7 +8,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Phases, each printing its lines in order:
 
 1. **Device** — the card's name and power limit (``nvidia-smi``).
-2. **Build** — ``nvcc`` compiles both hand-written kernels from
+2. **Build** — ``nvcc`` compiles all five hand-written kernels from
    ``src/repro_torch/kernels/csrc`` for ``sm_90a`` into
    ``build/repro_torch/`` (one process per source, started together).
 3. **Kernel A** (``hmmu_lookup``) against its plain version at the
@@ -29,7 +29,16 @@ Phases, each printing its lines in order:
    through the scan path whose stage-2 gather is kernel A (``"off"``);
    each route's launch count must equal the number of chunks, and the two
    final states and outputs must be bitwise equal.
-6. One JSON line of per-kernel numbers, the card line again, and the last
+6. **The model kernels at full width** — the entry points
+   ``ops.flash_attention``, ``ops.decode_attention`` and
+   ``ops.rwkv_chunk`` driven once per case at the widths of the repo's
+   configurations (minitron-8b, gemma3-4b, phi3-mini, rwkv6-7b; inputs
+   from fixed seeds on the card), each launch counted; then each case
+   against its plain version on the same inputs (max abs error against
+   its stated tolerance), the kernel's device time, the plain version's,
+   a library yardstick's where one PyTorch call computes the same
+   function (``scaled_dot_product_attention``), and the bound.
+7. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
@@ -44,9 +53,13 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Callable, NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, NVIDIA's data sheet
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, and fp32
+# outside them (TF32 would break the float32 tolerances).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
             "wear_level")
 
@@ -461,6 +474,306 @@ def kernel_a_main_ms(torch, rt, hl, main, n_chunks=256) -> float:
     return ms
 
 
+# --------------------------------------------------------------- phase 6
+# Tolerances of a kernel against its plain version on the card, in the
+# working type. Attention: the CPU tests' 2e-5 (float32) and 2e-2
+# (bfloat16, scaled by the value where |value| > 1: both outputs are
+# rounded once to bfloat16 from float32 sums taken in different orders).
+# RWKV: relative to the output's largest magnitude (~5e2 at these
+# shapes, the state summing thousands of barely decayed tokens), since
+# kp = k exp(-cum) grows by up to exp(88) inside a chunk and the products
+# cancel; on an H100 the error measured ~2e-7 of it.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RWKV_REL_TOL = 1e-5
+
+
+def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around a run of
+    calls after one warm-up call, as many calls as fit ``budget_ms``
+    (at least 3)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(3, min(50, int(budget_ms / max(start.elapsed_time(end),
+                                                1e-3))))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_pairs(sq, skv, causal, window) -> int:
+    """(q, k) pairs that the masks keep: q row r sits at r + skv - sq."""
+    total = 0
+    for r in range(sq):
+        qi = r + skv - sq
+        hi = min(qi, skv - 1) if causal else skv - 1
+        lo = max(0, qi - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def bound(flops: float, byts: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` and ``byts``, and which bounds."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = byts / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
+                                     else "bytes")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class Case(NamedTuple):
+    """One phase-6 call: ``run`` goes through the entry point (counted),
+    ``kernel_call`` launches the kernel's wrapper alone (timing),
+    ``plain`` is the plain version, ``library`` the yardstick or None;
+    ``rel`` holds the error relative to the output's scale."""
+    kernel: str
+    label: str
+    config: str
+    dtype: str
+    run: Callable
+    kernel_call: Callable
+    plain: Callable
+    library: Callable | None
+    flops: float
+    byts: float
+    rel: bool = False
+
+
+def randn(torch, dev, seed, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def flash_case(torch, dev, ops, fa, label, config, seed, b, hq, hkv, sq, skv,
+               d, dtype, window=None, library=False):
+    F = torch.nn.functional
+    dt = getattr(torch, dtype)
+    q = randn(torch, dev, seed, (b, hq, sq, d), dt)
+    k = randn(torch, dev, seed + 1, (b, hkv, skv, d), dt)
+    v = randn(torch, dev, seed + 2, (b, hkv, skv, d), dt)
+    kw = dict(causal=True, window=window)
+    lib = None
+    if library:
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+            ki = torch.arange(skv, device=dev)[None, :]
+            mask = (ki <= qi) & (qi - ki < window)
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+    flops = 4 * b * hq * d * attention_pairs(sq, skv, True, window)
+    byts = nbytes(q, k, v, q)
+    return Case("flash_attention", label, config, dtype,
+                lambda: ops.flash_attention(q, k, v, **kw),
+                lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                lambda: fa.flash_attention_plain(q, k, v, **kw),
+                lib, flops, byts)
+
+
+def flash_grad_case(torch, dev, ops, fa, seed):
+    """Backward through the kernel's forward (a plain recompute) against
+    plain autograd, minitron-8b widths at 1,024 tokens, fp32."""
+    b, hq, hkv, s, d = 1, 32, 8, 1024, 128
+    q, k, v = (randn(torch, dev, seed + i, (b, h, s, d), torch.float32)
+               .requires_grad_() for i, h in enumerate((hq, hkv, hkv)))
+    g = randn(torch, dev, seed + 3, (b, hq, s, d), torch.float32)
+
+    def through(fn):
+        out = fn(q, k, v)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+    flops = 4 * b * hq * d * attention_pairs(s, s, True, None)
+    return Case("flash_attention", "gradient (forward + backward)",
+                "minitron-8b", "float32",
+                lambda: through(ops.flash_attention),
+                lambda: through(ops.flash_attention),
+                lambda: through(fa.flash_attention_plain), None, 3 * flops,
+                3 * nbytes(q, k, v, q))
+
+
+def decode_case(torch, dev, ops, da, label, config, seed, b, hq, hkv, smax,
+                d, window=None):
+    F = torch.nn.functional
+    dt = torch.bfloat16
+    q = randn(torch, dev, seed, (b, hq, d), dt)
+    kc = randn(torch, dev, seed + 1, (b, hkv, smax, d), dt)
+    vc = randn(torch, dev, seed + 2, (b, hkv, smax, d), dt)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    kv_len = torch.randint(1, smax + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    ki = torch.arange(smax, device=dev)[None, :]
+    mask = ki < kv_len[:, None].long()
+    if window is not None:
+        mask &= ki >= kv_len[:, None].long() - window
+    mask = mask[:, None, None, :]
+    rows = int(mask.sum())            # valid cache rows over the batch
+    kw = dict(window=window)
+    q4 = q[:, :, None, :]
+    return Case(
+        "decode_attention", label, config, "bfloat16",
+        lambda: ops.decode_attention(q, kc, vc, kv_len, **kw),
+        lambda: da.decode_attention_cuda(q, kc, vc, kv_len, **kw),
+        lambda: da.decode_attention_plain(q, kc, vc, kv_len, **kw),
+        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                               enable_gqa=True),
+        4 * (hq // hkv) * hkv * d * rows,
+        nbytes(q, q, kv_len) + rows * hkv * d * 2 * 2)
+
+
+def rwkv_case(torch, dev, ops, rw, label, seed, dtype):
+    """rwkv6-7b: 64 heads of 64, 4,096 tokens, chunk 128. The log-decay
+    is the model's: -exp(decay_base + dd), decay_base = linspace(-6, -1)
+    over the 4,096 channels as ``repro.models`` initialises it, dd a
+    data-dependent N(0, 0.5^2). (The CPU tests' -exp(N(0, 1) - 1.5)
+    sums past -88 inside some 128-token chunks at this size, where
+    exp(-cum) overflows float32 in the chunked form, in the JAX package
+    as here.)"""
+    b, h, s, d, c = 1, 64, 4096, 64, 128
+    dt = getattr(torch, dtype)
+    r, k, v = (randn(torch, dev, seed + i, (b, h, s, d), dt)
+               for i in range(3))
+    base = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, 1, d)
+    dd = randn(torch, dev, seed + 3, (b, h, s, d), torch.float32) * 0.5
+    logw = (-torch.exp(base + dd)).to(dt)
+    u = randn(torch, dev, seed + 4, (h, d), torch.float32) * 0.3
+    n = s // c
+    per_chunk = (c * (c - 1) // 2) * d * 2 * 2 + c * d * 2 * 2 + \
+        c * d * d * 2 * 2
+    return Case("rwkv_scan", label, "rwkv6-7b", dtype,
+                lambda: ops.rwkv_chunk(r, k, v, logw, u, chunk=c),
+                lambda: rw.rwkv_chunk_scan_cuda(r, k, v, logw, u, c),
+                lambda: rw.rwkv_scan_plain(r, k, v, logw, u, c)[0], None,
+                b * h * n * per_chunk,
+                nbytes(r, k, v, logw, u) + b * h * s * d * 4, rel=True)
+
+
+def model_cases(torch, dev, ops, fa, da, rw) -> list:
+    """Phase 6's calls at the widths of the repo's configurations
+    (``src/repro/configs``; decode at ``shapes.decode_32k``'s cache with
+    the batch cut to 8)."""
+    return [
+        flash_case(torch, dev, ops, fa, "prefill, causal", "minitron-8b",
+                   100, 1, 32, 8, 4096, 4096, 128, "bfloat16", library=True),
+        flash_case(torch, dev, ops, fa, "local layer, window 1024",
+                   "gemma3-4b", 110, 1, 8, 4, 4096, 4096, 256, "bfloat16",
+                   window=1024, library=True),
+        flash_case(torch, dev, ops, fa, "continuation, q_off 3072",
+                   "minitron-8b", 120, 1, 32, 8, 1024, 4096, 128,
+                   "bfloat16"),
+        flash_case(torch, dev, ops, fa, "prefill, fp32", "phi3-mini", 130,
+                   1, 32, 32, 2048, 2048, 96, "float32"),
+        flash_grad_case(torch, dev, ops, fa, 140),
+        decode_case(torch, dev, ops, da, "decode_32k, B=8", "minitron-8b",
+                    200, 8, 32, 8, 32768, 128),
+        decode_case(torch, dev, ops, da, "decode_32k, B=8, window 1024",
+                    "gemma3-4b", 210, 8, 8, 4, 32768, 256, window=1024),
+        rwkv_case(torch, dev, ops, rw, "chunk 128, bf16", 300, "bfloat16"),
+        rwkv_case(torch, dev, ops, rw, "chunk 128, fp32", 310, "float32"),
+    ]
+
+
+def case_error(torch, case, got, want) -> tuple[float, float]:
+    """(max abs error, its share of the tolerance) of a case's kernel
+    result against its plain result (tuples for the gradient case)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, over = 0.0, 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise Mismatch(f"{case.kernel} {case.label}: shape or type "
+                           f"{tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+                           f"{b.dtype}")
+        if not bool(torch.isfinite(a).all()):
+            raise Mismatch(f"{case.kernel} {case.label}: non-finite output")
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        if case.rel:
+            scale = float(b.abs().max())
+            print(f"    max|plain| {scale:.6e}, max|err| / max|plain| "
+                  f"{float(diff.max()) / scale:.3e}")
+            over = max(over, float(diff.max()) / (RWKV_REL_TOL * scale))
+        else:
+            allowed = ATTN_TOL[case.dtype]
+            scale = b.abs().clamp_min(1.0) if case.dtype == "bfloat16" \
+                else 1.0
+            over = max(over, float((diff / scale).max()) / allowed)
+    return err, over
+
+
+def check_model_kernels(torch, ops, fa, da, rw, cases) -> dict:
+    """Drive every case through its entry point once with the launch
+    counts set to 0 (the path), then hold each against its plain version
+    and time it."""
+    kernels = {"flash_attention": fa.KERNEL, "decode_attention": da.KERNEL,
+               "rwkv_scan": rw.KERNEL}
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    outs = [case.run() for case in cases]
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {name: sum(c.kernel == name for c in cases) for name in kernels}
+    print(f"  the path: {len(cases)} calls through ops.*, launches {counts}")
+    if counts != want:
+        raise Mismatch(f"phase 6 launched {counts}, expected {want}")
+    results = []
+    for case, got in zip(cases, outs):
+        plain = case.plain()
+        err, over = case_error(torch, case, got, plain)
+        del plain
+        ms = event_ms(torch, case.kernel_call)
+        plain_ms = event_ms(torch, case.plain)
+        lib_ms = event_ms(torch, case.library) if case.library else None
+        bound_ms, bound_by = bound(case.flops, case.byts, case.dtype)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"  {case.kernel:16s} {case.config:12s} {case.label:30s} "
+              f"{case.dtype}: max|err| {err:.3e} ({over:.3f} of its "
+              f"tolerance); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{case.flops:.4e} flop, {case.byts:.4e} B)", flush=True)
+        if over > 1.0:
+            raise Mismatch(f"{case.kernel} {case.label}: max|err| {err:.3e} "
+                           f"exceeds its tolerance")
+        results.append({"case": case, "err": err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+    return {"counts": counts, "results": results}
+
+
+def model_kernel_rows(m6) -> list:
+    """One ``kernels`` entry per model kernel: the times of its first case
+    (the main shape), the largest error over its cases."""
+    meta = {
+        "flash_attention": "src/repro/kernels/flash_attention.py:111",
+        "decode_attention": "src/repro/kernels/decode_attention.py:100",
+        "rwkv_scan": "src/repro/kernels/rwkv_scan.py:84",
+    }
+    rows = []
+    for name, replaces in meta.items():
+        res = [r for r in m6["results"] if r["case"].kernel == name]
+        first = res[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": m6["counts"][name],
+            "max_abs_err": max(r["err"] for r in res), "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -475,22 +788,30 @@ def main() -> int:
         import repro_torch as rt
         from repro_torch.kernels import build
         from repro_torch.kernels import chunk_step as cs
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import hmmu_lookup as hl
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import rwkv_scan as rw
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
         return 2
     try:
         dev = cuda_device(torch)
+        # The plain versions' float32 products stay float32 (no TF32).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         card = card_line()
         print(f"[1] device: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}", flush=True)
 
         t0 = time.perf_counter()
-        build.build_all([hl.KERNEL, cs.KERNEL])
+        all_kernels = (hl.KERNEL, cs.KERNEL, fa.KERNEL, da.KERNEL, rw.KERNEL)
+        build.build_all(all_kernels)
         print(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
               f"{build.BUILD_DIR}", flush=True)
-        for k in (hl.KERNEL, cs.KERNEL):
+        for k in all_kernels:
             info = [ln.strip() for ln in k.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"    {k.name}: {k.library.name}; {' | '.join(info)}")
@@ -507,10 +828,15 @@ def main() -> int:
         main_run = run_main_path(torch, dev, rt, hl, cs)
         b_num = kernel_b_numbers(torch, dev, rt, cs, main_run)
         a_main_ms = kernel_a_main_ms(torch, rt, hl, main_run)
-
-        k_ms, p_ms, lib_ms, a_bound = a["timing"][(1, 514)]
         counts = {route: main_run["results"][route][1]
                   for route in ("auto", "off")}
+        del main_run
+
+        print("[6] model kernels at full width", flush=True)
+        m6 = check_model_kernels(torch, ops, fa, da, rw,
+                                 model_cases(torch, dev, ops, fa, da, rw))
+
+        k_ms, p_ms, lib_ms, a_bound = a["timing"][(1, 514)]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/hmmu_lookup.cu",
@@ -526,6 +852,7 @@ def main() -> int:
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
+            *model_kernel_rows(m6),
         ]
         print(f"    kernel A alone at B=1 m=514: {k_ms * 1e3:.2f} us")
         print(json.dumps({"kernels": kernels}))

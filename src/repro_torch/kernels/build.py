@@ -35,6 +35,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # ctypes argument kinds of the C entry points.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float
+
+# The ``dtype`` argument of the attention and RWKV entry points.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(name: str, *tensors: torch.Tensor) -> int:
+    """The entry points' code for the one floating type of ``tensors``;
+    raises TypeError on mixed or unsupported types."""
+    types = {t.dtype for t in tensors}
+    if len(types) != 1 or next(iter(types)) not in DTYPE_CODE:
+        raise TypeError(f"{name} takes all-float32 or all-bfloat16 inputs, "
+                        f"got {sorted(map(str, types))}")
+    return DTYPE_CODE[types.pop()]
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Raise ValueError unless every tensor is contiguous on one CUDA
+    device; returns that device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} needs all its tensors on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return devices.pop()
 
 
 def _nvcc() -> str:

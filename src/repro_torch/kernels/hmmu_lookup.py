@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import INT, PTR, CudaKernel
+from .build import INT, PTR, CudaKernel, check_cuda
 from .ref import fused_gather, hmmu_lookup as hmmu_lookup_plain
 
 ROW_W = 8
@@ -27,9 +27,7 @@ KERNEL = CudaKernel("hmmu_lookup", "hmmu_lookup_launch",
 def hmmu_lookup_cuda(table: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA gather. table: int32[*batch, n_pages, 8] and pages:
     int32[*batch, m], both contiguous on one CUDA device."""
-    if not (table.is_cuda and pages.is_cuda) or table.device != pages.device:
-        raise ValueError("hmmu_lookup_cuda needs table and pages on one "
-                         "CUDA device")
+    dev = check_cuda("hmmu_lookup_cuda", table, pages)
     if table.dtype != torch.int32 or pages.dtype != torch.int32:
         raise TypeError("hmmu_lookup_cuda takes int32 table and pages")
     if table.dim() < 2 or table.shape[-1] != ROW_W:
@@ -38,14 +36,11 @@ def hmmu_lookup_cuda(table: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     if pages.shape[:-1] != table.shape[:-2]:
         raise ValueError(f"batch dims disagree: table {tuple(table.shape)} "
                          f"vs pages {tuple(pages.shape)}")
-    if not (table.is_contiguous() and pages.is_contiguous()):
-        raise ValueError("hmmu_lookup_cuda needs contiguous tensors")
     n_pages, m = table.shape[-2], pages.shape[-1]
     batch = pages.numel() // max(m, 1)
-    out = torch.empty(*pages.shape, ROW_W, dtype=torch.int32,
-                      device=table.device)
+    out = torch.empty(*pages.shape, ROW_W, dtype=torch.int32, device=dev)
     if out.numel():
-        KERNEL.launch(table.device, table.data_ptr(), pages.data_ptr(),
+        KERNEL.launch(dev, table.data_ptr(), pages.data_ptr(),
                       out.data_ptr(), batch, n_pages, m)
     return out
 

@@ -1,10 +1,52 @@
-"""Kernel entry points of the emulator, dispatched by the tensors' device
-(the port's counterpart of ``repro.kernels.ops``): a CPU tensor takes the
-kernel's plain PyTorch version, a CUDA tensor launches the hand-written
-kernel or the call raises. There is no environment switch and no
-fallback."""
+"""Kernel entry points, dispatched by the tensors' device (the port's
+counterpart of ``repro.kernels.ops``): a CPU tensor takes the kernel's
+plain PyTorch version, a CUDA tensor launches the hand-written kernel or
+the call raises. There is no environment switch and no fallback.
+
+``flash_attention`` is differentiable: its forward is the kernel, and its
+backward re-runs the plain ``ref.attention`` under autograd, as the JAX
+package's ``custom_vjp`` recomputes through its reference.
+"""
 from __future__ import annotations
 
-from .hmmu_lookup import hmmu_lookup, hmmu_lookup_fused
+import torch
 
-__all__ = ["hmmu_lookup", "hmmu_lookup_fused"]
+from . import ref
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention as _flash
+from .hmmu_lookup import hmmu_lookup, hmmu_lookup_fused
+from .rwkv_scan import rwkv_chunk_scan as _rwkv
+
+__all__ = ["hmmu_lookup", "hmmu_lookup_fused", "flash_attention",
+           "decode_attention", "rwkv_chunk"]
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        return _flash(q, k, v, causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.mask
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.attention(*inputs, causal=causal, window=window,
+                                scale=scale)
+        grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """[B, Hq, Sq, D] x [B, Hkv, Skv, D]^2 -> [B, Hq, Sq, D]."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def rwkv_chunk(r, k, v, logw, u, *, chunk: int = 128) -> torch.Tensor:
+    """[B,H,S,D]^4 + [H,D] -> fp32 [B,H,S,Dv]; the final state is not
+    returned (``models.rwkv.rwkv_chunk_scan`` gives it)."""
+    return _rwkv(r, k, v, logw, u, chunk)

@@ -1,8 +1,11 @@
-"""Plain PyTorch versions of the HMMU table gather (the port's
-counterpart of the HMMU part of ``repro.kernels.ref``)."""
+"""Plain PyTorch versions of the kernels' functions (the port's
+counterpart of ``repro.kernels.ref``): the HMMU table gather and the
+attention oracles."""
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30   # finite mask sentinel: exp(NEG_INF - NEG_INF) is 1, not NaN
 
 
 def hmmu_lookup(table: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -25,3 +28,61 @@ def fused_gather(lookup, table: torch.Tensor, pages: torch.Tensor,
     n = pages.shape[-1]
     return rows[..., :n, :], rows[..., n:, :]
 
+
+def _gqa_expand(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
+    """[B, Hkv, S, D] -> [B, Hq, S, D] by repeating each kv head."""
+    group = n_q_heads // k.shape[1]
+    return k.repeat_interleave(group, dim=1) if group > 1 else k
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention with GQA, causal and sliding-window masking.
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; the q rows are the last Sq
+    positions of the kv sequence. fp32 logits, output in ``q.dtype``."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _gqa_expand(k, q.shape[1])
+    v = _gqa_expand(v, q.shape[1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    ki = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= qi - ki < window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     scale: float | None = None,
+                     window: int | None = None) -> torch.Tensor:
+    """Single-token attention over a padded KV cache. q: [B, Hq, D];
+    caches: [B, Hkv, Smax, D]; kv_len: int32[B], the number of valid
+    entries per sequence.
+
+    A sequence with ``kv_len == 0`` softmaxes over an all-sentinel row and
+    returns the mean of V, as ``repro.kernels.ref.decode_attention`` does;
+    the CUDA kernel, like the JAX Pallas kernel, returns 0 there."""
+    d = q.shape[-1]
+    smax = k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _gqa_expand(k_cache, q.shape[1]).float()
+    v = _gqa_expand(v_cache, q.shape[1]).float()
+    logits = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+    ki = torch.arange(smax, device=q.device)[None, None, :]
+    n = kv_len.to(q.device)[:, None, None]
+    mask = ki < n
+    if window is not None:
+        mask &= ki >= n - window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhk,bhkd->bhd", p, v)
+    return out.to(q.dtype)

@@ -193,6 +193,43 @@ def test_step_ref_without_faults_or_retirement(resolver):
         assert_same((jt, jsc, jbf, jo), (tt, tsc, tbf, to), f"chunk {c}")
 
 
+@pytest.mark.parametrize("policy", POLICIES)
+def test_step_ref_seq_indices_stay_in_bounds(policy):
+    """Out-of-range indices reach the plain step from every side: trace
+    pages past the table and negative, fault deaths naming pages past the
+    end, and a rescue register past the end. On the CPU an out-of-range
+    PyTorch index raises, so this run shows that every advanced index of
+    the plain step (the retire and policy phases included) is clamped or
+    wrapped, and the results still equal JAX's bit for bit."""
+    cfg_j, cfg_t, js, arrays, jplan = _scenario(policy, seed=3)
+    n_pages = cfg_j.n_pages
+    page = arrays[0].copy()
+    page[::7] = n_pages + 5
+    page[3::11] = -3
+    page[5::13] = -n_pages - 9
+    arrays = (page, *arrays[1:])
+    deaths = np.asarray(jplan.deaths).copy()
+    deaths[:, 1] = n_pages + np.arange(len(deaths))
+    jplan = jplan._replace(deaths=jnp.asarray(deaths))
+    js = js._replace(rescue_page=jnp.int32(n_pages + 1))
+    jreg = jcore.PolicyRegistry.snapshot(POLICIES)
+    jp = cfg_j.runtime()
+    tp, tplan = t_params(jp), t_plan(jplan)
+    ts = t_state(js)
+    jt, jsc, jbf = js.table, _j_scalars(js), js.bank_free
+    tt, tsc, tbf = ts.table, _t_scalars(ts), ts.bank_free
+    for c in range(len(page) // cfg_j.chunk):
+        sl = slice(c * cfg_j.chunk, (c + 1) * cfg_j.chunk)
+        chunk = [a[sl] for a in arrays]
+        jt, jsc, jbf, jo = _jstep(cfg_j.with_(policy="hotness"), jreg, jt,
+                                  jp, jsc, jbf, *map(jnp.asarray, chunk),
+                                  jplan, seq=True)
+        tt, tsc, tbf, to = tcs.step_ref(cfg_t, PolicyRegistry.snapshot(),
+                                        tt, tp, tsc, tbf, *map(T, chunk),
+                                        tplan, seq=True)
+        assert_same((jt, jsc, jbf, jo), (tt, tsc, tbf, to), f"chunk {c}")
+
+
 def test_step_ref_matches_interpreted_pallas_kernel():
     """One run of the JAX one-kernel chunk step (interpret mode) against
     the plain version of the CUDA kernel."""
