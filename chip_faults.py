@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Show that phase 6 of ``chip_smoke.py`` catches a wrong model kernel.
+
+Run from the root of a checkout, with one CUDA device visible:
+
+    python3 chip_faults.py
+
+Each planted fault is one edit to one CUDA source (a skipped kv or cache
+tile, a mask edge moved by one key, a dropped RWKV state update), made in
+a temporary copy of ``src/`` and ``chip_smoke.py``, never in the
+checkout. In a process of its own the faulty kernel runs the phase-6
+cases of its kernel at full width, and each result is held to its plain
+version by ``chip_smoke.case_error`` (``ref.kernel_error``'s allowance).
+One JSON line per case gives the error's share of the allowance and of
+the old absolute bfloat16 limit (2e-2, scaled where |value| > 1). The
+script exits nonzero when a fault escapes the allowance in every case of
+its kernel, or when a fault cannot be planted or run.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parent
+CSRC = "src/repro_torch/kernels/csrc/"
+
+# (name, kernel, source, text, its faulty replacement)
+FAULTS = [
+    ("flash: middle kv tile skipped", "flash_attention",
+     CSRC + "flash_attention.cu",
+     "    if (!needed) continue;                  // uniform over the block",
+     "    if (!needed || t == n_tiles / 2) continue;"),
+    ("flash: window edge one key wide", "flash_attention",
+     CSRC + "flash_attention.cu",
+     "        if (has_window) ok = ok && (qi - ki < window);",
+     "        if (has_window) ok = ok && (qi - ki <= window);"),
+    ("decode: middle cache tile skipped", "decode_attention",
+     CSRC + "decode_attention.cu",
+     "    if (!needed) continue;                     // uniform over the block",
+     "    if (!needed || t == ((has_window ? max(len - window, 0) : 0) + len"
+     " - 1) / (2 * kBK)) continue;"),
+    ("decode: kv_len edge one row wide", "decode_attention",
+     CSRC + "decode_attention.cu",
+     "        bool ok = ki < len;", "        bool ok = ki <= len;"),
+    ("rwkv: one chunk's state update dropped", "rwkv_scan",
+     CSRC + "rwkv_scan.cu",
+     "      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) + acc;",
+     "      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) +"
+     " (n0 == s / 2 ? 0.f : acc);"),
+]
+
+# Runs in the faulty copy: argv = fault name, kernel name.
+CHILD = r'''
+import json, sys
+import torch
+sys.path.insert(0, "src")
+import chip_smoke as cs
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rwkv_scan as rw
+
+torch.backends.cuda.matmul.allow_tf32 = False
+fault, kernel = sys.argv[1], sys.argv[2]
+dev = cs.cuda_device(torch)
+for case in cs.model_cases(torch, dev, ops, fa, da, rw):
+    if case.kernel != kernel or "gradient" in case.label:
+        continue
+    got, want = case.kernel_call(), case.plain()
+    torch.cuda.synchronize()
+    row = {"fault": fault, "case": case.label, "dtype": case.dtype}
+    try:
+        row["max_abs_err"], row["share"] = cs.case_error(ref, case, got, want)
+    except cs.Mismatch as e:
+        row.update(share=float("inf"), why=str(e))
+    diff = (got.float() - want.float()).abs()
+    if case.dtype == "bfloat16" and kernel != "rwkv_scan":
+        old = diff / want.float().abs().clamp_min(1.0) / 2e-2
+        row["share_of_old_limit"] = float(old.max())
+    row["caught"] = not row["share"] <= 1.0
+    print(json.dumps(row), flush=True)
+'''
+
+
+def main() -> int:
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_faults_") as tmp:
+        for i, (name, kernel, source, text, faulty) in enumerate(FAULTS):
+            copy = pathlib.Path(tmp) / str(i)
+            shutil.copytree(ROOT / "src", copy / "src",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(ROOT / "chip_smoke.py", copy)
+            path = copy / source
+            code = path.read_text()
+            if code.count(text) != 1:
+                failed.append(f"{name}: the text to replace is not in "
+                              f"{source} exactly once")
+                continue
+            path.write_text(code.replace(text, faulty))
+            run = subprocess.run([sys.executable, "-c", CHILD, name, kernel],
+                                 cwd=copy, capture_output=True, text=True,
+                                 timeout=900)
+            print(run.stdout, end="", flush=True)
+            rows = [json.loads(ln) for ln in run.stdout.splitlines()
+                    if ln.startswith("{")]
+            if run.returncode != 0 or not rows:
+                failed.append(f"{name}: exit {run.returncode}\n"
+                              f"{run.stderr[-3000:]}")
+            elif not any(r["caught"] for r in rows):
+                failed.append(f"{name}: passed the allowance in every case")
+    for f in failed:
+        print(f"chip_faults: {f}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

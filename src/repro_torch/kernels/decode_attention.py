@@ -4,13 +4,12 @@ hand-written CUDA kernel for Hopper.
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (its ``pallas_call`` at line 100). Per-sequence
 ``kv_len``, an optional sliding window, cache tiles past ``kv_len``
-skipped; see ``csrc/decode_attention.cu``.
-
-``decode_attention`` dispatches on the tensors' device: a CPU tensor takes
-the plain version (:func:`decode_attention_plain`), a CUDA tensor launches
-the kernel or raises. The two differ where ``kv_len == 0``: the kernel
-returns 0 there (as the TPU kernel does), the plain version the mean of V
-(as the JAX reference does).
+skipped; see ``csrc/decode_attention.cu``. The plain version is
+:func:`decode_attention_plain` (``ref.decode_attention``);
+``ops.decode_attention`` chooses between the two by the tensors' device.
+The two differ where ``kv_len == 0``: the kernel returns 0 there (as the
+TPU kernel does), the plain version the mean of V (as the JAX reference
+does).
 """
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ import torch
 
 from .build import FLOAT, INT, PTR, CudaKernel, check_cuda, dtype_code
 from .ref import decode_attention as decode_attention_plain
+
+__all__ = ["KERNEL", "decode_attention_cuda", "decode_attention_plain"]
 
 KERNEL = CudaKernel("decode_attention", "decode_attention_launch",
                     (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
@@ -60,16 +61,3 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                   kv_len.data_ptr(), out.data_ptr(), code, b, hq, hkv, smax,
                   d, int(window is not None), int(window or 0), float(scale))
     return out
-
-
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
-                     scale: float | None = None,
-                     window: int | None = None) -> torch.Tensor:
-    """The plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors."""
-    if q.is_cuda or k_cache.is_cuda or v_cache.is_cuda or kv_len.is_cuda:
-        return decode_attention_cuda(q, k_cache, v_cache, kv_len,
-                                     scale=scale, window=window)
-    return decode_attention_plain(q, k_cache, v_cache, kv_len, scale=scale,
-                                  window=window)

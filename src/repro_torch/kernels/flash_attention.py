@@ -4,10 +4,8 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention`` (its ``pallas_call`` at line 111). Causal and
 sliding-window masks, a query that is the tail of the kv sequence, fp32
 online softmax, output in ``q.dtype``; see ``csrc/flash_attention.cu``.
-
-``flash_attention`` dispatches on the tensors' device: a CPU tensor takes
-the plain version (:func:`flash_attention_plain`, ``ref.attention``), a
-CUDA tensor launches the kernel or raises.
+The plain version is :func:`flash_attention_plain` (``ref.attention``);
+``ops.flash_attention`` chooses between the two by the tensors' device.
 """
 from __future__ import annotations
 
@@ -15,6 +13,8 @@ import torch
 
 from .build import FLOAT, INT, PTR, CudaKernel, check_cuda, dtype_code
 from .ref import attention as flash_attention_plain
+
+__all__ = ["KERNEL", "flash_attention_cuda", "flash_attention_plain"]
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
                     (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
@@ -54,15 +54,3 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out.data_ptr(), code, b, hq, hkv, sq, skv, d, int(causal),
                   int(window is not None), int(window or 0), float(scale))
     return out
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
-    """The forward pass: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
-    if q.is_cuda or k.is_cuda or v.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=scale)
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 scale=scale)

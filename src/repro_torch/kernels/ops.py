@@ -12,13 +12,17 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .decode_attention import decode_attention
-from .flash_attention import flash_attention as _flash
+from .decode_attention import decode_attention_cuda
+from .flash_attention import flash_attention_cuda
 from .hmmu_lookup import hmmu_lookup, hmmu_lookup_fused
-from .rwkv_scan import rwkv_chunk_scan as _rwkv
+from .rwkv_scan import rwkv_chunk_scan_cuda, rwkv_scan_plain
 
 __all__ = ["hmmu_lookup", "hmmu_lookup_fused", "flash_attention",
            "decode_attention", "rwkv_chunk"]
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    return any(t.is_cuda for t in tensors)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -26,7 +30,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, scale)
-        return _flash(q, k, v, causal=causal, window=window, scale=scale)
+        fwd = flash_attention_cuda if _on_cuda(q, k, v) else ref.attention
+        return fwd(q, k, v, causal=causal, window=window, scale=scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -46,7 +51,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FlashAttention.apply(q, k, v, causal, window, scale)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     scale: float | None = None,
+                     window: int | None = None) -> torch.Tensor:
+    """[B, Hq, D] x [B, Hkv, Smax, D]^2 x int32[B] -> [B, Hq, D]. At
+    ``kv_len == 0`` the kernel gives 0, the plain version the mean of V."""
+    fn = decode_attention_cuda if _on_cuda(q, k_cache, v_cache, kv_len) \
+        else ref.decode_attention
+    return fn(q, k_cache, v_cache, kv_len, scale=scale, window=window)
+
+
 def rwkv_chunk(r, k, v, logw, u, *, chunk: int = 128) -> torch.Tensor:
     """[B,H,S,D]^4 + [H,D] -> fp32 [B,H,S,Dv]; the final state is not
     returned (``models.rwkv.rwkv_chunk_scan`` gives it)."""
-    return _rwkv(r, k, v, logw, u, chunk)
+    if _on_cuda(r, k, v, logw, u):
+        return rwkv_chunk_scan_cuda(r, k, v, logw, u, chunk)
+    return rwkv_scan_plain(r, k, v, logw, u, chunk)[0]

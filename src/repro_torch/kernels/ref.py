@@ -1,11 +1,45 @@
 """Plain PyTorch versions of the kernels' functions (the port's
 counterpart of ``repro.kernels.ref``): the HMMU table gather and the
-attention oracles."""
+attention oracles, and how far a model kernel may stand from them."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30   # finite mask sentinel: exp(NEG_INF - NEG_INF) is 1, not NaN
+
+# How far a model kernel's output may stand from its plain version's on
+# the card, both in the working type: |kernel - plain| <= atol + rtol *
+# |plain| at every element. float32 attention: the JAX kernel tests' 2e-5.
+# bfloat16 attention: both sides round float32 results once to bfloat16,
+# so they may differ by one bfloat16 step (at most 2^-7 of the value) plus
+# the float32 sums' own difference (under 1e-6 measured on an H100). The
+# limit scales with the value because attention that averages over
+# thousands of keys gives |out| ~ 0.01, where an absolute 2e-2 would pass
+# a dropped or repeated kv tile.
+ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
+# RWKV (float32 out): 1e-5 of the output's largest magnitude, since
+# kp = k exp(-cum) grows by up to exp(88) inside a chunk and the products
+# cancel (measured ~2e-7 of it on an H100).
+RWKV_TOL = 1e-5
+
+
+def kernel_error(kind: str, got: torch.Tensor,
+                 want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the largest share of the allowance) of a model
+    kernel's output ``got`` against its plain version's ``want`` of the
+    same type; ``kind`` is "attention" or "rwkv". A share above 1 fails."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise ValueError(f"kernel output {tuple(got.shape)} {got.dtype} vs "
+                         f"plain {tuple(want.shape)} {want.dtype}")
+    dtype = want.dtype
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if kind == "rwkv":
+        allowed = RWKV_TOL * want.abs().max().clamp_min(1e-30)
+    else:
+        atol, rtol = ATTN_TOL[dtype]
+        allowed = atol + rtol * want.abs()
+    return float(diff.max()), float((diff / allowed).max())
 
 
 def hmmu_lookup(table: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:

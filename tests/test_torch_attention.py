@@ -184,6 +184,38 @@ def test_decode_attention_kv_len_zero_is_the_reference_mean():
 
 
 # ------------------------------------------------------------ the CUDA side
+@pytest.mark.parametrize("entry", ["flash", "decode"])
+def test_kernel_allowance_catches_a_dropped_kv_tile(entry):
+    """``ref.kernel_error``, the limit the CUDA kernels are held to on the
+    card, in bfloat16 over 8k keys (|out| ~ 0.015): the same attention
+    with its keys summed in another order passes, the same attention with
+    one 64-row kv tile left out fails (in decode it stays inside an
+    absolute 2e-2)."""
+    skv = 8192
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _arrays(
+        9, (2, 4, 64) if entry == "decode" else (1, 4, 128, 64),
+        (2, 2, skv, 64), (2, 2, skv, 64)))
+    if entry == "decode":
+        def attend(k, v):
+            n = torch.full((2,), k.shape[2], dtype=torch.int32)
+            return t_ref.decode_attention(q, k, v, n)
+    else:
+        q = q.expand(2, -1, -1, -1).contiguous()
+
+        def attend(k, v):
+            return t_ref.attention(q, k, v, causal=False)
+    want = attend(k, v)
+    perm = torch.randperm(skv, generator=torch.Generator().manual_seed(0))
+    err, share = t_ref.kernel_error("attention", attend(k[:, :, perm],
+                                                        v[:, :, perm]), want)
+    assert 0 < err and share <= 1.0
+    keep = torch.cat([torch.arange(4096), torch.arange(4160, skv)])
+    err, share = t_ref.kernel_error("attention", attend(k[:, :, keep],
+                                                        v[:, :, keep]), want)
+    assert share > 1.0
+    assert entry == "flash" or err < 2e-2
+
+
 @pytest.mark.parametrize("launch", ["flash", "decode"])
 def test_cuda_launchers_reject_cpu_tensors(launch):
     q, k = _arrays(7, (1, 2, 64, 16), (1, 2, 64, 16))

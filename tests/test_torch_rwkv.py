@@ -84,3 +84,12 @@ def test_rwkv_cuda_launcher_rejects_cpu_tensors():
     _, ts = _both(_inputs(8), "float32")
     with pytest.raises(ValueError, match="CUDA"):
         t_rw.rwkv_chunk_scan_cuda(*ts, chunk=16)
+
+
+def test_rwkv_kernel_shared_memory_need():
+    """The wrapper's count of the kernel's shared memory: ~212 KB at chunk
+    128 and rwkv6 width, which fits the H100's 227 KB opt-in limit; chunk
+    140 does not, and the wrapper refuses it by name on the card."""
+    assert t_rw.smem_bytes(128, 64, 64) == 216_832
+    assert t_rw.smem_bytes(140, 64, 64) > 227 * 1024
+    assert t_rw.smem_bytes(192, 64, 64) > 227 * 1024
