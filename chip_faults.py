@@ -5,8 +5,9 @@ Run from the root of a checkout, with one CUDA device visible:
 
     python3 chip_faults.py
 
-Each planted fault is one edit to one CUDA source (a skipped kv or cache
-tile, a mask edge moved by one key, a dropped RWKV state update), made in
+Each planted fault is one edit to one CUDA source (a skipped kv tile in
+either flash path, a split dropped by the decode combine, a mask edge
+moved by one key, a dropped RWKV state update), made in
 a temporary copy of ``src/`` and ``chip_smoke.py``, never in the
 checkout. In a process of its own the faulty kernel runs the phase-6
 cases of its kernel at full width, and each result is held to its plain
@@ -30,22 +31,29 @@ CSRC = "src/repro_torch/kernels/csrc/"
 
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
-    ("flash: middle kv tile skipped", "flash_attention",
+    ("flash wgmma: middle kv tile skipped", "flash_attention",
+     CSRC + "flash_attention.cu",
+     "      const int k0 = t * BK;\n",
+     "      const int k0 = t * BK;\n"
+     "      if (t == (tr.first + tr.last) / 2)\n"
+     "        for (int j = 0; j < BK / 2; ++j) s[j] = -INFINITY;\n"),
+    ("flash wgmma: window edge one key wide", "flash_attention",
+     CSRC + "flash_attention.cu",
+     "              ok_a = ok_a && (qi_a - ki < window);\n"
+     "              ok_b = ok_b && (qi_b - ki < window);",
+     "              ok_a = ok_a && (qi_a - ki <= window);\n"
+     "              ok_b = ok_b && (qi_b - ki <= window);"),
+    ("flash fma: middle kv tile skipped", "flash_attention",
      CSRC + "flash_attention.cu",
      "    if (!needed) continue;                  // uniform over the block",
      "    if (!needed || t == n_tiles / 2) continue;"),
-    ("flash: window edge one key wide", "flash_attention",
-     CSRC + "flash_attention.cu",
-     "        if (has_window) ok = ok && (qi - ki < window);",
-     "        if (has_window) ok = ok && (qi - ki <= window);"),
-    ("decode: middle cache tile skipped", "decode_attention",
+    ("decode: middle split dropped in the combine", "decode_attention",
      CSRC + "decode_attention.cu",
-     "    if (!needed) continue;                     // uniform over the block",
-     "    if (!needed || t == ((has_window ? max(len - window, 0) : 0) + len"
-     " - 1) / (2 * kBK)) continue;"),
+     "      const float w = expf(ml[2 * s] - mx);",
+     "      const float w = s == n_used / 2 ? 0.f : expf(ml[2 * s] - mx);"),
     ("decode: kv_len edge one row wide", "decode_attention",
      CSRC + "decode_attention.cu",
-     "        bool ok = ki < len;", "        bool ok = ki <= len;"),
+     "  r.hi = min(len, smax);", "  r.hi = min(len + 1, smax);"),
     ("rwkv: one chunk's state update dropped", "rwkv_scan",
      CSRC + "rwkv_scan.cu",
      "      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) + acc;",

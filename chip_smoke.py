@@ -33,12 +33,16 @@ Phases, each printing its lines in order:
    ``ops.flash_attention``, ``ops.decode_attention`` and
    ``ops.rwkv_chunk`` driven once per case at the widths of the repo's
    configurations (minitron-8b, gemma3-4b, phi3-mini, rwkv6-7b; inputs
-   from fixed seeds on the card), each launch counted; then each case
-   against its plain version on the same inputs (max abs error and its
-   share of ``repro_torch.kernels.ref.kernel_error``'s allowance), the
-   kernel's device time, the plain version's, a library yardstick's
-   where one PyTorch call computes the same function
-   (``scaled_dot_product_attention``), and the bound.
+   from fixed seeds on the card), each launch counted, and the flash
+   kernel's path per call ("wgmma" for every bf16 case, "fma" for fp32);
+   the count of ``HGMMA`` and ``UTMALDG`` instructions in the flash
+   library's SASS where ``cuobjdump`` is found; then each case against
+   its plain version on the same inputs (max abs error and its share of
+   ``repro_torch.kernels.ref.kernel_error``'s allowance), the kernel's
+   device time, the plain version's, a library yardstick's where one
+   PyTorch call computes the same function
+   (``scaled_dot_product_attention``), and the bound. A case whose bytes
+   fit in the 50 MB L2 is timed with the L2 flushed before each call.
 7. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +127,40 @@ def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_resources(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry function in a
+    build log of ``nvcc -Xptxas -v``, template arguments shortened
+    (``flash_wgmma_kernel<128>``, ``decode_split_kernel<bf16,1,4>``)."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            # The Itanium name's components are <length><identifier>; the
+            # kernel's own name is the last of them.
+            k = ([k for k in re.finditer(
+                r"(?=(\d+)([A-Za-z_]\w*?_kernel))", mangled)
+                if int(k.group(1)) == len(k.group(2))] or [None])[-1]
+            if k is None:                     # an extern "C" or odd name
+                name = mangled
+                continue
+            end = k.start() + len(k.group(1)) + len(k.group(2))
+            t = re.match(r"I(\w*?)EE", mangled[end:])
+            args = re.sub(r"^f", "fp32,", t.group(1) if t else "")
+            args = args.replace("13__nv_bfloat16", "bf16,").replace(
+                "Li", "").replace("E", ",").strip(",")
+            name = f"{k.group(2)}<{args}>" if args else k.group(2)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def max_abs_diff(torch, a, b) -> int:
@@ -504,6 +542,48 @@ def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50 * 2 ** 20      # H100 L2 cache
+
+
+def flushed_ms(torch, fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` with the L2 cache flushed
+    before each call (a 64 MiB buffer read, so that no dirty line is left
+    to write back during the call): CUDA events around each call alone,
+    after one warm-up call."""
+    scrub = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        scrub.max()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def sass_counts(library: pathlib.Path) -> dict | None:
+    """Counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions in a kernel library's SASS, or None when no
+    ``cuobjdump`` is found (the CUDA toolkit's, or Triton's copy)."""
+    import shutil
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        tools.append(str(pathlib.Path(triton.__file__).parent / "backends"
+                         / "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and pathlib.Path(t).exists()), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: sum(op in ln for ln in sass.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+
+
 def attention_pairs(sq, skv, causal, window) -> int:
     """(q, k) pairs that the masks keep: q row r sits at r + skv - sq."""
     total = 0
@@ -549,24 +629,25 @@ def randn(torch, dev, seed, shape, dtype):
 
 
 def flash_case(torch, dev, ops, fa, label, config, seed, b, hq, hkv, sq, skv,
-               d, dtype, window=None, library=False):
+               d, dtype, window=None):
     F = torch.nn.functional
     dt = getattr(torch, dtype)
     q = randn(torch, dev, seed, (b, hq, sq, d), dt)
     k = randn(torch, dev, seed + 1, (b, hkv, skv, d), dt)
     v = randn(torch, dev, seed + 2, (b, hkv, skv, d), dt)
     kw = dict(causal=True, window=window)
-    lib = None
-    if library:
-        if window is None:
-            lib = lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
-        else:
-            qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
-            ki = torch.arange(skv, device=dev)[None, :]
-            mask = (ki <= qi) & (qi - ki < window)
-            lib = lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True)
+    if window is None and sq == skv:
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        # SDPA's is_causal is top-left; the kernel's mask is bottom-right.
+        qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+        ki = torch.arange(skv, device=dev)[None, :]
+        mask = ki <= qi
+        if window is not None:
+            mask &= qi - ki < window
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
     flops = 4 * b * hq * d * attention_pairs(sq, skv, True, window)
     byts = nbytes(q, k, v, q)
     return Case("flash_attention", label, config, dtype,
@@ -658,10 +739,10 @@ def model_cases(torch, dev, ops, fa, da, rw) -> list:
     the batch cut to 8)."""
     return [
         flash_case(torch, dev, ops, fa, "prefill, causal", "minitron-8b",
-                   100, 1, 32, 8, 4096, 4096, 128, "bfloat16", library=True),
+                   100, 1, 32, 8, 4096, 4096, 128, "bfloat16"),
         flash_case(torch, dev, ops, fa, "local layer, window 1024",
                    "gemma3-4b", 110, 1, 8, 4, 4096, 4096, 256, "bfloat16",
-                   window=1024, library=True),
+                   window=1024),
         flash_case(torch, dev, ops, fa, "continuation, q_off 3072",
                    "minitron-8b", 120, 1, 32, 8, 1024, 4096, 128,
                    "bfloat16"),
@@ -704,36 +785,58 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
                "rwkv_scan": rw.KERNEL}
     torch.cuda.synchronize()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     outs = [case.run() for case in cases]
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
     want = {name: sum(c.kernel == name for c in cases) for name in kernels}
-    print(f"  the path: {len(cases)} calls through ops.*, launches {counts}")
+    variants = dict(fa.KERNEL.variant_launches)
+    bf16 = sum(c.kernel == "flash_attention" and c.dtype == "bfloat16"
+               for c in cases)
+    print(f"  the path: {len(cases)} calls through ops.*, launches {counts}; "
+          f"flash variants {variants}")
     if counts != want:
         raise Mismatch(f"phase 6 launched {counts}, expected {want}")
+    if variants["wgmma"] != bf16:
+        raise Mismatch(f"{variants['wgmma']} of the {bf16} bf16 flash cases "
+                       "took the wgmma path")
+    sass = sass_counts(fa.KERNEL.library)
+    if sass is None:
+        print("  flash SASS: not checked (no cuobjdump found)")
+    else:
+        print(f"  flash SASS: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} "
+              "UTMALDG instructions")
+        if sass["HGMMA"] == 0:
+            raise Mismatch("the flash library holds no HGMMA instruction")
     results = []
     for case, got in zip(cases, outs):
         plain = case.plain()
         err, over = case_error(ref, case, got, plain)
         del plain
-        ms = event_ms(torch, case.kernel_call)
-        plain_ms = event_ms(torch, case.plain)
-        lib_ms = event_ms(torch, case.library) if case.library else None
+        # A case whose bytes fit in L2 would find them there on repeated
+        # launches; it is timed cold, as its caller would find it.
+        cold = case.byts < L2_BYTES
+        timer = (lambda fn: flushed_ms(torch, fn)) if cold else \
+            (lambda fn: event_ms(torch, fn))
+        ms = timer(case.kernel_call)
+        plain_ms = timer(case.plain)
+        lib_ms = timer(case.library) if case.library else None
         bound_ms, bound_by = bound(case.flops, case.byts, case.dtype)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         print(f"  {case.kernel:16s} {case.config:12s} {case.label:30s} "
               f"{case.dtype}: max|err| {err:.3e} ({over:.3f} of its "
               f"allowance); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{case.flops:.4e} flop, {case.byts:.4e} B)", flush=True)
+              f"{case.flops:.4e} flop, {case.byts:.4e} B)"
+              f"{'; L2 flushed before each launch' if cold else ''}",
+              flush=True)
         if over > 1.0:
             raise Mismatch(f"{case.kernel} {case.label}: max|err| {err:.3e} "
                            f"exceeds its allowance")
         results.append({"case": case, "err": err, "ms": ms,
                         "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by})
-    return {"counts": counts, "results": results}
+    return {"counts": counts, "variants": variants, "results": results}
 
 
 def model_kernel_rows(m6) -> list:
@@ -798,9 +901,9 @@ def main() -> int:
         print(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
               f"{build.BUILD_DIR}", flush=True)
         for k in all_kernels:
-            info = [ln.strip() for ln in k.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-            print(f"    {k.name}: {k.library.name}; {' | '.join(info)}")
+            print(f"    {k.name}: {k.library.name}; registers / spilled "
+                  f"bytes: " + ", ".join(f"{n} {r}/{sp}" for n, r, sp in
+                                         kernel_resources(k.build_log)))
 
         print("[3] kernel A (hmmu_lookup) against its plain version",
               flush=True)

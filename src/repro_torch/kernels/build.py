@@ -31,6 +31,14 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-prec-div=true",
               "-Xptxas", "-v")
+# REPRO_KERNEL_DEBUG=1 adds a bounded spin to every mbarrier wait, which
+# traps (a launch error) instead of hanging the card.
+DEBUG_FLAGS = ("-DREPRO_HANG_TRAP",)
+
+
+def nvcc_flags() -> tuple[str, ...]:
+    debug = os.environ.get("REPRO_KERNEL_DEBUG") == "1"
+    return NVCC_FLAGS + (DEBUG_FLAGS if debug else ())
 
 # ctypes argument kinds of the C entry points.
 PTR = ctypes.c_void_p
@@ -78,22 +86,34 @@ class CudaKernel:
 
     ``launches`` is a plain integer that :meth:`launch` raises by one for
     every launch of the kernel and that nothing else touches; callers
-    reset it to 0 to count the launches of one run.
+    reset it to 0 (or call :meth:`reset`) to count the launches of one
+    run. A kernel with ``variants`` has an entry point that reports the
+    path it took through one more argument, an ``int*`` before the
+    stream, and :meth:`launch` counts that too, in ``variant_launches``.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: tuple):
+    def __init__(self, name: str, symbol: str, argtypes: tuple,
+                 variants: tuple[str, ...] = ()):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.variants = variants
         self.source = CSRC / f"{name}.cu"
         self.launches = 0
+        self.variant_launches = dict.fromkeys(variants, 0)
         self.build_log = ""
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(self.variants, 0)
 
     @property
     def library(self) -> pathlib.Path:
         h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(nvcc_flags()).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> subprocess.Popen | None:
@@ -104,7 +124,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         return subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *nvcc_flags(), "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: subprocess.Popen | None) -> None:
@@ -127,7 +147,8 @@ class CudaKernel:
             self.build()
             lib = ctypes.CDLL(str(self.library))
             fn = getattr(lib, self.symbol)
-            fn.argtypes = list(self.argtypes) + [PTR]   # + the stream
+            extra = [ctypes.POINTER(ctypes.c_int)] if self.variants else []
+            fn.argtypes = list(self.argtypes) + extra + [PTR]  # + stream
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -138,12 +159,16 @@ class CudaKernel:
         (pointers as ``tensor.data_ptr()``)."""
         fn = self._load()
         stream = torch.cuda.current_stream(device).cuda_stream
+        which = ctypes.c_int(-1)
+        extra = (ctypes.byref(which),) if self.variants else ()
         with torch.cuda.device(device):
-            err = fn(*args, stream)
+            err = fn(*args, *extra, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}")
         self.launches += 1
+        if self.variants:
+            self.variant_launches[self.variants[which.value]] += 1
 
 
 def build_all(kernels) -> None:

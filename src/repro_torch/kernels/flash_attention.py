@@ -4,6 +4,10 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention`` (its ``pallas_call`` at line 111). Causal and
 sliding-window masks, a query that is the tail of the kv sequence, fp32
 online softmax, output in ``q.dtype``; see ``csrc/flash_attention.cu``.
+Its entry point takes one of two paths by dtype and head dim and reports
+which: ``"wgmma"`` (bf16 at D 64, 128 or 256: TMA, wgmma, warp
+specialisation) or ``"fma"`` (every other case: fp32 FMAs on the CUDA
+cores); ``KERNEL.variant_launches`` counts each.
 The plain version is :func:`flash_attention_plain` (``ref.attention``);
 ``ops.flash_attention`` chooses between the two by the tensors' device.
 """
@@ -18,7 +22,7 @@ __all__ = ["KERNEL", "flash_attention_cuda", "flash_attention_plain"]
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
                     (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
-                     INT, INT, INT, FLOAT))
+                     INT, INT, INT, FLOAT), variants=("fma", "wgmma"))
 
 BLOCK = 128        # the TPU kernel's default q and kv block
 MAX_HEAD_DIM = 256

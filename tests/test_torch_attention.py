@@ -226,3 +226,121 @@ def test_cuda_launchers_reject_cpu_tensors(launch):
         else:
             t_da.decode_attention_cuda(tq[:, :, 0], tk, tk,
                                        torch.ones(1, dtype=torch.int32))
+
+
+# ------------------------------------------------------------ kernel designs
+def _split_partial(q, k, v, scale):
+    """One split's fp32 partial (m, l, acc): q [G, D] against the split's
+    rows k, v [n, D]; (-1e30, 0, 0) when n is 0."""
+    g, d = q.shape
+    if k.shape[0] == 0:
+        return torch.full((g,), t_ref.NEG_INF), torch.zeros(g), \
+            torch.zeros(g, d)
+    s = (q.float() @ k.float().T) * scale
+    m = s.max(dim=-1).values
+    p = torch.exp(s - m[:, None])
+    return m, p.sum(dim=-1), p @ v.float()
+
+
+def _split_decode(q, kc, vc, lens, window):
+    """The CUDA decode kernel's function in PyTorch: every split's plain
+    partial, then ``combine_partials`` (fp32)."""
+    b, hq, d = q.shape
+    _, hkv, smax, _ = kc.shape
+    g = hq // hkv
+    scale = d ** -0.5
+    n_split, length = t_da.split_plan(b, hkv, smax, window)
+    out = torch.empty(b, hq, d)
+    for bi in range(b):
+        ranges = t_da.split_ranges(int(lens[bi]), smax, n_split, length,
+                                   window)
+        for h in range(hkv):
+            qg = q[bi, h * g:(h + 1) * g]
+            parts = [_split_partial(qg, kc[bi, h, r0:max(r0, r1)],
+                                    vc[bi, h, r0:max(r0, r1)], scale)
+                     for r0, r1 in ranges]
+            m = torch.stack([p[0] for p in parts], dim=-1)      # [G, n]
+            l = torch.stack([p[1] for p in parts], dim=-1)
+            acc = torch.stack([p[2] for p in parts], dim=-2)    # [G, n, D]
+            out[bi, h * g:(h + 1) * g] = t_da.combine_partials(m, l, acc)
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_split_combine_matches_pallas(window):
+    """The split plan and the combine of the CUDA decode kernel, composed
+    from per-split plain attention, against the interpreted Pallas kernel
+    at kv_len 0, 1, on a split boundary and at Smax, and against the jnp
+    reference for kv_len >= 1, in fp32 within 2e-5."""
+    b, hq, hkv, smax, d = 4, 8, 2, 1024, 32
+    n_split, length = t_da.split_plan(b, hkv, smax, window)
+    assert n_split > 1 and n_split * length >= min(smax, window or smax)
+    lens = np.asarray([0, 1, 2 * length + (window or 0), smax], np.int32)
+    q, kc, vc = _arrays(20, (b, hq, d), (b, hkv, smax, d), (b, hkv, smax, d))
+    got = _split_decode(*map(torch.from_numpy, (q, kc, vc)), lens, window)
+    kern = j_decode(*map(jnp.asarray, (q, kc, vc, lens)), window=window,
+                    block_k=128, interpret=True)
+    _close(got, kern, 2e-5, "vs the Pallas kernel")
+    assert not got[0].any()                       # kv_len 0 gives 0
+    want = j_ref.decode_attention(*map(jnp.asarray, (q, kc, vc, lens)),
+                                  window=window)
+    _close(got[1:], np.asarray(want)[1:], 2e-5, "vs the jnp reference")
+
+
+def test_decode_split_ranges_cover_the_valid_rows():
+    """Every valid row is in exactly one split and no masked row in any,
+    for lengths around the split boundaries, with and without a window
+    that crosses them."""
+    smax = 4096
+    for window in (None, 100, 1000):
+        n_split, length = t_da.split_plan(2, 4, smax, window)
+        for n in (0, 1, length - 1, length, length + 1, 3 * length + 5,
+                  smax - 1, smax):
+            rows = [r for r0, r1 in t_da.split_ranges(n, smax, n_split,
+                                                      length, window)
+                    for r in range(r0, r1)]
+            lo = max(0, n - window) if window is not None else 0
+            assert rows == list(range(lo, n)), (window, n)
+
+
+def test_combine_partials_with_every_split_empty_is_zero():
+    m = torch.full((3, 5), t_ref.NEG_INF)
+    got = t_da.combine_partials(m, torch.zeros(3, 5), torch.zeros(3, 5, 8))
+    assert torch.equal(got, torch.zeros(3, 8))
+
+
+def test_flash_hi_lo_split_of_p_stays_in_the_allowance():
+    """Why the CUDA flash kernel's P V product runs twice: with P rounded
+    to bfloat16 the output leaves ``ref.kernel_error``'s bfloat16
+    allowance many times over (at outputs near zero); with P split into
+    hi = bf16(P) and lo = bf16(P - hi), summed in fp32, it stays inside."""
+    s, d = 256, 64
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _arrays(2, *[(1, 2, s, d)] * 3))
+    want = t_ref.attention(q, k, v)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -.5
+    causal = torch.arange(s)[None, :] <= torch.arange(s)[:, None]
+    logits = torch.where(causal, logits, t_ref.NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))   # as the kernel
+    l = p.sum(-1, keepdim=True)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    split = ((hi @ v.float() + lo @ v.float()) / l).bfloat16()
+    rounded = ((hi @ v.float()) / l).bfloat16()
+    assert t_ref.kernel_error("attention", split, want)[1] <= 1.0
+    assert t_ref.kernel_error("attention", rounded, want)[1] > 10.0
+
+
+def test_kernel_debug_build_traps_instead_of_hanging(monkeypatch):
+    """REPRO_KERNEL_DEBUG=1 builds the flash and decode kernels, whose
+    producer and consumers meet at mbarriers, with a bounded spin in every
+    wait (``hopper.cuh``), into a library of another name."""
+    from repro_torch.kernels import build
+    monkeypatch.delenv("REPRO_KERNEL_DEBUG", raising=False)
+    plain = {k.name: k.library for k in (t_fa.KERNEL, t_da.KERNEL)}
+    monkeypatch.setenv("REPRO_KERNEL_DEBUG", "1")
+    assert "-DREPRO_HANG_TRAP" in build.nvcc_flags()
+    for k in (t_fa.KERNEL, t_da.KERNEL):
+        assert k.library != plain[k.name]
+        assert '#include "hopper.cuh"' in k.source.read_text()
+    assert "__trap()" in (build.CSRC / "hopper.cuh").read_text()

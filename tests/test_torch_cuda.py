@@ -105,3 +105,44 @@ def test_rwkv_chunk_past_shared_memory_raises(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         t_rw.rwkv_chunk_scan_cuda(r, r, r, r, u, chunk=192)
     assert t_rw.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_takes_the_wgmma_path(cuda_device, d):
+    """bf16 at the wgmma head dims: causal prefill, a continuation (Sq <
+    Skv) with and without a window, a window over several kv tiles, a
+    ragged 32-row sequence, and non-causal; every call reports the
+    "wgmma" path."""
+    for b, hq, hkv, sq, skv, causal, window in (
+            (2, 4, 2, 256, 256, True, None), (1, 4, 1, 128, 384, True, None),
+            (2, 4, 2, 128, 512, True, 200), (1, 2, 2, 512, 512, True, 96),
+            (2, 2, 1, 32, 32, True, None), (1, 2, 1, 256, 256, False, 64)):
+        q, k, v = _normal(12, cuda_device, torch.bfloat16, (b, hq, sq, d),
+                          (b, hkv, skv, d), (b, hkv, skv, d))
+        before = t_fa.KERNEL.variant_launches["wgmma"]
+        got = _once(t_fa.KERNEL, lambda: t_ops.flash_attention(
+            q, k, v, causal=causal, window=window))
+        assert t_fa.KERNEL.variant_launches["wgmma"] == before + 1
+        _within("attention", got, t_fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_across_splits(cuda_device, dtype):
+    """kv_len 1, on and around split boundaries and across many splits,
+    and a window that crosses split boundaries; kv_len 0 gives 0."""
+    from repro_torch.kernels.decode_attention import split_plan
+    b, hq, hkv, smax, d = 6, 8, 2, 4096, 128
+    for window in (None, 300):
+        _, length = split_plan(b, hkv, smax, window)
+        lens = torch.tensor([0, 1, length, length + 1, 5 * length + 7, smax],
+                            dtype=torch.int32, device=cuda_device)
+        q, kc, vc = _normal(13, cuda_device, DTYPES[dtype], (b, hq, d),
+                            (b, hkv, smax, d), (b, hkv, smax, d))
+        got = _once(t_da.KERNEL, lambda: t_ops.decode_attention(
+            q, kc, vc, lens, window=window))
+        assert not got[0].any()
+        _within("attention", got[1:], t_da.decode_attention_plain(
+            q, kc, vc, lens, window=window)[1:])
