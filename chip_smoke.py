@@ -479,6 +479,23 @@ def kernel_b_numbers(torch, dev, rt, cs, main, n_chunks=256) -> dict:
         p = (pt, psc, pbf)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+    # The kernel's clock64() split of these chunks (thread 0's stamps).
+    phases = torch.zeros(1, len(cs.PHASES), dtype=torch.int64, device=dev)
+    st = eng.init_state()
+    k = (st.table, scalars_of(cs, st), st.bank_free)
+    for c in range(n_chunks):
+        sl = slice(c * cfg.chunk, (c + 1) * cfg.chunk)
+        kt, ksc, kbf, _ = cs.chunk_step(eng.cfg, reg, k[0], params, k[1],
+                                        k[2], sub.page[sl], sub.offset[sl],
+                                        sub.is_write[sl], sub.size[sl], valid,
+                                        phases=phases)
+        k = (kt, ksc, kbf)
+    cyc = phases[0].tolist()
+    tot = sum(cyc)
+    print("  kernel B phase split (clock64, share of the cycles; us/chunk "
+          "at the device time): " + ", ".join(
+              f"{nm} {c / tot:.3f} ({c / tot * k_ms * 1e3:.2f})"
+              for nm, c in zip(cs.PHASES, cyc)))
     # Bytes the step must move on these chunks: the request vectors in
     # (5 x 4 B) and out (5 x 4 B), one 32 B row read and one 4 B HOTNESS
     # word written per distinct page, a 4 B WEAR word per distinct slow

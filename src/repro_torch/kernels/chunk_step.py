@@ -474,12 +474,15 @@ FLOAT_PARAM_ORDER = tuple(f for f in RuntimeParams._fields
                           if f in FLOAT_PARAM_FIELDS)
 # Output scalars: the 14 state slots, then held, retired, tombstone.
 N_OUT_SC = len(SC_FIELDS) + 3
+# The kernel's clock64() split of a chunk (csrc/chunk_step.cu: enum Phase).
+PHASES = ("load", "rx", "redirect", "stage345", "commit", "satw", "decay",
+          "retire", "policy")
 
 _I32 = torch.int32
 
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
-    (PTR,) * 19 + (INT,) * 11)
+    (PTR,) * 20 + (INT,) * 11)
 
 
 def _pack_scalars(params: RuntimeParams, sc: StepScalars):
@@ -514,7 +517,7 @@ def _registry_map(builtin_ids: tuple, device: str) -> torch.Tensor:
 
 def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
                     table, ints, floats, bank_free, page, offset, is_write,
-                    size, valid, transient, deaths):
+                    size, valid, transient, deaths, phases=None):
     """Launch the CUDA chunk step on B design points at once (one thread
     block each). Updates ``table`` int32[B, n_pages, 8] in place.
 
@@ -571,6 +574,7 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         transient.data_ptr(), deaths.data_ptr(), reg.data_ptr(),
         sc_out.data_ptr(), bank_out.data_ptr(),
         *(v.data_ptr() for v in vecs),
+        0 if phases is None else phases.data_ptr(),
         b, n_pages, chunk, cfg.n_banks, nt, nd, len(registry), wb,
         cfg.subblock, cfg.subblocks_per_page,
         cfg.page_size // cfg.line_size)
@@ -598,7 +602,7 @@ def use_chunk_step_kernel(cfg: EmulatorConfig, table: torch.Tensor) -> bool:
 def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
                table: torch.Tensor, params: RuntimeParams, sc: StepScalars,
                bank_free: torch.Tensor, page, offset, is_write, size, valid,
-               faults: faults_lib.FaultPlan | None = None):
+               faults: faults_lib.FaultPlan | None = None, phases=None):
     """THE chunk step — the CUDA kernel or the scan path, resolved by
     :func:`use_chunk_step_kernel` (bitwise equal either way). Signature
     and returns as :func:`step_ref`; ``table`` is updated in place."""
@@ -612,7 +616,7 @@ def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
         cfg, registry, table[None], ints[None], floats[None],
         bank_free[None], page[None], offset[None],
         is_write.to(_I32)[None], size[None], valid.to(_I32)[None],
-        faults.transient[None], faults.deaths[None])
+        faults.transient[None], faults.deaths[None], phases)
     sc2, held, retired, tombstone = _unpack_out_scalars(scv[0])
     outs = {"returns": returns[0], "device": dev[0], "latency": lat[0],
             "held": held, "poisoned": poi[0] != 0, "injected": inj[0] != 0,

@@ -99,6 +99,7 @@ struct Args {
   int* lat_out;
   int* poi_out;
   int* inj_out;
+  long long* phases;   // int64[B, N_PHASES] cycles per phase, or null
   int n_pages, chunk, n_banks, nt, nd, n_reg, wb_index, subblock, spp,
       charge;
 };
@@ -129,6 +130,10 @@ __device__ __forceinline__ int shr(int v, int s) {
 __device__ __forceinline__ int ceil_cycles(int size, float bpc) {
   return (int)ceilf(__fdiv_rn((float)size, bpc));
 }
+
+// Phases of the per-chunk clock64() split (kernels/chunk_step.py: PHASES).
+enum Phase { PH_LOAD, PH_RX, PH_REDIRECT, PH_STAGE345, PH_COMMIT, PH_SATW,
+             PH_DECAY, PH_RETIRE, PH_POLICY, N_PHASES };
 
 struct VI {
   int v, i;
@@ -208,6 +213,13 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   const int n = a.chunk, NP = a.n_pages, NB = 2 * a.n_banks;
   int* table = a.table + (long long)bi * NP * W;
   const long long vo = (long long)bi * n;   // offset of this point's vectors
+  long long ph_acc[N_PHASES] = {0}, t_prev = clock64();
+#define STAMP(ph)                                   \
+  if (a.phases && tid == 0) {                       \
+    long long t_now = clock64();                    \
+    ph_acc[ph] += t_now - t_prev;                   \
+    t_prev = t_now;                                 \
+  }
 
   int* s_page = smem;
   int* s_off = s_page + n;
@@ -241,6 +253,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     s_size[i] = v ? a.size[vo + i] : 0;
   }
   __syncthreads();
+  STAMP(PH_LOAD)
 
   // ---- step_ref: transient fault injection (observational only).
   {
@@ -270,6 +283,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   }
   const int half_link = floordiv(I[LINK_LAT], 2);
   __syncthreads();   // every s_issue slot is written before thread 0 reads
+  STAMP(PH_LOAD)
 
   // ---- stage 1: RX link max-plus (_seq_maxplus), one thread.
   if (tid == 0) {
@@ -285,6 +299,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     sh.rx_last = prev;
   }
   __syncthreads();
+  STAMP(PH_RX)
 
   // ---- stage 2: DMA swap-progress redirect (dma.redirect).
   {
@@ -307,6 +322,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     }
   }
   __syncthreads();
+  STAMP(PH_REDIRECT)
 
   // ---- stages 3-5 (_seq_bank_resolve, _seq_inorder, _seq_maxplus), one
   // thread: bank queues + media, tag-match in-order return, TX link.
@@ -337,6 +353,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     }
     sh.tx_last = s_ret[n - 1];
     sh.held = held;
+    STAMP(PH_STAGE345)
 
     // ---- commit_phase scalars: last return, now, the swap commit plan
     // (dma.plan_commit), the OWNER update, the policy-scoped weight.
@@ -406,6 +423,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
                    ? I[WRITE_WEIGHT] : 1;
   }
   __syncthreads();
+  STAMP(PH_COMMIT)
 
   // ---- commit_phase: weights and the pre-chunk WEAR of every target.
   for (int i = tid; i < n; i += nth) {
@@ -419,9 +437,11 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   }
   for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
   __syncthreads();
+  STAMP(PH_COMMIT)
   for (int k = tid; k < n + 10; k += nth)
     s_wpre[k] = ld(table, (long long)gidx(s_wrow[k], NP) * W + WEAR);
   __syncthreads();
+  STAMP(PH_COMMIT)
 
   // ---- table.saturating_weights for HOTNESS and WEAR (O(n^2)).
   for (int i = tid; i < n; i += nth) {
@@ -437,6 +457,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     s_wsat[k] = imin(imax(WEAR_CAP - s_wpre[k] - psum, 0), s_ww[k]);
   }
   __syncthreads();   // every pre-chunk read is done: the commit may write
+  STAMP(PH_SATW)
 
   // ---- commit_phase: ONE scatter-add of int32 deltas (mode="drop").
   {
@@ -456,6 +477,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     if (tid == 0) add(sh.own_idx, sh.own_delta);
   }
   __syncthreads();
+  STAMP(PH_COMMIT)
 
   // ---- commit_phase: decay shift and min-wear scrub on decay boundaries.
   const int do_decay =
@@ -479,6 +501,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   } else if (tid == 0) {
     sh.min_wear = I[MIN_WEAR];
   }
+  STAMP(PH_DECAY)
 
   // ---- retire_phase: a due FaultPlan death (thread 0) ...
   if (tid == 0) {
@@ -495,6 +518,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     sh.fault_cursor = I[FAULT_CURSOR] + consume;
   }
   __syncthreads();
+  STAMP(PH_RETIRE)
   // ... else the first endurance crossing among the observed pages.
   {
     VI f = identity<false>();
@@ -539,6 +563,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     }
   }
   __syncthreads();
+  STAMP(PH_RETIRE)
 
   // ---- policy_phase: the policy that policy_id selects (clamped, as
   // lax.switch clamps), mapped through the registry to a built-in.
@@ -722,6 +747,10 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     o[OUT_RETIRED] = sh.retired;
     o[OUT_TOMBSTONE] = sh.tombstone;
   }
+  STAMP(PH_POLICY)
+  if (a.phases && tid == 0)
+    for (int k = 0; k < N_PHASES; ++k) a.phases[bi * N_PHASES + k] += ph_acc[k];
+#undef STAMP
 }
 
 }  // namespace
@@ -731,7 +760,8 @@ extern "C" int chunk_step_launch(
     const void* size, const void* valid, const void* ints, const void* floats,
     const void* bank_free, const void* transient, const void* deaths,
     const void* reg_map, void* sc_out, void* bank_out, void* ret_out,
-    void* dev_out, void* lat_out, void* poi_out, void* inj_out, int batch,
+    void* dev_out, void* lat_out, void* poi_out, void* inj_out, void* phases,
+    int batch,
     int n_pages, int chunk, int n_banks, int nt, int nd, int n_reg,
     int wb_index, int subblock, int spp, int charge, cudaStream_t stream) {
   if (batch <= 0 || n_pages <= 0 || chunk <= 0 || n_banks <= 0 || nt <= 0 ||
@@ -765,6 +795,7 @@ extern "C" int chunk_step_launch(
          static_cast<int*>(lat_out),
          static_cast<int*>(poi_out),
          static_cast<int*>(inj_out),
+         static_cast<long long*>(phases),
          n_pages, chunk, n_banks, nt, nd, n_reg, wb_index, subblock, spp,
          charge};
   chunk_step_kernel<<<batch, THREADS, smem, stream>>>(a);
