@@ -251,29 +251,62 @@ def scalars_of(cs, st):
         fault_cursor=st.fault_cursor)
 
 
-def compare_step(torch, where, got, want) -> int:
-    """Compare (table, scalars, bank_free, outs) of the kernel and the
-    plain version exactly; returns the max abs difference (0)."""
-    kt, ksc, kbf, ko = got
-    pt, psc, pbf, po = want
+def as_int(torch, x):
+    return x.to(torch.int32) if x.dtype == torch.bool else x
+
+
+def compare(torch, where, pairs) -> int:
+    """Hold each (name, kernel value, plain value) equal, dtype and shape
+    included; returns the max abs difference (0)."""
     err = 0
-    pairs = [("table", kt, pt), ("bank_free", kbf, pbf)]
-    for f in ("clock", "clock_ptr", "chunk_idx", "link_free_rx",
-              "link_free_tx", "last_return", "rescue_page", "min_wear",
-              "fault_cursor"):
-        pairs.append((f, getattr(ksc, f), getattr(psc, f)))
-    for f in ("active", "page_a", "page_b", "start", "swaps_done"):
-        pairs.append(("dma." + f, getattr(ksc.dma, f), getattr(psc.dma, f)))
-    for k in po:
-        pairs.append(("outs." + k, ko[k], po[k]))
     for name, a, b in pairs:
-        a = a.to(torch.int32) if a.dtype == torch.bool else a
-        b = b.to(torch.int32) if b.dtype == torch.bool else b
+        a, b = as_int(torch, a), as_int(torch, b)
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             raise Mismatch(f"chunk_step differs from its plain version at "
                            f"{where}: {name}")
         err = max(err, max_abs_diff(torch, a, b))
     return err
+
+
+def leaves(s, t, path="state"):
+    """(path, a, b) for every tensor of two like NamedTuples."""
+    if isinstance(s, tuple):
+        for f in s._fields:
+            yield from leaves(getattr(s, f), getattr(t, f), f"{path}.{f}")
+    else:
+        yield path, s, t
+
+
+def compare_step(torch, where, got, want) -> int:
+    """Compare (table, scalars, bank_free, outs) of one chunk of the
+    kernel and of the plain version exactly."""
+    kt, ksc, kbf, ko = got
+    pt, psc, pbf, po = want
+    return compare(torch, where, [
+        ("table", kt, pt), ("bank_free", kbf, pbf),
+        *leaves(ksc, psc, "scalars"),
+        *(("outs." + k, ko[k], po[k]) for k in po)])
+
+
+def compare_run(torch, where, got, want) -> int:
+    """Compare (state, outs) of two whole runs exactly: the table, the
+    scalars, the bank registers, the 16 counters and every output."""
+    (ks, ko), (ps, po) = got, want
+    return compare(torch, where, [
+        *leaves(ks, ps), *(("outs." + k, ko[k], po[k]) for k in po)])
+
+
+def state_of(rt, cs, table, out, b):
+    """Design point ``b``'s final EmulatorState from a chunk-step launch."""
+    sc = cs._unpack_out_scalars(out.scalars[b])
+    return rt.core.EmulatorState(
+        table=table, clock_ptr=sc.clock_ptr, chunk_idx=sc.chunk_idx,
+        dma=sc.dma, clock=sc.clock, bank_free=out.bank_free[b],
+        link_free_rx=sc.link_free_rx, link_free_tx=sc.link_free_tx,
+        last_return=sc.last_return,
+        counters=rt.core.emulator.kernel_counters(out, b),
+        rescue_page=sc.rescue_page, min_wear=sc.min_wear,
+        fault_cursor=sc.fault_cursor)
 
 
 def check_chunk_step(torch, dev, rt, cs) -> dict:
@@ -317,9 +350,25 @@ def check_chunk_step(torch, dev, rt, cs) -> dict:
                 k, p = (kt, ksc, kbf), (pt, psc, pbf)
                 retired += int(po["retired"]) >= 0
                 injected += int(po["injected"].sum())
+            # The same chunks in ONE launch, against the plain loop
+            # (step_ref(seq=True) and counters.update per chunk).
+            emu = rt.core.emulator
+            cs.KERNEL.reset()
+            k_run = emu._emulate_impl(on, reg, trace, valid,
+                                      emu.clone_state(st), params, plan)
+            torch.cuda.synchronize()
+            if cs.KERNEL.launches != 1:
+                raise Mismatch(f"{geom}/{policy}: {cs.KERNEL.launches} "
+                               "launches for one run")
+            p_run = emu._emulate_impl(cfg, reg, trace, valid,
+                                      emu.clone_state(st), params, plan,
+                                      seq=True)
+            err = max(err, compare_run(torch, f"{geom}/{policy}, one launch",
+                                       k_run, p_run))
             print(f"  kernel B  {geom:5s} {policy:14s} {n_chunks} chunks "
-                  f"equal; swaps {int(k[1].dma.swaps_done)}, retirements "
-                  f"{retired}, injected {injected}; per chunk kernel "
+                  f"equal per chunk and in one launch; swaps "
+                  f"{int(k[1].dma.swaps_done)}, retirements {retired}, "
+                  f"injected {injected}; per chunk kernel "
                   f"{k_s / n_chunks * 1e3:.3f} ms, plain "
                   f"{p_s / n_chunks * 1e3:.3f} ms (wall)")
             if retired == 0 or injected == 0:
@@ -330,8 +379,9 @@ def check_chunk_step(torch, dev, rt, cs) -> dict:
 
 
 def check_batched(torch, dev, rt, cs, reg) -> int:
-    """B = 2 design points with different params in ONE launch, each
-    held against its own plain run."""
+    """B = 2 design points with different params over all their chunks in
+    ONE launch, each held against its own plain run."""
+    emu = rt.core.emulator
     base = rt.core.paper_platform().with_(chunk=512, decay_every=4,
                                           endurance_budget=6)
     cfgs = [base.with_(policy="hotness", hot_threshold=2),
@@ -340,41 +390,36 @@ def check_batched(torch, dev, rt, cs, reg) -> int:
     n_chunks = 10
     setups = [adversarial_setup(torch, dev, rt, c, n_chunks, seed=11)
               for c in cfgs]
-    _, st0, trace, valid, plan = setups[0]
-    plains = [(s[1].table.clone(), scalars_of(cs, s[1]),
-               s[1].bank_free.clone()) for s in setups]
-    table = torch.stack([s[1].table for s in setups]).contiguous()
-    scs = [scalars_of(cs, s[1]) for s in setups]
-    bank = torch.stack([s[1].bank_free for s in setups]).contiguous()
-    err = 0
-    for c in range(n_chunks):
-        sl = slice(c * base.chunk, (c + 1) * base.chunk)
-        args = [x[sl] for x in trace] + [valid[sl]]
-        packed = [cs._pack_scalars(s[0], sc) for s, sc in zip(setups, scs)]
-        ints = torch.stack([p[0] for p in packed])
-        floats = torch.stack([p[1] for p in packed])
+    _, _, trace, valid, plan = setups[0]
 
-        def two(x):
-            return torch.stack([x.to(torch.int32)] * 2).contiguous()
-        scv, bank, ret, devo, lat, poi, inj = cs.chunk_step_cuda(
-            base, reg, table, ints, floats, bank, *(two(a) for a in args),
-            two(plan.transient), two(plan.deaths))
-        for b, (setup, cfg) in enumerate(zip(setups, cfgs)):
-            pt, psc, pbf, po = cs.step_ref(cfg, reg, plains[b][0], setup[0],
-                                           plains[b][1], plains[b][2], *args,
-                                           plan, seq=True)
-            plains[b] = (pt, psc, pbf)
-            sc, held, retired, tomb = cs._unpack_out_scalars(scv[b])
-            outs = {"returns": ret[b], "device": devo[b], "latency": lat[b],
-                    "held": held, "poisoned": poi[b] != 0,
-                    "injected": inj[b] != 0, "retired": retired,
-                    "tombstone": tomb}
-            err = max(err, compare_step(torch, f"B=2 point {b} chunk {c}",
-                                        (table[b], sc, bank[b], outs),
-                                        (pt, psc, pbf, po)))
-        scs = [cs._unpack_out_scalars(scv[b])[0] for b in range(2)]
+    def two(x):
+        return torch.stack([x.to(torch.int32)] * 2).contiguous()
+
+    def stack(xs):
+        return torch.stack(xs).contiguous()
+    packed = [cs._pack_scalars(s[0], scalars_of(cs, s[1])) for s in setups]
+    ctrs = [cs.pack_counters(s[1].counters) for s in setups]
+    table = stack([s[1].table for s in setups])
+    cs.KERNEL.reset()
+    out = cs.chunk_step_cuda(
+        base, reg, table, stack([p[0] for p in packed]),
+        stack([p[1] for p in packed]),
+        stack([s[1].bank_free for s in setups]),
+        *(two(x) for x in (*trace, valid)), two(plan.transient),
+        two(plan.deaths), stack([c[0] for c in ctrs]),
+        stack([c[1] for c in ctrs]))
+    torch.cuda.synchronize()
+    if cs.KERNEL.launches != 1:
+        raise Mismatch(f"B=2: {cs.KERNEL.launches} launches")
+    err = 0
+    for b, ((params, st, *_), cfg) in enumerate(zip(setups, cfgs)):
+        want = emu._emulate_impl(cfg, reg, trace, valid, emu.clone_state(st),
+                                 params, plan, seq=True)
+        got = (state_of(rt, cs, table[b], out, b),
+               emu.kernel_outs(base, out, valid, b))
+        err = max(err, compare_run(torch, f"B=2 point {b}", got, want))
     print(f"  kernel B  B=2 (hotness, wear_level; different params) "
-          f"{n_chunks} chunks in one launch each: equal")
+          f"{n_chunks} chunks in one launch: equal")
     return err
 
 
@@ -404,9 +449,10 @@ def run_main_path(torch, dev, rt, hl, cs) -> dict:
               f"{wall / n * 1e6:.4f} us/request; swaps "
               f"{int(res.state.dma.swaps_done)}")
         print(f"    counters {json.dumps(summary)}")
-        if kernel.launches != n_chunks:
+        want = 1 if route == "auto" else n_chunks
+        if kernel.launches != want:
             raise Mismatch(f"route {route}: {kernel.name} launched "
-                           f"{kernel.launches} times, not {n_chunks}")
+                           f"{kernel.launches} times, not {want}")
         results[route] = (res, counts, wall)
     a, b = results["auto"][0], results["off"][0]
     for k in a.outs:
@@ -450,70 +496,76 @@ def check_outputs(torch, rt, cfg, res, n):
     rt.core.check_table(cfg, res.state.table)
 
 
-def kernel_b_numbers(torch, dev, rt, cs, main, n_chunks=256) -> dict:
-    """Kernel B's device time per launch, its plain version's wall time
-    per chunk, and its byte bound, on the first chunks of the main
-    trace."""
-    cfg, trace = main["cfg"], main["trace"]
-    n_chunks = min(n_chunks, len(trace) // cfg.chunk)
-    sub = rt.core.Trace(*(x[:n_chunks * cfg.chunk] for x in trace))
-    eng = rt.Engine(cfg.with_(chunk_step_kernel="on"))
-    k_ms = device_ms(torch, lambda: eng.run(sub), 1, "chunk_step_kernel") \
-        / n_chunks
+def kernel_b_numbers(torch, dev, rt, cs, main) -> dict:
+    """Kernel B on the whole main trace in one launch: its device time per
+    chunk (three runs), the device's share of the "auto" route's wall
+    time, the clock64() phase split, one CTA per point against the
+    cluster (same results, and their times), its plain version's wall
+    time per chunk, and its byte bound."""
     from repro_torch.core.policies import PolicyRegistry
+    emu = rt.core.emulator
+    cfg, n_chunks = main["cfg"], main["n_chunks"]
+    on = cfg.with_(chunk_step_kernel="on")
+    eng = rt.Engine(on)
     reg = PolicyRegistry.snapshot()
-    params = eng.params
-    st = eng.init_state()
-    p = (st.table, scalars_of(cs, st), st.bank_free)
-    valid = torch.ones(cfg.chunk, dtype=torch.bool, device=dev)
-    n_plain = min(16, n_chunks)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for c in range(n_plain):
-        sl = slice(c * cfg.chunk, (c + 1) * cfg.chunk)
-        size = sub.size[sl]
-        pt, psc, pbf, _ = cs.step_ref(cfg, reg, p[0], params, p[1], p[2],
-                                      sub.page[sl], sub.offset[sl],
-                                      sub.is_write[sl], size, valid,
-                                      seq=True)
-        p = (pt, psc, pbf)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
-    # The kernel's clock64() split of these chunks (thread 0's stamps).
+    trace, valid = rt.core.pad_trace(cfg, main["trace"])
+
+    def run(**launch):
+        return emu._emulate_impl(on, reg, trace, valid, eng.init_state(),
+                                 eng.params, **launch)
+    runs = [device_ms(torch, lambda: eng.run(main["trace"]), 1,
+                      "chunk_step_kernel") / n_chunks for _ in range(3)]
+    k_ms = sorted(runs)[1]
+    wall = main["results"]["auto"][2]
+    print(f"  kernel B over the {n_chunks} main-path chunks in one launch: "
+          + " / ".join(f"{r * 1e3:.3f}" for r in runs)
+          + f" us/chunk (device, three runs); {k_ms * n_chunks * 1e3:.1f} "
+          f"ms of the 'auto' route's {wall * 1e3:.1f} ms wall "
+          f"({k_ms * n_chunks / wall:.3f} of it)")
     phases = torch.zeros(1, len(cs.PHASES), dtype=torch.int64, device=dev)
-    st = eng.init_state()
-    k = (st.table, scalars_of(cs, st), st.bank_free)
-    for c in range(n_chunks):
-        sl = slice(c * cfg.chunk, (c + 1) * cfg.chunk)
-        kt, ksc, kbf, _ = cs.chunk_step(eng.cfg, reg, k[0], params, k[1],
-                                        k[2], sub.page[sl], sub.offset[sl],
-                                        sub.is_write[sl], sub.size[sl], valid,
-                                        phases=phases)
-        k = (kt, ksc, kbf)
+    run(phases=phases)
     cyc = phases[0].tolist()
     tot = sum(cyc)
-    print("  kernel B phase split (clock64, share of the cycles; us/chunk "
-          "at the device time): " + ", ".join(
+    print("  kernel B phase split (clock64 on the leader's thread 0, share "
+          "of the cycles; us/chunk at the device time): " + ", ".join(
               f"{nm} {c / tot:.3f} ({c / tot * k_ms * 1e3:.2f})"
               for nm, c in zip(cs.PHASES, cyc)))
-    # Bytes the step must move on these chunks: the request vectors in
-    # (5 x 4 B) and out (5 x 4 B), one 32 B row read and one 4 B HOTNESS
-    # word written per distinct page, a 4 B WEAR word per distinct slow
-    # frame written (bounded by the writes), and on decay chunks the
-    # whole HOTNESS lane read and written plus the slow WEAR lane read.
-    byts = 0
-    for c in range(n_chunks):
-        pg = sub.page[c * cfg.chunk:(c + 1) * cfg.chunk]
-        uniq = int(torch.unique(pg).numel())
-        writes = int(sub.is_write[c * cfg.chunk:(c + 1) * cfg.chunk].sum())
-        byts += cfg.chunk * 40 + uniq * (32 + 4) + min(writes, uniq) * 4
-        if c % cfg.decay_every == cfg.decay_every - 1:
-            byts += cfg.n_pages * 8 + cfg.n_slow_pages * 4
+    one_ms = device_ms(torch, lambda: run(cluster=1), 1,
+                       "chunk_step_kernel") / n_chunks
+    a, b = run(), run(cluster=1)
+    for name, x, y in [*leaves(a[0], b[0]),
+                       *((k, a[1][k], b[1][k]) for k in a[1])]:
+        if not torch.equal(x, y):
+            raise Mismatch(f"kernel B with one CTA per point differs: {name}")
+    print(f"  kernel B with one CTA per point (no cluster): "
+          f"{one_ms * 1e3:.3f} us/chunk (device), results equal")
+    # The plain version: step_ref(seq=True) and counters.update per chunk.
+    n_plain = 16
+    m = n_plain * cfg.chunk
+    sub = rt.core.Trace(*(x[:m] for x in trace))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emu._emulate_impl(cfg, reg, sub, valid[:m], eng.init_state(),
+                      eng.params, seq=True)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+    # Bytes the step must move per chunk: the request vectors in (5 x 4 B)
+    # and out (5 x 4 B), one 32 B row read and one 4 B HOTNESS word
+    # written per distinct page, a 4 B WEAR word per distinct slow frame
+    # written (bounded by the writes), and on decay chunks the whole
+    # HOTNESS lane read and written plus the slow WEAR lane read.
+    pg = trace.page.reshape(n_chunks, cfg.chunk).sort(dim=1).values
+    uniq = 1 + (pg[:, 1:] != pg[:, :-1]).sum(dim=1)
+    writes = (trace.is_write & valid).reshape(n_chunks, cfg.chunk).sum(dim=1)
+    n_decay = sum(c % cfg.decay_every == cfg.decay_every - 1
+                  for c in range(n_chunks))
+    byts = int(n_chunks * cfg.chunk * 40 + (uniq * 36).sum()
+               + torch.minimum(writes, uniq).sum() * 4) + \
+        n_decay * (cfg.n_pages * 8 + cfg.n_slow_pages * 4)
     bound_ms = byts / n_chunks / HBM_BYTES_PER_S * 1e3
-    print(f"  kernel B on the first {n_chunks} main-path chunks: "
-          f"{k_ms * 1e3:.2f} us/launch (device); plain version "
-          f"{p_ms:.3f} ms/chunk (wall, {n_plain} chunks); bound "
-          f"{bound_ms * 1e6:.1f} ns/chunk ({byts / n_chunks:.0f} B)")
+    print(f"  kernel B plain version {p_ms:.3f} ms/chunk (wall, {n_plain} "
+          f"chunks); bound {bound_ms * 1e6:.1f} ns/chunk "
+          f"({byts / n_chunks:.0f} B)")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms}
 
 

@@ -2,9 +2,14 @@
 ``repro.core.counters``.
 
 Counts are int32; bytes, the read-latency sum and energy are float32.
-Each per-chunk sum is taken in float32 and the update keeps the JAX
-package's order of operations, so the float counters agree bit for bit
-(they are hashed into the golden digests).
+The update keeps the JAX package's order of operations: each chunk's
+sums first, then ``c + s`` in float32. A chunk's bytes and read latencies
+are integers: their sum is taken exactly (int64) and rounded to float32
+once. That is the JAX package's float32 sum wherever that sum is exact
+(a chunk's integer sum below 2^24: the golden digests, the main trace),
+and it does not depend on the order of the additions, so the CPU, the
+card's plain version and the chunk-step kernel agree bit for bit; above
+2^24 the JAX package's float32 sum depends on XLA's order of additions.
 """
 from __future__ import annotations
 
@@ -37,12 +42,12 @@ class Counters(NamedTuple):
     def zeros(device=None) -> "Counters":
         vals = []
         for name in Counters._fields:
-            dt = torch.float32 if name in _FLOAT_FIELDS else torch.int32
+            dt = torch.float32 if name in FLOAT_FIELDS else torch.int32
             vals.append(torch.zeros((), dtype=dt, device=device))
         return Counters(*vals)
 
 
-_FLOAT_FIELDS = frozenset({
+FLOAT_FIELDS = frozenset({
     "bytes_read_fast", "bytes_write_fast", "bytes_read_slow",
     "bytes_write_slow", "sum_read_latency", "energy_pj"})
 
@@ -60,20 +65,22 @@ def update(p, c: Counters, *, device: torch.Tensor,
     w = is_write & v
     r = (~is_write) & v
     slow = device == SLOW
-    fsize = size.to(torch.float32)
 
     def cnt(mask):
         return mask.sum(dtype=torch.int32)
 
+    def exact_sum(mask, x):
+        return torch.where(mask, x, 0).sum(dtype=torch.int64).to(
+            torch.float32)
+
     def byt(mask):
-        return torch.where(mask, fsize, 0.0).sum()
+        return exact_sum(mask, size)
 
     bits_fast = 8.0 * (byt(r & ~slow) + byt(w & ~slow))
     energy = (bits_fast * p.power_pj_per_bit_fast
               + 8.0 * byt(r & slow) * p.power_pj_per_bit_slow_read
               + 8.0 * byt(w & slow) * p.power_pj_per_bit_slow_write)
 
-    read_lat = torch.where(r, latency, 0)
     lat_max = torch.where(v, latency, 0).max()
     return Counters(
         reads_fast=c.reads_fast + cnt(r & ~slow),
@@ -84,8 +91,7 @@ def update(p, c: Counters, *, device: torch.Tensor,
         bytes_write_fast=c.bytes_write_fast + byt(w & ~slow),
         bytes_read_slow=c.bytes_read_slow + byt(r & slow),
         bytes_write_slow=c.bytes_write_slow + byt(w & slow),
-        sum_read_latency=c.sum_read_latency +
-        read_lat.to(torch.float32).sum(),
+        sum_read_latency=c.sum_read_latency + exact_sum(r, latency),
         n_reads=c.n_reads + cnt(r),
         max_latency=torch.maximum(c.max_latency, lat_max),
         reorder_held=c.reorder_held + held,

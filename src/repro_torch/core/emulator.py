@@ -2,13 +2,16 @@
 
 Requests flow through the paper's Fig 2 stages (RX link -> table lookup
 -> DMA-conflict redirect -> bank queues -> media -> tag-match in-order
-return -> TX link) one chunk at a time in ``kernels.chunk_step``; this
-module loops that step over the trace's chunks (the JAX package's
-``lax.scan``) and folds each chunk's results into the counters. Drive it
-through :class:`repro_torch.Engine`.
+return -> TX link) one chunk at a time in ``kernels.chunk_step``. On a
+CUDA tensor with the chunk-step kernel selected, ONE launch runs every
+chunk of the trace and folds the counters (the JAX package's
+``lax.scan``); otherwise this module loops the step over the chunks and
+folds each chunk's results into the counters. Drive it through
+:class:`repro_torch.Engine`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -94,22 +97,28 @@ def pad_trace(cfg: EmulatorConfig, t: Trace) -> tuple[Trace, torch.Tensor]:
     return t, valid
 
 
-def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
-                registry: PolicyRegistry, faults: FaultPlan,
-                state: EmulatorState, trace: Trace, valid: torch.Tensor):
-    """One chunk through the chunk step, then the counter update (float
-    accumulation stays outside the kernel)."""
-    page, offset, is_write, size = trace
-    size = torch.where(valid, size, 0)
-    sc = chunk_step_lib.StepScalars(
+def _step_scalars(state: EmulatorState) -> chunk_step_lib.StepScalars:
+    return chunk_step_lib.StepScalars(
         clock=state.clock, clock_ptr=state.clock_ptr,
         chunk_idx=state.chunk_idx, dma=state.dma,
         link_free_rx=state.link_free_rx, link_free_tx=state.link_free_tx,
         last_return=state.last_return, rescue_page=state.rescue_page,
         min_wear=state.min_wear, fault_cursor=state.fault_cursor)
-    table, sc, bank_free, outs = chunk_step_lib.chunk_step(
-        cfg, registry, state.table, params, sc, state.bank_free,
-        page, offset, is_write, size, valid, faults)
+
+
+def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
+                registry: PolicyRegistry, faults: FaultPlan,
+                state: EmulatorState, trace: Trace, valid: torch.Tensor,
+                seq: bool):
+    """One chunk through the chunk step (``step_ref(seq=True)`` when
+    ``seq``), then the counter update."""
+    page, offset, is_write, size = trace
+    size = torch.where(valid, size, 0)
+    step = functools.partial(chunk_step_lib.step_ref, seq=True) if seq \
+        else chunk_step_lib.chunk_step
+    table, sc, bank_free, outs = step(
+        cfg, registry, state.table, params, _step_scalars(state),
+        state.bank_free, page, offset, is_write, size, valid, faults)
     ctr = counters_lib.update(params, state.counters, device=outs["device"],
                               is_write=is_write, size=size, valid=valid,
                               latency=outs["latency"], held=outs["held"],
@@ -133,22 +142,80 @@ def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
     return new_state, out
 
 
+def kernel_counters(out: chunk_step_lib.KernelOut, b: int = 0
+                    ) -> counters_lib.Counters:
+    """Design point ``b``'s counters from a chunk-step launch (views)."""
+    cs = chunk_step_lib
+    vals = dict(zip(cs.COUNTER_INT_FIELDS, out.counters_int[b]))
+    vals.update(zip(cs.COUNTER_FLOAT_FIELDS, out.counters_float[b]))
+    return counters_lib.Counters(**vals)
+
+
+def kernel_outs(cfg: EmulatorConfig, out: chunk_step_lib.KernelOut,
+                valid: torch.Tensor, b: int = 0) -> dict:
+    """Design point ``b``'s per-request outputs from a chunk-step launch,
+    as :func:`_emulate_impl` returns them (per-chunk values expanded)."""
+    cs = chunk_step_lib
+    per_chunk = out.chunks[b].repeat_interleave(cfg.chunk, dim=0)
+    return {"returns": out.returns[b],
+            "device": torch.where(valid, out.device[b], -1),
+            "latency": out.latency[b],
+            "faulted": (out.poisoned[b] | out.injected[b]) != 0,
+            "retired_page": per_chunk[:, cs.CHUNK_OUT.index("retired")],
+            "tombstone": per_chunk[:, cs.CHUNK_OUT.index("tombstone")]}
+
+
+def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
+                    trace: Trace, valid: torch.Tensor, state: EmulatorState,
+                    params: RuntimeParams, faults: FaultPlan, **launch
+                    ) -> tuple[EmulatorState, dict]:
+    """Every chunk of the trace in ONE launch of the chunk-step kernel;
+    the final state, bank registers and counters are written back into
+    ``state``'s own tensors (the table is updated in place by the
+    kernel). ``launch`` goes to :func:`chunk_step_cuda`."""
+    cs = chunk_step_lib
+    ints, floats = cs._pack_scalars(params, _step_scalars(state))
+    c_int, c_float = cs.pack_counters(state.counters)
+    vec = [x.to(torch.int32).contiguous()[None] for x in
+           (trace.page, trace.offset, trace.is_write, trace.size, valid)]
+    out = cs.chunk_step_cuda(
+        cfg, registry, state.table[None], ints[None], floats[None],
+        state.bank_free[None], *vec, faults.transient[None],
+        faults.deaths[None], c_int[None], c_float[None], **launch)
+    for dst, src in [
+            *zip(cs.scalar_tensors(_step_scalars(state)), out.scalars[0]),
+            (state.bank_free, out.bank_free[0]),
+            *zip(state.counters, kernel_counters(out))]:
+        dst.copy_(src)
+    return state, kernel_outs(cfg, out, valid)
+
+
 def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
                   valid: torch.Tensor, state: EmulatorState,
-                  params: RuntimeParams, faults: FaultPlan | None = None
+                  params: RuntimeParams, faults: FaultPlan | None = None, *,
+                  seq: bool = False, **launch
                   ) -> tuple[EmulatorState, dict]:
-    """Loop the chunk step over a chunk-multiple trace. ``state.table`` is
-    updated in place."""
+    """Run the chunk step over a chunk-multiple trace. ``state.table`` is
+    updated in place. Where :func:`chunk_step.use_chunk_step_kernel`
+    picks the kernel, one launch runs the whole trace and writes the
+    final state into ``state`` (``launch`` options go to that launch);
+    otherwise a loop over the chunks. ``seq=True`` is that loop through
+    ``step_ref(seq=True)``: the kernel's plain version."""
     if faults is None:
         faults = FaultPlan.empty(device=state.table.device)
     n = len(trace)
     if n % cfg.chunk:
         raise ValueError("pad the trace to a chunk multiple first")
+    if n and not seq and chunk_step_lib.use_chunk_step_kernel(cfg,
+                                                              state.table):
+        return _emulate_kernel(cfg, registry, trace, valid, state, params,
+                               faults, **launch)
     parts = []
     for lo in range(0, n, cfg.chunk):
         sl = slice(lo, lo + cfg.chunk)
         state, out = _chunk_step(cfg, params, registry, faults, state,
-                                 Trace(*(x[sl] for x in trace)), valid[sl])
+                                 Trace(*(x[sl] for x in trace)), valid[sl],
+                                 seq)
         parts.append(out)
     if not parts:
         z = torch.zeros(0, dtype=torch.int32, device=state.table.device)

@@ -11,8 +11,10 @@ Written once in PyTorch and executed three ways:
   held against;
 * the CUDA kernel ``csrc/chunk_step.cu`` (:func:`chunk_step_cuda`), which
   replaces the TPU kernel ``repro/kernels/chunk_step.py::_pallas_step_fn``
-  (its ``pallas_call`` at line 793): one thread block per design point
-  runs the whole step with the table in global memory.
+  (its ``pallas_call`` at line 793) and the chunk loop around it: one
+  launch runs every chunk of a trace, counters included, with one
+  thread-block cluster per design point and the table in global memory.
+  :func:`chunk_step` launches it for one chunk.
 
 All three are bitwise equal to the JAX package's ``step_ref``: the
 pipeline arithmetic is exact int32 and the float32 cycle math is one IEEE
@@ -43,7 +45,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import consistency, dma as dma_lib, latency
+from ..core import consistency, counters as counters_lib, dma as dma_lib
+from ..core import latency
 from ..core import faults as faults_lib
 from ..core import table as table_lib
 from ..core.config import (FAST, FLOAT_PARAM_FIELDS, SLOW, EmulatorConfig,
@@ -472,42 +475,74 @@ INT_PARAM_FIELDS = tuple(f for f in RuntimeParams._fields
                          if f not in FLOAT_PARAM_FIELDS)
 FLOAT_PARAM_ORDER = tuple(f for f in RuntimeParams._fields
                           if f in FLOAT_PARAM_FIELDS)
-# Output scalars: the 14 state slots, then held, retired, tombstone.
-N_OUT_SC = len(SC_FIELDS) + 3
-# The kernel's clock64() split of a chunk (csrc/chunk_step.cu: enum Phase).
+# The counters the kernel carries, int32 and float32 apart, each in
+# Counters field order (the .cu's CounterInt and CounterFloat enums).
+COUNTER_INT_FIELDS = tuple(f for f in counters_lib.Counters._fields
+                           if f not in counters_lib.FLOAT_FIELDS)
+COUNTER_FLOAT_FIELDS = tuple(f for f in counters_lib.Counters._fields
+                             if f in counters_lib.FLOAT_FIELDS)
+# What the kernel reports per chunk (the .cu's ChunkOut enum).
+CHUNK_OUT = ("held", "retired", "tombstone")
+# The kernel's clock64() split of a chunk (the .cu's Phase enum).
 PHASES = ("load", "rx", "redirect", "stage345", "commit", "satw", "decay",
           "retire", "policy")
+# CTAs per design point: the leader runs the chunk loop, all of them share
+# the whole-table passes (decay, hotness_global).
+CLUSTER = 8
 
 _I32 = torch.int32
 
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
-    (PTR,) * 20 + (INT,) * 11)
+    (PTR,) * 25 + (INT,) * 13)
+
+
+class KernelOut(NamedTuple):
+    """What one launch returns, per design point (leading axis B)."""
+    scalars: torch.Tensor         # int32[B, 14] — state after the last chunk
+    bank_free: torch.Tensor       # int32[B, 2*n_banks]
+    chunks: torch.Tensor          # int32[B, n_chunks, 3] — CHUNK_OUT
+    returns: torch.Tensor         # int32[B, N] — TX return time (masked)
+    device: torch.Tensor          # int32[B, N] — post-redirect device (raw)
+    latency: torch.Tensor         # int32[B, N] — request latency (masked)
+    poisoned: torch.Tensor        # int32[B, N] — 0/1
+    injected: torch.Tensor        # int32[B, N] — 0/1
+    counters_int: torch.Tensor    # int32[B, 10] — COUNTER_INT_FIELDS
+    counters_float: torch.Tensor  # float32[B, 6] — COUNTER_FLOAT_FIELDS
+
+
+def scalar_tensors(sc: StepScalars) -> list:
+    """The 0-dim tensors of ``sc`` in SC_FIELDS order."""
+    d = sc.dma
+    return [sc.clock, sc.clock_ptr, sc.chunk_idx, d.active, d.page_a,
+            d.page_b, d.start, d.swaps_done, sc.link_free_rx,
+            sc.link_free_tx, sc.last_return, sc.rescue_page, sc.min_wear,
+            sc.fault_cursor]
 
 
 def _pack_scalars(params: RuntimeParams, sc: StepScalars):
     """(int32[14 + 15], float32[7]): the state scalars and int params,
     and the float params."""
-    ints = [sc.clock, sc.clock_ptr, sc.chunk_idx, sc.dma.active,
-            sc.dma.page_a, sc.dma.page_b, sc.dma.start, sc.dma.swaps_done,
-            sc.link_free_rx, sc.link_free_tx, sc.last_return,
-            sc.rescue_page, sc.min_wear, sc.fault_cursor]
-    ints += [getattr(params, f) for f in INT_PARAM_FIELDS]
+    ints = scalar_tensors(sc) + [getattr(params, f) for f in INT_PARAM_FIELDS]
     floats = [getattr(params, f) for f in FLOAT_PARAM_ORDER]
     return (torch.stack([v.to(_I32) for v in ints]),
             torch.stack([v.to(torch.float32) for v in floats]))
 
 
-def _unpack_out_scalars(scv: torch.Tensor):
-    """The kernel's int32[17] output -> (StepScalars, held, retired,
-    tombstone), as 0-dim views."""
-    sc = StepScalars(
+def pack_counters(c: counters_lib.Counters):
+    """(int32[10], float32[6]): the counters in the kernel's order."""
+    return (torch.stack([getattr(c, f) for f in COUNTER_INT_FIELDS]),
+            torch.stack([getattr(c, f) for f in COUNTER_FLOAT_FIELDS]))
+
+
+def _unpack_out_scalars(scv: torch.Tensor) -> StepScalars:
+    """The kernel's int32[14] state -> StepScalars of 0-dim views."""
+    return StepScalars(
         clock=scv[0], clock_ptr=scv[1], chunk_idx=scv[2],
         dma=dma_lib.DMAState(active=scv[3], page_a=scv[4], page_b=scv[5],
                              start=scv[6], swaps_done=scv[7]),
         link_free_rx=scv[8], link_free_tx=scv[9], last_return=scv[10],
         rescue_page=scv[11], min_wear=scv[12], fault_cursor=scv[13])
-    return sc, scv[14], scv[15], scv[16]
 
 
 @functools.lru_cache(maxsize=None)
@@ -517,16 +552,21 @@ def _registry_map(builtin_ids: tuple, device: str) -> torch.Tensor:
 
 def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
                     table, ints, floats, bank_free, page, offset, is_write,
-                    size, valid, transient, deaths, phases=None):
-    """Launch the CUDA chunk step on B design points at once (one thread
-    block each). Updates ``table`` int32[B, n_pages, 8] in place.
+                    size, valid, transient, deaths, counters_int,
+                    counters_float, *, phases=None,
+                    cluster: int = CLUSTER) -> KernelOut:
+    """Run ``N // cfg.chunk`` chunks on B design points in ONE launch (a
+    cluster of ``cluster`` thread blocks each). Updates ``table``
+    int32[B, n_pages, 8] in place.
 
     Inputs: ``ints`` int32[B, 29] and ``floats`` float32[B, 7] from
     :func:`_pack_scalars`; ``bank_free`` int32[B, 2*n_banks]; the five
-    request vectors int32[B, chunk] (``is_write``/``valid`` as 0/1);
-    ``transient`` int32[B, nt, 2] and ``deaths`` int32[B, nd, 2].
-    Returns ``(scalars int32[B, 17], bank_free int32[B, nb], returns,
-    device, latency, poisoned, injected)`` — the vectors int32[B, chunk].
+    request vectors int32[B, N], N a multiple of the chunk
+    (``is_write``/``valid`` as 0/1); ``transient`` int32[B, nt, 2] and
+    ``deaths`` int32[B, nd, 2]; the counters from :func:`pack_counters`,
+    int32[B, 10] and float32[B, 6]. ``phases``, when given, is an
+    int64[B, 9] to which the leading block's thread 0 adds the cycles of
+    each of PHASES.
     """
     dev = table.device
     if not table.is_cuda:
@@ -535,20 +575,29 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         raise ValueError(f"table must be [B, n_pages, {table_lib.ROW_W}]")
     b, n_pages, _ = table.shape
     chunk, nb = cfg.chunk, 2 * cfg.n_banks
+    n = page.shape[-1]
+    if n == 0 or n % chunk:
+        raise ValueError(f"the request vectors must hold a positive "
+                         f"multiple of the chunk ({chunk}), got {n}")
     nt, nd = transient.shape[1], deaths.shape[1]
     shapes = {"ints": (ints, (b, len(SC_FIELDS) + len(INT_PARAM_FIELDS))),
               "floats": (floats, (b, len(FLOAT_PARAM_ORDER))),
-              "bank_free": (bank_free, (b, nb)), "page": (page, (b, chunk)),
-              "offset": (offset, (b, chunk)),
-              "is_write": (is_write, (b, chunk)),
-              "size": (size, (b, chunk)), "valid": (valid, (b, chunk)),
+              "bank_free": (bank_free, (b, nb)), "page": (page, (b, n)),
+              "offset": (offset, (b, n)), "is_write": (is_write, (b, n)),
+              "size": (size, (b, n)), "valid": (valid, (b, n)),
               "transient": (transient, (b, nt, 2)),
-              "deaths": (deaths, (b, nd, 2))}
+              "deaths": (deaths, (b, nd, 2)),
+              "counters_int": (counters_int, (b, len(COUNTER_INT_FIELDS))),
+              "counters_float": (counters_float,
+                                 (b, len(COUNTER_FLOAT_FIELDS)))}
+    if phases is not None:
+        shapes["phases"] = (phases, (b, len(PHASES)))
     for name, (t, shape) in [("table", (table, (b, n_pages, 8))),
                              *shapes.items()]:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, table on {dev}")
-        want = torch.float32 if name == "floats" else _I32
+        want = {"floats": torch.float32, "counters_float": torch.float32,
+                "phases": torch.int64}.get(name, _I32)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if tuple(t.shape) != shape:
@@ -561,24 +610,26 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
     wb = registry.index("write_bias") if "write_bias" in registry else -1
     reg = _registry_map(registry.builtin_ids, str(dev))
 
-    def out(*shape):
-        return torch.empty(*shape, dtype=_I32, device=dev)
+    def out(*shape, dtype=_I32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
 
-    sc_out, bank_out = out(b, N_OUT_SC), out(b, nb)
-    vecs = [out(b, chunk) for _ in range(5)]
+    res = KernelOut(
+        out(b, len(SC_FIELDS)), out(b, nb), out(b, n // chunk, len(CHUNK_OUT)),
+        *(out(b, n) for _ in range(5)), out(b, len(COUNTER_INT_FIELDS)),
+        out(b, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32))
     KERNEL.launch(
         dev,
         table.data_ptr(), page.data_ptr(), offset.data_ptr(),
         is_write.data_ptr(), size.data_ptr(), valid.data_ptr(),
         ints.data_ptr(), floats.data_ptr(), bank_free.data_ptr(),
         transient.data_ptr(), deaths.data_ptr(), reg.data_ptr(),
-        sc_out.data_ptr(), bank_out.data_ptr(),
-        *(v.data_ptr() for v in vecs),
+        counters_int.data_ptr(), counters_float.data_ptr(),
+        *(t.data_ptr() for t in res),
         0 if phases is None else phases.data_ptr(),
-        b, n_pages, chunk, cfg.n_banks, nt, nd, len(registry), wb,
-        cfg.subblock, cfg.subblocks_per_page,
+        b, cluster, n_pages, chunk, n // chunk, cfg.n_banks, nt, nd,
+        len(registry), wb, cfg.subblock, cfg.subblocks_per_page,
         cfg.page_size // cfg.line_size)
-    return (sc_out, bank_out, *vecs)
+    return res
 
 
 def use_chunk_step_kernel(cfg: EmulatorConfig, table: torch.Tensor) -> bool:
@@ -603,22 +654,29 @@ def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
                table: torch.Tensor, params: RuntimeParams, sc: StepScalars,
                bank_free: torch.Tensor, page, offset, is_write, size, valid,
                faults: faults_lib.FaultPlan | None = None, phases=None):
-    """THE chunk step — the CUDA kernel or the scan path, resolved by
-    :func:`use_chunk_step_kernel` (bitwise equal either way). Signature
-    and returns as :func:`step_ref`; ``table`` is updated in place."""
+    """THE chunk step — the CUDA kernel (a launch of one chunk) or the
+    scan path, resolved by :func:`use_chunk_step_kernel` (bitwise equal
+    either way). Signature and returns as :func:`step_ref`; ``table`` is
+    updated in place; ``phases`` as in :func:`chunk_step_cuda`."""
     if faults is None:
         faults = faults_lib.FaultPlan.empty(device=table.device)
     if not use_chunk_step_kernel(cfg, table):
         return step_ref(cfg, registry, table, params, sc, bank_free,
                         page, offset, is_write, size, valid, faults)
     ints, floats = _pack_scalars(params, sc)
-    scv, bank_free2, returns, dev, lat, poi, inj = chunk_step_cuda(
+    out = chunk_step_cuda(
         cfg, registry, table[None], ints[None], floats[None],
         bank_free[None], page[None], offset[None],
         is_write.to(_I32)[None], size[None], valid.to(_I32)[None],
-        faults.transient[None], faults.deaths[None], phases)
-    sc2, held, retired, tombstone = _unpack_out_scalars(scv[0])
-    outs = {"returns": returns[0], "device": dev[0], "latency": lat[0],
-            "held": held, "poisoned": poi[0] != 0, "injected": inj[0] != 0,
-            "retired": retired, "tombstone": tombstone}
-    return table, sc2, bank_free2[0], outs
+        faults.transient[None], faults.deaths[None],
+        torch.zeros(1, len(COUNTER_INT_FIELDS), dtype=_I32,
+                    device=table.device),
+        torch.zeros(1, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32,
+                    device=table.device), phases=phases)
+    held, retired, tombstone = out.chunks[0, 0]
+    outs = {"returns": out.returns[0], "device": out.device[0],
+            "latency": out.latency[0], "held": held,
+            "poisoned": out.poisoned[0] != 0,
+            "injected": out.injected[0] != 0, "retired": retired,
+            "tombstone": tombstone}
+    return table, _unpack_out_scalars(out.scalars[0]), out.bank_free[0], outs

@@ -1,43 +1,65 @@
-// The whole HMMU chunk step as one CUDA kernel for Hopper (sm_90a).
+// The HMMU chunk loop as one CUDA kernel for Hopper (sm_90a): a whole run
+// of chunks in one launch.
 //
 // Replaces the TPU kernel repro/kernels/chunk_step.py::_pallas_step_fn
-// (_body at line 732, pallas_call at line 793), which staged the packed
-// table through VMEM and ran step_ref(seq=True) per design point. The
-// plain PyTorch version this kernel is held against is
-// kernels/chunk_step.py::step_ref(..., seq=True); every phase below names
-// the function it mirrors there.
+// (_body at line 732, pallas_call at line 793), which ran step_ref(seq=True)
+// once per chunk, together with the loop around it (the lax.scan of
+// repro/core/emulator.py:190) and the counter update. Its plain version is
+// the per-chunk loop of kernels/chunk_step.py::step_ref(..., seq=True) plus
+// core/counters.py::update; every phase below names the function it
+// mirrors there.
 //
-// Layout. One thread block per design point (grid = B). The block updates
-// its point's packed table int32[n_pages, 8] IN PLACE in global memory:
-// at the paper's geometry the table is 294,912 x 32 B = 9.4 MB, far beyond
-// the 227 KB of shared memory but well inside the 50 MB L2. The chunk's
-// request vectors and every per-request intermediate are staged in shared
-// memory. The sequential recurrences (RX link max-plus, bank queues,
-// in-order return, TX link) run on thread 0 over shared memory; the wide
-// parts run over all threads: the row gather, the O(chunk^2) saturating
-// weights, the decay shift and min-wear scrub over all n_pages rows, the
-// hotness_global argmax/argmin over the whole table, and the commit, which
-// is int32 atomicAdd into the table (integer adds do not depend on order,
-// so it equals the JAX scatter-add bit for bit). __syncthreads() separates
-// the phases, so every pre-chunk read lands before the commit writes
-// (schedule §1-§4 of kernels/chunk_step.py). Table reads and writes go
-// through L2 (ld.cg / st.cg), where the atomics land.
+// Layout. One thread-block cluster per design point (grid = B x cluster,
+// cluster = 8 CTAs or 1). The cluster's leading CTA runs the chunk loop:
+// the chunk's requests and every per-request intermediate live in its
+// shared memory, and the state scalars, the bank registers and the
+// counters stay there from one chunk to the next. The packed table
+// int32[n_pages, 8] (294,912 x 32 B = 9.4 MB at the paper's geometry,
+// inside the 50 MB L2) is updated IN PLACE in global memory, through L2
+// (ld.cg / st.cg, where the commit's atomics land). The other CTAs of the
+// cluster join only the whole-table passes, which split the rows among
+// the CTAs: the decay shift with the min-wear scrub (decay chunks), and
+// hotness_global's argmax / argmin (every chunk under that policy). Each
+// CTA knows from chunk_idx, decay_every and the policy which chunks need
+// it, so the cluster meets at barrier.cluster only there; the partial
+// minima and arg-reductions reach the leader through distributed shared
+// memory.
 //
-// What bounds it: the serial dependency chain of the recurrences on one
-// thread (about 4 x chunk dependent steps), not bytes. The bytes it must
-// move per chunk are the chunk's rows (chunk x 32 B read, a few lanes
-// written back) plus, on decay boundaries, the HOTNESS and WEAR lanes of
-// the whole table (n_pages x 12 B), and under hotness_global three lanes
-// of the whole table every chunk.
+// The recurrences run over all 512 threads. The RX and TX links are
+// max-plus scans: a request is the map x -> max(x + service, arrival +
+// service), composition is associative, and a block scan (each thread's
+// run of requests, a warp scan, a scan of the warp totals) gives every
+// done time (core/latency.py's closed form). The bank queues are the same
+// scan segmented by lane: one warp per lane walks the chunk in groups of
+// 32, picks its lane's requests with __ballot_sync and carries the lane's
+// register from group to group and, in shared memory, to the next chunk.
+// The in-order return is a prefix max. Adds are uint32, so they wrap as
+// int32 does; the scans give the sequential loops' values bit for bit
+// wherever those never pass INT32_MAX (then every partial composition lies
+// between INT32_MIN and the final time), the domain in which the JAX
+// package's closed-form and sequential forms agree too.
+//
+// What bounds it: per chunk, the chain of block barriers and dependent L2
+// round trips (row gather, retire, the policy's reads), about 20 barriers
+// and 8 round trips; not bytes (a chunk moves ~100 KB). Every 16th chunk
+// the decay pass reads and writes the HOTNESS lane of the whole table,
+// 1/8 of it per CTA, four rows in flight per thread.
 //
 // Exactness. All pipeline arithmetic is int32; the cycle math is
 // ceilf(size / bytes_per_cycle) with an IEEE float32 division (built with
 // -prec-div=true, and written as __fdiv_rn): 64 / 8.0 is 8 cycles, never 9.
 // Divisions and modulos floor as JAX's // and % do; gathers wrap a
 // negative index once and clamp; mode="drop" scatters drop out-of-range
-// indices; every argmax/argmin takes the first index among ties.
+// indices; every argmax/argmin takes the first index among ties. The
+// commit is int32 atomicAdd (order-free, so it equals the scatter-add).
+// The float counters take each chunk's integer sums exactly (int64),
+// round them once (counters.update does the same) and fold them with
+// __fadd_rn / __fmul_rn, so nothing contracts into an FMA.
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,6 +74,10 @@ constexpr int NEG = -(1 << 30);   // arrival time of an invalid slot
 constexpr int BIG = 1 << 30;
 constexpr int CLOCK_WINDOW = 8;
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_CLUSTER = 8;
+constexpr int UNROLL = 4;          // rows in flight per thread in a table pass
+constexpr unsigned FULL = 0xffffffffu;
 
 // Built-in policies, in the registration order of core/policies.py.
 enum Policy { P_STATIC = 0, P_HOTNESS, P_WRITE_BIAS, P_STREAM,
@@ -69,6 +95,7 @@ enum IntSlot {
   ENDURANCE_BUDGET, POLICY_ID,
   N_INTS
 };
+constexpr int N_STATE = FAULT_CURSOR + 1;   // the 14 state slots
 // The float vector (kernels/chunk_step.py: FLOAT_PARAM_ORDER).
 enum FloatSlot {
   FAST_BYTES_PER_CYCLE, SLOW_BYTES_PER_CYCLE, LINK_BYTES_PER_CYCLE,
@@ -76,12 +103,27 @@ enum FloatSlot {
   POWER_PJ_PER_BIT_SLOW_WRITE,
   N_FLOATS
 };
-// Output scalars: the 14 state slots (same order), then these three.
-enum OutSlot { OUT_HELD = 14, OUT_RETIRED, OUT_TOMBSTONE, N_OUT };
+// The int32 and the float32 counters, each in Counters field order
+// (kernels/chunk_step.py: COUNTER_INT_FIELDS, COUNTER_FLOAT_FIELDS).
+enum CounterInt {
+  READS_FAST, WRITES_FAST, READS_SLOW, WRITES_SLOW, N_READS, MAX_LATENCY,
+  REORDER_HELD, POISON_FAULTS, FRAMES_RETIRED, TRANSIENT_FAULTS,
+  N_COUNTER_INTS
+};
+enum CounterFloat {
+  BYTES_READ_FAST, BYTES_WRITE_FAST, BYTES_READ_SLOW, BYTES_WRITE_SLOW,
+  SUM_READ_LATENCY, ENERGY_PJ,
+  N_COUNTER_FLOATS
+};
+// What each chunk reports (kernels/chunk_step.py: CHUNK_OUT).
+enum ChunkOut { CO_HELD, CO_RETIRED, CO_TOMBSTONE, N_CHUNK_OUT };
+// Phases of the clock64() split of a chunk (kernels/chunk_step.py: PHASES).
+enum Phase { PH_LOAD, PH_RX, PH_REDIRECT, PH_STAGE345, PH_COMMIT, PH_SATW,
+             PH_DECAY, PH_RETIRE, PH_POLICY, N_PHASES };
 
 struct Args {
   int* table;
-  const int* page;
+  const int* page;       // the request vectors, int32[B, n_chunks * chunk]
   const int* offset;
   const int* is_write;
   const int* size;
@@ -92,22 +134,37 @@ struct Args {
   const int* transient;
   const int* deaths;
   const int* reg_map;
+  const int* ctr_int;
+  const float* ctr_float;
   int* sc_out;
   int* bank_out;
+  int* chunk_out;        // int32[B, n_chunks, N_CHUNK_OUT]
+  int* ctr_int_out;
+  float* ctr_float_out;
   int* ret_out;
   int* dev_out;
   int* lat_out;
   int* poi_out;
   int* inj_out;
-  long long* phases;   // int64[B, N_PHASES] cycles per phase, or null
-  int n_pages, chunk, n_banks, nt, nd, n_reg, wb_index, subblock, spp,
-      charge;
+  long long* phases;     // int64[B, N_PHASES] cycles per phase, or null
+  int n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index, subblock,
+      spp, charge;
 };
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+// int32 arithmetic that wraps (two's complement), as _wrap32 does.
+__device__ __forceinline__ int wadd(int a, unsigned b) {
+  return (int)((unsigned)a + b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
 }
 // JAX's // and % on int32 floor (C truncates).
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -131,10 +188,81 @@ __device__ __forceinline__ int ceil_cycles(int size, float bpc) {
   return (int)ceilf(__fdiv_rn((float)size, bpc));
 }
 
-// Phases of the per-chunk clock64() split (kernels/chunk_step.py: PHASES).
-enum Phase { PH_LOAD, PH_RX, PH_REDIRECT, PH_STAGE345, PH_COMMIT, PH_SATW,
-             PH_DECAY, PH_RETIRE, PH_POLICY, N_PHASES };
+__device__ __forceinline__ int ld(const int* t, long long i) {
+  return __ldcg(t + i);
+}
+__device__ __forceinline__ void st(int* t, long long i, int v) {
+  __stcg(t + i, v);
+}
+// DEVICE, FRAME, HOTNESS and WEAR of a row: its first 16 bytes.
+__device__ __forceinline__ int4 ld_head(const int* t, long long row) {
+  return __ldcg(reinterpret_cast<const int4*>(t + row * W));
+}
 
+// ------------------------------------------------------------ max-plus scan
+// A max-plus map x -> max(x + s, a). A request with arrival r and service
+// v is (v, r + v); f then g is (s_f + s_g, max(a_f + s_g, a_g)).
+struct MP {
+  unsigned s;
+  int a;
+};
+__device__ __forceinline__ MP mp_id() { return MP{0u, INT_MIN}; }
+__device__ __forceinline__ MP mp_elem(int arrival, int service) {
+  return MP{(unsigned)service, wadd(arrival, (unsigned)service)};
+}
+__device__ __forceinline__ MP mp_then(MP f, MP g) {
+  return MP{f.s + g.s, imax(wadd(f.a, g.s), g.a)};
+}
+__device__ __forceinline__ MP shfl_up_mp(MP x, int d) {
+  return MP{__shfl_up_sync(FULL, x.s, d), __shfl_up_sync(FULL, x.a, d)};
+}
+__device__ __forceinline__ MP shfl_mp(MP x, int src) {
+  return MP{__shfl_sync(FULL, x.s, src), __shfl_sync(FULL, x.a, src)};
+}
+// Inclusive scan over the 32 lanes of a warp.
+__device__ __forceinline__ MP warp_scan(MP x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const MP o = shfl_up_mp(x, d);
+    if (lane >= d) x = mp_then(o, x);
+  }
+  return x;
+}
+
+// _seq_maxplus over n requests, every thread of the block calling:
+// out[i] = done_i of done_i = max(arr_i, done_{i-1}) + srv_i from
+// done_{-1} = INT32_MIN (srv = null: every service 0, a prefix max).
+// Thread t takes requests [t * per, t * per + per) in order; out may be
+// arr.
+__device__ void block_maxplus(const int* arr, const int* srv, int* out,
+                              int n, MP* s_warp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + THREADS - 1) / THREADS;
+  const int lo = imin(tid * per, n), hi = imin(lo + per, n);
+  MP run = mp_id();
+  for (int i = lo; i < hi; ++i)
+    run = mp_then(run, mp_elem(arr[i], srv ? srv[i] : 0));
+  const MP incl = warp_scan(run, lane);
+  MP ex = shfl_up_mp(incl, 1);
+  if (lane == 0) ex = mp_id();
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const MP t = warp_scan(lane < WARPS ? s_warp[lane] : mp_id(), lane);
+    MP tex = shfl_up_mp(t, 1);
+    if (lane == 0) tex = mp_id();
+    if (lane < WARPS) s_warp[WARPS + lane] = tex;
+  }
+  __syncthreads();
+  MP pre = mp_then(s_warp[WARPS + warp], ex);
+  for (int i = lo; i < hi; ++i) {
+    pre = mp_then(pre, mp_elem(arr[i], srv ? srv[i] : 0));
+    out[i] = pre.a;
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------- arg-reductions
 struct VI {
   int v, i;
 };
@@ -149,15 +277,14 @@ __device__ __forceinline__ VI better(VI a, VI b) {
 }
 
 template <bool MAX>
-__device__ VI identity() {
+__device__ __forceinline__ VI identity() {
   return VI{MAX ? INT_MIN : INT_MAX, INT_MAX};
 }
 
 template <bool MAX>
 __device__ VI warp_arg(VI x) {
   for (int off = 16; off > 0; off >>= 1) {
-    VI o{__shfl_down_sync(0xffffffffu, x.v, off),
-         __shfl_down_sync(0xffffffffu, x.i, off)};
+    VI o{__shfl_down_sync(FULL, x.v, off), __shfl_down_sync(FULL, x.i, off)};
     x = better<MAX>(x, o);
   }
   return x;
@@ -167,59 +294,121 @@ __device__ VI warp_arg(VI x) {
 template <bool MAX>
 __device__ VI block_arg(VI x, VI* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
   x = warp_arg<MAX>(x);
   if (lane == 0) scratch[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    x = lane < n_warps ? scratch[lane] : identity<MAX>();
+    x = lane < WARPS ? scratch[lane] : identity<MAX>();
     x = warp_arg<MAX>(x);
-    if (lane == 0) scratch[0] = x;
+    if (lane == 0) scratch[WARPS] = x;
   }
   __syncthreads();
-  VI r = scratch[0];
-  __syncthreads();
-  return r;
+  return scratch[WARPS];
 }
 
-// Block-level state shared between the phases (written by thread 0).
-struct Shared {
-  int rx_last, tx_last, held, any_valid, last_ret, now;
-  int done, tombstone, dma_active, dma_a, dma_b, dma_start, swaps;
-  int own_idx, own_delta, eff_w;
-  int do_decay, min_wear, rescue, fault_cursor, retired;
-  int p_row[10], p_lane[10], p_delta[10];
-  int row_a[W], row_b[W];
-  int death_fire, ev_p;
-  int cand, heat, victim, p_want, new_ptr;
-  int hg_heat;
+// -------------------------------------------------------- the chunk sums
+// What one chunk adds to the counters, and the commit's reductions.
+enum SumInt { S_READS_FAST, S_WRITES_FAST, S_READS_SLOW, S_WRITES_SLOW,
+              S_N_READS, S_HELD, S_POISONED, S_INJECTED, S_VALID, N_SUM_INT };
+enum SumLong { S_BYTES_READ_FAST, S_BYTES_WRITE_FAST, S_BYTES_READ_SLOW,
+               S_BYTES_WRITE_SLOW, S_READ_LATENCY, N_SUM_LONG };
+struct Sums {
+  int c[N_SUM_INT];
+  long long s[N_SUM_LONG];
+  int max_ret;   // max of (valid ? return : last_return)
+  int max_lat;   // max of (valid ? latency : 0)
 };
 
-__device__ __forceinline__ int ld(const int* t, long long i) {
-  return __ldcg(t + i);
+__device__ __forceinline__ void sums_zero(Sums& x) {
+  for (int k = 0; k < N_SUM_INT; ++k) x.c[k] = 0;
+  for (int k = 0; k < N_SUM_LONG; ++k) x.s[k] = 0;
+  x.max_ret = INT_MIN;
+  x.max_lat = INT_MIN;
 }
-__device__ __forceinline__ void st(int* t, long long i, int v) {
-  __stcg(t + i, v);
+
+__device__ __forceinline__ void warp_sums(Sums& x) {
+  for (int k = 0; k < N_SUM_INT; ++k)
+    x.c[k] = (int)__reduce_add_sync(FULL, (unsigned)x.c[k]);
+  for (int k = 0; k < N_SUM_LONG; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      x.s[k] += __shfl_xor_sync(FULL, x.s[k], off);
+  x.max_ret = __reduce_max_sync(FULL, x.max_ret);
+  x.max_lat = __reduce_max_sync(FULL, x.max_lat);
 }
+
+// Block-wide sums into *out; every thread of the block must call it.
+__device__ void block_sums(Sums x, Sums* s_part, Sums* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sums(x);
+  if (lane == 0) s_part[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    if (lane < WARPS) {
+      x = s_part[lane];
+    } else {
+      sums_zero(x);
+    }
+    warp_sums(x);
+    if (lane == 0) *out = x;
+  }
+  __syncthreads();
+}
+
+// table.saturating_weights for element k: it adds at most what is left of
+// cap after its pre-value and every earlier element aimed at the same
+// slot. When pre >= 0 and pre + bound + w <= cap, where bound is at least
+// the chunk's sum of |weight|, no earlier element can bring the slot near
+// the cap, so the whole weight goes in and the O(k) sum is skipped (the
+// result is the same); a weight <= 0 always goes in whole.
+__device__ __forceinline__ int saturate(const int* tgt, const int* w, int k,
+                                        int pre, int cap, long long bound) {
+  const int wk = w[k];
+  if (wk <= 0) return wk;
+  if (pre >= 0 && bound < (1LL << 30) && (long long)pre + bound + wk <= cap)
+    return wk;
+  unsigned psum = 0;
+  for (int j = 0; j < k; ++j)
+    if (tgt[j] == tgt[k]) psum += (unsigned)w[j];
+  const int allow = (int)((unsigned)cap - (unsigned)pre - psum);
+  return imin(imax(allow, 0), wk);
+}
+
+// Chunk-level scalars shared between the phases (written by thread 0).
+struct Shared {
+  int rx_last, tx_last, any_valid, last_ret, now;
+  int done, tombstone, dma_active, dma_a, dma_b, dma_start, swaps;
+  int own_idx, own_delta, own_pre, wear0, wear_fa, wear_fbr;
+  int min_wear, rescue, retired, death_fire, ev_p, fault_cursor;
+  int p_row[10], p_lane[10], p_delta[10];
+  int row_a[W], row_b[W];
+  int cand, heat, victim, v_found, v_skip;
+  int hist[9], last_valid;
+  VI hot, cold;
+  Sums sums;
+};
 
 __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   extern __shared__ int smem[];
   __shared__ Shared sh;
-  __shared__ VI scratch[32];
+  __shared__ VI scratch[WARPS + 1];
+  __shared__ MP s_warp[2 * WARPS];
+  __shared__ Sums s_part[WARPS];
   __shared__ int I[N_INTS];
   __shared__ float F[N_FLOATS];
+  __shared__ int ci[N_COUNTER_INTS];
+  __shared__ float cf[N_COUNTER_FLOATS];
+  __shared__ VI c_part[2];   // this CTA's share of a whole-table pass
 
-  const int bi = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_cta = (int)cluster.num_blocks();
+  const bool lead = rank == 0;
+  const int bi = blockIdx.x / n_cta;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nth = THREADS;
   const int n = a.chunk, NP = a.n_pages, NB = 2 * a.n_banks;
   int* table = a.table + (long long)bi * NP * W;
-  const long long vo = (long long)bi * n;   // offset of this point's vectors
-  long long ph_acc[N_PHASES] = {0}, t_prev = clock64();
-#define STAMP(ph)                                   \
-  if (a.phases && tid == 0) {                       \
-    long long t_now = clock64();                    \
-    ph_acc[ph] += t_now - t_prev;                   \
-    t_prev = t_now;                                 \
-  }
+  const long long n_all = (long long)a.n_chunks * n;
 
   int* s_page = smem;
   int* s_off = s_page + n;
@@ -227,528 +416,721 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   int* s_size = s_iw + n;
   int* s_valid = s_size + n;
   int* s_issue = s_valid + n;
-  int* s_arrive = s_issue + n;
-  int* s_dev = s_arrive + n;
+  int* s_dev = s_issue + n;
   int* s_frm = s_dev + n;
-  int* s_hot = s_frm + n;       // pre-chunk HOTNESS of each request's page
-  int* s_ret = s_hot + n;       // TX return times (unmasked)
-  int* s_hotw = s_ret + n;      // hotness weights before saturation
-  int* s_hsat = s_hotw + n;     // ... and after
-  int* s_wrow = s_hsat + n;     // WEAR targets: n demand + 10 swap entries
+  int* s_hot = s_frm + n;     // pre-chunk HOTNESS of each request's page
+  int* s_hotw = s_hot + n;    // hotness weights before saturation
+  int* s_arr = s_hotw + n;    // RX done, then the arrival at the HMMU
+  int* s_msrv = s_arr + n;    // media service cycles
+  int* s_lane = s_msrv + n;   // bank lane | (lane in range) << 16
+  int* s_mdone = s_lane + n;  // media done times
+  int* s_ret = s_mdone + n;   // TX return times (unmasked)
+  int* s_t0 = s_ret + n;      // scratch, n + 10 each
+  int* s_t1 = s_t0 + n + 10;
+  int* s_wrow = s_t1 + n + 10;  // WEAR targets: n demand + 10 swap entries
   int* s_ww = s_wrow + n + 10;
   int* s_wpre = s_ww + n + 10;
-  int* s_wsat = s_wpre + n + 10;
-  int* s_bank = s_wsat + n + 10;  // bank_free register file (2 * n_banks)
+  int* s_bank = s_wpre + n + 10;  // bank_free register file (2 * n_banks)
 
-  // ---- load: scalars, params, the chunk's requests, the bank registers.
+  // ---- the run's inputs: scalars, params, counters, bank registers.
   if (tid < N_INTS) I[tid] = a.ints[bi * N_INTS + tid];
   if (tid < N_FLOATS) F[tid] = a.floats[bi * N_FLOATS + tid];
+  if (tid < N_COUNTER_INTS) ci[tid] = a.ctr_int[bi * N_COUNTER_INTS + tid];
+  if (tid < N_COUNTER_FLOATS)
+    cf[tid] = a.ctr_float[bi * N_COUNTER_FLOATS + tid];
   for (int k = tid; k < NB; k += nth) s_bank[k] = a.bank_free[bi * NB + k];
-  for (int i = tid; i < n; i += nth) {
-    int v = a.valid[vo + i] != 0;
-    s_valid[i] = v;
-    s_page[i] = a.page[vo + i];
-    s_off[i] = a.offset[vo + i];
-    s_iw[i] = a.is_write[vo + i] != 0;
-    s_size[i] = v ? a.size[vo + i] : 0;
-  }
   __syncthreads();
-  STAMP(PH_LOAD)
-
-  // ---- step_ref: transient fault injection (observational only).
-  {
-    const int* tr = a.transient + (long long)bi * a.nt * 2;
-    for (int i = tid; i < n; i += nth) {
-      int hit = 0;
-      for (int k = 0; k < a.nt; ++k)
-        hit |= (s_page[i] == tr[2 * k + 1]) & (tr[2 * k] == I[CHUNK_IDX]);
-      a.inj_out[vo + i] = hit & s_valid[i];
-    }
-  }
-
-  // ---- pipeline_phase stage 1 (issue times) and stage 2 (row gather).
-  for (int i = tid; i < n; i += nth) {
-    s_issue[i] = s_valid[i] ? I[CLOCK] + I[ISSUE_GAP] * (i + 1) : NEG;
-    long long r = (long long)clampi(s_page[i], 0, NP - 1) * W;
-    s_dev[i] = ld(table, r + DEVICE);
-    s_frm[i] = ld(table, r + FRAME);
-    s_hot[i] = ld(table, r + HOTNESS);
-    a.poi_out[vo + i] = s_valid[i] && (ld(table, r + FLAGS) & POISONED);
-  }
-  if (tid < W) {
-    sh.row_a[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_A], 0), 0,
-                                                NP - 1) * W + tid);
-    sh.row_b[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_B], 0), 0,
-                                                NP - 1) * W + tid);
-  }
-  const int half_link = floordiv(I[LINK_LAT], 2);
-  __syncthreads();   // every s_issue slot is written before thread 0 reads
-  STAMP(PH_LOAD)
-
-  // ---- stage 1: RX link max-plus (_seq_maxplus), one thread.
-  if (tid == 0) {
-    const float lb = F[LINK_BYTES_PER_CYCLE];
-    int prev = INT_MIN;
-    for (int i = 0; i < n; ++i) {
-      int v = s_valid[i];
-      int arr = imax(s_issue[i], v ? I[LINK_FREE_RX] : NEG);
-      int srv = v ? ceil_cycles(s_iw[i] ? s_size[i] : 16, lb) : 0;
-      prev = imax(arr, prev) + srv;
-      s_arrive[i] = prev + (v ? half_link : 0);
-    }
-    sh.rx_last = prev;
-  }
-  __syncthreads();
-  STAMP(PH_RX)
-
-  // ---- stage 2: DMA swap-progress redirect (dma.redirect).
-  {
-    const int active = I[DMA_ACTIVE] == 1;
-    const int exch = 3 * I[DMA_CYCLES_PER_SUBBLOCK];
-    for (int i = tid; i < n; i += nth) {
-      int prog = active ? clampi(floordiv(s_arrive[i] - I[DMA_START], exch),
-                                 0, a.spp)
-                        : 0;
-      int moved = floordiv(s_off[i], a.subblock) < prog;
-      if (active && moved && s_page[i] == I[DMA_PAGE_A]) {
-        s_dev[i] = sh.row_b[DEVICE];
-        s_frm[i] = sh.row_b[FRAME];
-      }
-      if (active && moved && s_page[i] == I[DMA_PAGE_B]) {
-        s_dev[i] = sh.row_a[DEVICE];
-        s_frm[i] = sh.row_a[FRAME];
-      }
-      a.dev_out[vo + i] = s_dev[i];
-    }
-  }
-  __syncthreads();
-  STAMP(PH_REDIRECT)
-
-  // ---- stages 3-5 (_seq_bank_resolve, _seq_inorder, _seq_maxplus), one
-  // thread: bank queues + media, tag-match in-order return, TX link.
-  if (tid == 0) {
-    const float fb = F[FAST_BYTES_PER_CYCLE], sb = F[SLOW_BYTES_PER_CYCLE];
-    const float lb = F[LINK_BYTES_PER_CYCLE];
-    int run = INT_MIN, prev = INT_MIN, held = 0;
-    for (int i = 0; i < n; ++i) {
-      int v = s_valid[i], d = s_dev[i], w = s_iw[i], sz = s_size[i];
-      int bank = d * a.n_banks + floormod(s_frm[i], a.n_banks);
-      int srv = 0;
-      if (v) {
-        srv = d == SLOW
-                  ? (w ? I[SLOW_WRITE_LAT] : I[SLOW_READ_LAT]) +
-                        ceil_cycles(sz, sb)
-                  : (w ? I[FAST_WRITE_LAT] : I[FAST_READ_LAT]) +
-                        ceil_cycles(sz, fb);
-      }
-      int bw = bank < 0 ? bank + NB : bank;
-      int done = imax(imax(s_arrive[i], NEG), s_bank[clampi(bw, 0, NB - 1)]) +
-                 srv;
-      if (bw >= 0 && bw < NB) s_bank[bw] = done;
-      run = imax(imax(v ? done : NEG, I[LAST_RETURN]), run);
-      held += (run > done) && v;
-      int srv_tx = v ? ceil_cycles(w ? 16 : sz, lb) : 0;
-      prev = imax(imax(run, v ? I[LINK_FREE_TX] : NEG), prev) + srv_tx;
-      s_ret[i] = prev + (v ? half_link : 0);
-    }
-    sh.tx_last = s_ret[n - 1];
-    sh.held = held;
-    STAMP(PH_STAGE345)
-
-    // ---- commit_phase scalars: last return, now, the swap commit plan
-    // (dma.plan_commit), the OWNER update, the policy-scoped weight.
-    int any = 0, mx = INT_MIN;
-    for (int i = 0; i < n; ++i) {
-      any |= s_valid[i];
-      mx = imax(mx, s_valid[i] ? s_ret[i] : I[LAST_RETURN]);
-    }
-    sh.any_valid = any;
-    sh.last_ret = any ? mx : I[LAST_RETURN];
-    const int now = imax(I[CLOCK] + I[ISSUE_GAP] * n, sh.last_ret);
-    sh.now = now;
-
-    const int pa = I[DMA_PAGE_A], pb = I[DMA_PAGE_B];
-    const int dur = a.spp * (3 * I[DMA_CYCLES_PER_SUBBLOCK]);
-    const int done = I[DMA_ACTIVE] == 1 && now >= I[DMA_START] + dur;
-    const int ia = pa >= 0 ? pa : 0, ib = pb >= 0 ? pb : 0;
-    const int da = sh.row_a[DEVICE], db = sh.row_b[DEVICE];
-    const int fa = sh.row_a[FRAME], fbr = sh.row_b[FRAME];
-    const int ea = sh.row_a[EPOCH], eb = sh.row_b[EPOCH];
-    const int fla = sh.row_a[FLAGS], flb = sh.row_b[FLAGS];
-    const int commit_a = done && pa >= 0, commit_b = done && pb >= 0;
-    const int chg_a = commit_a && db == SLOW, chg_b = commit_b && da == SLOW;
-    const int rp = I[RESCUE_PAGE];
-    const int dead_a = (fla & POISONED) && pa == rp && pa >= 0;
-    const int dead_b = (flb & POISONED) && pb == rp && pb >= 0;
-    const int new_fla = dead_b ? ((fla | DEAD) & ~PINNED)
-                               : (dead_a ? (fla & ~DEAD) : fla);
-    const int new_flb = dead_a ? ((flb | DEAD) & ~PINNED)
-                               : (dead_b ? (flb & ~DEAD) : flb);
-    const int rows[10] = {ia, ib, ia, ib, ia, ib, chg_a ? fbr : 0,
-                          chg_b ? fa : 0, ia, ib};
-    const int lanes[10] = {DEVICE, DEVICE, FRAME, FRAME, EPOCH,
-                           EPOCH, WEAR, WEAR, FLAGS, FLAGS};
-    const int delta[10] = {commit_a ? db - da : 0,
-                           commit_b ? da - db : 0,
-                           commit_a ? fbr - fa : 0,
-                           commit_b ? fa - fbr : 0,
-                           commit_a ? now - ea : 0,
-                           commit_b ? now - eb : 0,
-                           chg_a ? a.charge : 0,
-                           chg_b ? a.charge : 0,
-                           commit_a ? new_fla - fla : 0,
-                           commit_b ? new_flb - flb : 0};
-    for (int k = 0; k < 10; ++k) {
-      sh.p_row[k] = rows[k];
-      sh.p_lane[k] = lanes[k];
-      sh.p_delta[k] = delta[k];
-      int wm = lanes[k] == WEAR;
-      s_wrow[n + k] = wm ? rows[k] : 0;
-      s_ww[n + k] = wm ? delta[k] : 0;
-    }
-    const int any_dead = (commit_a && dead_a) || (commit_b && dead_b);
-    sh.tombstone = any_dead ? (dead_a ? pb : pa) : -1;
-    sh.done = done;
-    sh.dma_active = done ? 0 : I[DMA_ACTIVE];
-    sh.dma_a = done ? -1 : pa;
-    sh.dma_b = done ? -1 : pb;
-    sh.dma_start = I[DMA_START];
-    sh.swaps = I[DMA_SWAPS_DONE] + done;
-
-    const int promoted = done && db == FAST;
-    const int own_pre = ld(table, (long long)gidx(fbr, NP) * W + OWNER);
-    sh.own_idx = promoted ? fbr * W + OWNER : NP * W;
-    sh.own_delta = promoted ? imax(pa, 0) - own_pre : 0;
-    sh.eff_w = (a.wb_index >= 0 && I[POLICY_ID] == a.wb_index)
-                   ? I[WRITE_WEIGHT] : 1;
-  }
-  __syncthreads();
-  STAMP(PH_COMMIT)
-
-  // ---- commit_phase: weights and the pre-chunk WEAR of every target.
-  for (int i = tid; i < n; i += nth) {
-    int v = s_valid[i];
-    s_hotw[i] = v ? 1 + (sh.eff_w - 1) * s_iw[i] : 0;
-    int slow_wr = s_iw[i] && v && s_dev[i] == SLOW;
-    s_wrow[i] = slow_wr ? s_frm[i] : 0;
-    s_ww[i] = slow_wr;
-    a.ret_out[vo + i] = v ? s_ret[i] : 0;
-    a.lat_out[vo + i] = v ? s_ret[i] - s_issue[i] : 0;
-  }
-  for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
-  __syncthreads();
-  STAMP(PH_COMMIT)
-  for (int k = tid; k < n + 10; k += nth)
-    s_wpre[k] = ld(table, (long long)gidx(s_wrow[k], NP) * W + WEAR);
-  __syncthreads();
-  STAMP(PH_COMMIT)
-
-  // ---- table.saturating_weights for HOTNESS and WEAR (O(n^2)).
-  for (int i = tid; i < n; i += nth) {
-    int psum = 0;
-    for (int j = 0; j < i; ++j)
-      if (s_page[j] == s_page[i]) psum += s_hotw[j];
-    s_hsat[i] = imin(imax(HOTNESS_CAP - s_hot[i] - psum, 0), s_hotw[i]);
-  }
-  for (int k = tid; k < n + 10; k += nth) {
-    int psum = 0;
-    for (int j = 0; j < k; ++j)
-      if (s_wrow[j] == s_wrow[k]) psum += s_ww[j];
-    s_wsat[k] = imin(imax(WEAR_CAP - s_wpre[k] - psum, 0), s_ww[k]);
-  }
-  __syncthreads();   // every pre-chunk read is done: the commit may write
-  STAMP(PH_SATW)
-
-  // ---- commit_phase: ONE scatter-add of int32 deltas (mode="drop").
-  {
-    const long long size = (long long)NP * W;
-    auto add = [&](long long idx, int upd) {
-      if (upd == 0) return;
-      if (idx < 0) idx += size;
-      if (idx >= 0 && idx < size) atomicAdd(table + idx, upd);
-    };
-    for (int i = tid; i < n; i += nth)
-      add((long long)s_page[i] * W + HOTNESS, s_hsat[i]);
-    for (int k = tid; k < n + 10; k += nth)
-      add((long long)s_wrow[k] * W + WEAR, s_wsat[k]);
-    if (tid < 10)
-      add((long long)sh.p_row[tid] * W + sh.p_lane[tid],
-          sh.p_lane[tid] == WEAR ? 0 : sh.p_delta[tid]);
-    if (tid == 0) add(sh.own_idx, sh.own_delta);
-  }
-  __syncthreads();
-  STAMP(PH_COMMIT)
-
-  // ---- commit_phase: decay shift and min-wear scrub on decay boundaries.
-  const int do_decay =
-      floormod(I[CHUNK_IDX], I[DECAY_EVERY]) == I[DECAY_EVERY] - 1;
-  if (do_decay) {
-    for (int r = tid; r < NP; r += nth) {
-      long long k = (long long)r * W + HOTNESS;
-      st(table, k, shr(ld(table, k), I[HOTNESS_DECAY_SHIFT]));
-    }
-  }
-  __syncthreads();
-  if (do_decay) {
-    const int n_slow = NP - I[N_FAST_PAGES];
-    const int hi = imin(imax(n_slow, 0), NP);
-    VI m = identity<false>();
-    if (hi < NP) m = VI{BIG, 0};
-    for (int r = tid; r < hi; r += nth)
-      m = better<false>(m, VI{ld(table, (long long)r * W + WEAR), 0});
-    m = block_arg<false>(m, scratch);
-    if (tid == 0) sh.min_wear = m.v;
-  } else if (tid == 0) {
-    sh.min_wear = I[MIN_WEAR];
-  }
-  STAMP(PH_DECAY)
-
-  // ---- retire_phase: a due FaultPlan death (thread 0) ...
-  if (tid == 0) {
-    int rescue = (sh.done && sh.tombstone >= 0) ? -1 : I[RESCUE_PAGE];
-    sh.rescue = rescue;
-    const int* de = a.deaths + (long long)bi * a.nd * 2;
-    const int cur = gidx(imin(I[FAULT_CURSOR], a.nd - 1), a.nd);
-    const int due = I[FAULT_CURSOR] < a.nd && de[2 * cur] <= I[CHUNK_IDX];
-    const int consume = due && rescue < 0;
-    const int ev_p = clampi(de[2 * cur + 1], 0, NP - 1);
-    const int ev_flags = ld(table, (long long)ev_p * W + FLAGS);
-    sh.death_fire = consume && (ev_flags & DEAD) == 0;
-    sh.ev_p = ev_p;
-    sh.fault_cursor = I[FAULT_CURSOR] + consume;
-  }
-  __syncthreads();
-  STAMP(PH_RETIRE)
-  // ... else the first endurance crossing among the observed pages.
-  {
-    VI f = identity<false>();
-    for (int k = tid; k < n + 2; k += nth) {
-      int c, ok;
-      if (k < n) {
-        c = s_page[k];
-        ok = s_valid[k];
-      } else {
-        int p = k == n ? I[DMA_PAGE_A] : I[DMA_PAGE_B];
-        c = imax(p, 0);
-        ok = p >= 0;
-      }
-      long long r = (long long)clampi(c, 0, NP - 1) * W;
-      int d = ld(table, r + DEVICE);
-      int wear = ld(table, (long long)gidx(d == SLOW ? ld(table, r + FRAME)
-                                                     : 0, NP) * W + WEAR);
-      int over = ok && I[ENDURANCE_BUDGET] > 0 && d == SLOW &&
-                 wear > I[ENDURANCE_BUDGET] &&
-                 (ld(table, r + FLAGS) & DEAD) == 0;
-      f = better<false>(f, VI{over ? 0 : 1, k});
-    }
-    f = block_arg<false>(f, scratch);
-    if (tid == 0) {
-      int j = f.v == 0 ? f.i : 0;
-      int cand_j;
-      if (j < n) {
-        cand_j = s_page[j];
-      } else {
-        cand_j = imax(j == n ? I[DMA_PAGE_A] : I[DMA_PAGE_B], 0);
-      }
-      cand_j = clampi(cand_j, 0, NP - 1);
-      const int wear_fire = sh.rescue < 0 && !sh.death_fire && f.v == 0;
-      const int fire = sh.death_fire || wear_fire;
-      const int p_ret = sh.death_fire ? sh.ev_p : cand_j;
-      if (fire) {
-        long long k = (long long)p_ret * W + FLAGS;
-        st(table, k, (ld(table, k) | POISONED) & ~PINNED);
-      }
-      sh.rescue = fire ? p_ret : sh.rescue;
-      sh.retired = fire ? p_ret : -1;
-    }
-  }
-  __syncthreads();
-  STAMP(PH_RETIRE)
-
-  // ---- policy_phase: the policy that policy_id selects (clamped, as
-  // lax.switch clamps), mapped through the registry to a built-in.
+  // Every CTA reads the same schedule: chunk_idx counts up by one a chunk.
+  const int chunk0 = I[CHUNK_IDX];
   const int pol = a.reg_map[clampi(I[POLICY_ID], 0, a.n_reg - 1)];
-  const int nf = I[N_FAST_PAGES];
-  const int ptr = I[CLOCK_PTR];
+  const int decay_every = I[DECAY_EVERY];
+  const int n_slow_rows = clampi(wsub(NP, I[N_FAST_PAGES]), 0, NP);
+  const int rows_per = (NP + n_cta - 1) / n_cta;
+  const int row_lo = imin(rank * rows_per, NP);
+  const int row_hi = imin(row_lo + rows_per, NP);
+  const int half_link = floordiv(I[LINK_LAT], 2);
+  const int eff_w =
+      (a.wb_index >= 0 && I[POLICY_ID] == a.wb_index) ? I[WRITE_WEIGHT] : 1;
+  const long long bound_h =
+      (long long)n * (eff_w < 0 ? -(long long)eff_w : imax(eff_w, 1));
+  const long long bound_w =
+      (long long)(n + 10) * (a.charge < 0 ? -(long long)a.charge
+                                          : imax(a.charge, 1));
+  cluster.sync();   // every CTA has started before any remote access
 
-  // policies._chunk_candidate: hottest eligible slow page of the chunk.
-  if (pol == P_HOTNESS || pol == P_WRITE_BIAS || pol == P_STREAM ||
-      pol == P_WEAR_LEVEL) {
-    VI best = identity<true>();
-    for (int i = tid; i < n; i += nth) {
-      long long r = (long long)gidx(s_page[i], NP) * W;
-      int d = ld(table, r + DEVICE), fl = ld(table, r + FLAGS);
-      int ok = s_valid[i] && d == SLOW && !(fl & PINNED) && !(fl & RETIRED);
-      if (pol == P_WEAR_LEVEL) {
-        int slow = s_valid[i] && d == SLOW;
-        int fw = ld(table, (long long)gidx(slow ? ld(table, r + FRAME) : 0,
-                                           NP) * W + WEAR);
-        ok = ok && fw <= sh.min_wear + I[WEAR_SLACK];
-      }
-      best = better<true>(best, VI{ok ? ld(table, r + HOTNESS) : -1, i});
-    }
-    best = block_arg<true>(best, scratch);
-    if (tid == 0) {
-      sh.cand = s_page[best.i];
-      sh.heat = best.v;
-    }
+  long long ph_acc[N_PHASES] = {0};
+  long long t_prev = clock64();
+  const bool stamp = lead && a.phases != nullptr && tid == 0;
+#define STAMP(ph)                      \
+  if (stamp) {                         \
+    const long long t_now = clock64(); \
+    ph_acc[ph] += t_now - t_prev;      \
+    t_prev = t_now;                    \
   }
-  // policies.hotness_global_policy: whole-table argmax / argmin.
-  if (pol == P_HOTNESS_GLOBAL) {
-    VI hot = identity<true>(), cold = identity<false>();
-    for (int r = tid; r < NP; r += nth) {
-      long long k = (long long)r * W;
-      int d = ld(table, k + DEVICE), h = ld(table, k + HOTNESS);
-      int pinned = (ld(table, k + FLAGS) & (PINNED | RETIRED)) != 0;
-      hot = better<true>(hot, VI{d == SLOW && !pinned ? h : -1, r});
-      cold = better<false>(cold, VI{d == FAST && !pinned ? h : BIG, r});
-    }
-    hot = block_arg<true>(hot, scratch);
-    cold = block_arg<false>(cold, scratch);
-    if (tid == 0) {
-      sh.cand = hot.i;
-      sh.hg_heat = hot.v;
-      sh.victim = cold.i;
-    }
-  }
-  // The rescue donor: the first healthy slow-resident page of the chunk.
-  VI donor = identity<false>();
-  for (int i = tid; i < n; i += nth) {
-    long long r = (long long)clampi(s_page[i], 0, NP - 1) * W;
-    int ok = s_valid[i] && ld(table, r + DEVICE) == SLOW &&
-             (ld(table, r + FLAGS) & (PINNED | RETIRED | POISONED)) == 0;
-    donor = better<false>(donor, VI{ok ? 0 : 1, i});
-  }
-  donor = block_arg<false>(donor, scratch);
 
-  if (tid == 0) {
-    // policies._clock_victim: first eligible frame within the window.
-    auto clock_victim = [&](int& victim, int& found, int& skip) {
-      int owners[CLOCK_WINDOW], first = -1;
-      for (int k = 0; k < CLOCK_WINDOW; ++k) {
-        int frame = floormod(ptr + k, nf);
-        owners[k] = ld(table, (long long)gidx(frame, NP) * W + OWNER);
-        int fl = ld(table, (long long)gidx(owners[k], NP) * W + FLAGS);
-        if (first < 0 && !(fl & (PINNED | RETIRED))) first = k;
+  for (int c = 0; c < a.n_chunks; ++c) {
+    const int chunk_idx = wadd(chunk0, (unsigned)c);
+    const bool do_decay = floormod(chunk_idx, decay_every) == decay_every - 1;
+    const long long base = (long long)bi * n_all + (long long)c * n;
+    Sums acc;
+    sums_zero(acc);
+
+    if (lead) {
+      // ---- load: the chunk's requests, transients (step_ref), issue
+      // times and the RX link's inputs (stage 1), the row gather (stage 2).
+      const float lb = F[LINK_BYTES_PER_CYCLE];
+      const int* tr = a.transient + (long long)bi * a.nt * 2;
+      for (int i = tid; i < n; i += nth) {
+        const int v = a.valid[base + i] != 0;
+        const int pg = a.page[base + i];
+        const int iw = a.is_write[base + i] != 0;
+        const int sz = v ? a.size[base + i] : 0;
+        s_valid[i] = v;
+        s_page[i] = pg;
+        s_off[i] = a.offset[base + i];
+        s_iw[i] = iw;
+        s_size[i] = sz;
+        int hit = 0;
+        for (int k = 0; k < a.nt; ++k)
+          hit |= (pg == tr[2 * k + 1]) & (tr[2 * k] == chunk_idx);
+        hit &= v;
+        a.inj_out[base + i] = hit;
+        acc.c[S_INJECTED] += hit;
+        const int issue =
+            v ? wadd(I[CLOCK], (unsigned)wmul(I[ISSUE_GAP], i + 1)) : NEG;
+        s_issue[i] = issue;
+        const long long r = clampi(pg, 0, NP - 1);
+        const int4 head = ld_head(table, r);
+        const int poi = v && (ld(table, r * W + FLAGS) & POISONED);
+        s_dev[i] = head.x;
+        s_frm[i] = head.y;
+        s_hot[i] = head.z;
+        a.poi_out[base + i] = poi;
+        acc.c[S_POISONED] += poi;
+        s_hotw[i] = v ? 1 + (eff_w - 1) * iw : 0;
+        s_t0[i] = imax(issue, v ? I[LINK_FREE_RX] : NEG);
+        s_t1[i] = v ? ceil_cycles(iw ? sz : 16, lb) : 0;
       }
-      found = first >= 0;
-      victim = owners[found ? first : 0];
-      skip = found ? first : CLOCK_WINDOW;
-    };
-    auto hot_at = [&](int p) {
-      return ld(table, (long long)gidx(p, NP) * W + HOTNESS);
-    };
-    int p_want = 0, cand = 0, victim = 0, new_ptr = ptr;
-    int vfound, skip;
-    switch (pol) {
-      case P_HOTNESS:
-      case P_WRITE_BIAS:
-      case P_WEAR_LEVEL: {
-        clock_victim(victim, vfound, skip);
-        cand = sh.cand;
-        p_want = vfound && sh.heat >= I[HOT_THRESHOLD] &&
-                 sh.heat > hot_at(victim);
-        new_ptr = floormod(ptr + skip + p_want, nf);
-        break;
+      if (tid < W) {
+        sh.row_a[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_A], 0), 0,
+                                                    NP - 1) * W + tid);
+        sh.row_b[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_B], 0), 0,
+                                                    NP - 1) * W + tid);
       }
-      case P_STREAM: {
-        // Dominant small stride of the chunk's page stream.
-        int hist[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-        int last = 0;
-        for (int i = 0; i < n; ++i) {
-          if (s_valid[i]) last = i;
-          if (i + 1 < n) {
-            int d = (s_valid[i + 1] && s_valid[i]) ? s_page[i + 1] - s_page[i]
-                                                   : 0;
-            int in_range = (d >= -4 && d <= 4) && d != 0;
-            hist[clampi(d + 4, 0, 8)] += in_range;
+      __syncthreads();
+      STAMP(PH_LOAD)
+
+      // ---- stage 1: RX link (_seq_maxplus) as a block scan.
+      block_maxplus(s_t0, s_t1, s_arr, n, s_warp);
+      STAMP(PH_RX)
+
+      // ---- stage 2: DMA swap-progress redirect (dma.redirect); then each
+      // request's bank lane and media service, and the commit's demand
+      // WEAR targets with their pre-chunk values.
+      {
+        const int active = I[DMA_ACTIVE] == 1;
+        const int exch = 3 * I[DMA_CYCLES_PER_SUBBLOCK];
+        const float fb = F[FAST_BYTES_PER_CYCLE], sb = F[SLOW_BYTES_PER_CYCLE];
+        for (int i = tid; i < n; i += nth) {
+          const int v = s_valid[i];
+          if (i == n - 1) sh.rx_last = s_arr[i];
+          const int arr = wadd(s_arr[i], v ? half_link : 0);
+          s_arr[i] = arr;
+          const int prog = active ? clampi(floordiv(arr - I[DMA_START], exch),
+                                           0, a.spp)
+                                  : 0;
+          const int moved = floordiv(s_off[i], a.subblock) < prog;
+          int d = s_dev[i], f = s_frm[i];
+          if (active && moved && s_page[i] == I[DMA_PAGE_A]) {
+            d = sh.row_b[DEVICE];
+            f = sh.row_b[FRAME];
+          }
+          if (active && moved && s_page[i] == I[DMA_PAGE_B]) {
+            d = sh.row_a[DEVICE];
+            f = sh.row_a[FRAME];
+          }
+          s_dev[i] = d;
+          s_frm[i] = f;
+          a.dev_out[base + i] = d;
+          const int bank = wadd(wmul(d, a.n_banks),
+                                (unsigned)floormod(f, a.n_banks));
+          const int bw = bank < 0 ? bank + NB : bank;
+          s_lane[i] = clampi(bw, 0, NB - 1) | ((bw >= 0 && bw < NB) << 16);
+          const int iw = s_iw[i], sz = s_size[i];
+          s_msrv[i] =
+              !v ? 0
+                 : d == SLOW
+                       ? wadd(iw ? I[SLOW_WRITE_LAT] : I[SLOW_READ_LAT],
+                              (unsigned)ceil_cycles(sz, sb))
+                       : wadd(iw ? I[FAST_WRITE_LAT] : I[FAST_READ_LAT],
+                              (unsigned)ceil_cycles(sz, fb));
+          const int slow_wr = iw && v && d == SLOW;
+          s_wrow[i] = slow_wr ? f : 0;
+          s_ww[i] = slow_wr;
+          s_wpre[i] =
+              ld(table, (long long)gidx(slow_wr ? f : 0, NP) * W + WEAR);
+        }
+        if (tid == 0) {
+          // Pre-chunk values the commit may need (read before it writes).
+          sh.wear0 = ld(table, WEAR);
+          sh.wear_fa =
+              ld(table, (long long)gidx(sh.row_a[FRAME], NP) * W + WEAR);
+          sh.wear_fbr =
+              ld(table, (long long)gidx(sh.row_b[FRAME], NP) * W + WEAR);
+          sh.own_pre =
+              ld(table, (long long)gidx(sh.row_b[FRAME], NP) * W + OWNER);
+        }
+      }
+      __syncthreads();
+      STAMP(PH_REDIRECT)
+
+      // ---- stage 3: bank queues (_seq_bank_resolve), one warp per lane.
+      // A request whose bank lies outside [0, 2 n_banks) reads the clamped
+      // lane's register and leaves it alone (the gather and drop rules).
+      for (int L = warp; L < NB; L += WARPS) {
+        const int free0 = s_bank[L];
+        MP carry = mp_id();
+        for (int g = 0; g < n; g += 32) {
+          const int i = g + lane;
+          const int code = i < n ? s_lane[i] : -1;
+          const bool m = code >= 0 && (code & 0xffff) == L;
+          const unsigned mask = __ballot_sync(FULL, m);
+          if (mask == 0) continue;
+          const int arr = m ? imax(s_arr[i], NEG) : 0;
+          const int srv = m ? s_msrv[i] : 0;
+          const MP e = (m && (code >> 16)) ? mp_elem(arr, srv) : mp_id();
+          MP ex, total;
+          if ((mask & (mask - 1)) == 0) {   // one request of the lane here
+            ex = mp_id();
+            total = shfl_mp(e, __ffs(mask) - 1);
+          } else {
+            const MP incl = warp_scan(e, lane);
+            ex = shfl_up_mp(incl, 1);
+            if (lane == 0) ex = mp_id();
+            total = shfl_mp(incl, 31);
+          }
+          if (m) {
+            const MP pre = mp_then(carry, ex);
+            const int reg = imax(wadd(free0, pre.s), pre.a);
+            s_mdone[i] = wadd(imax(arr, reg), (unsigned)srv);
+          }
+          carry = mp_then(carry, total);
+        }
+        if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);
+      }
+      __syncthreads();
+
+      // ---- stage 4: tag-match in-order return (_seq_inorder) ...
+      for (int i = tid; i < n; i += nth)
+        s_t0[i] = s_valid[i] ? s_mdone[i] : NEG;
+      __syncthreads();
+      block_maxplus(s_t0, nullptr, s_t0, n, s_warp);
+      // ... then stage 5: TX link (_seq_maxplus) as a block scan.
+      for (int i = tid; i < n; i += nth) {
+        const int v = s_valid[i];
+        const int ordered = imax(s_t0[i], I[LAST_RETURN]);
+        acc.c[S_HELD] += v && ordered > s_mdone[i];
+        s_t0[i] = imax(ordered, v ? I[LINK_FREE_TX] : NEG);
+        s_t1[i] = v ? ceil_cycles(s_iw[i] ? 16 : s_size[i],
+                                  F[LINK_BYTES_PER_CYCLE])
+                    : 0;
+      }
+      __syncthreads();
+      block_maxplus(s_t0, s_t1, s_ret, n, s_warp);
+
+      // ---- the chunk's outputs and sums (counters.update, commit_phase).
+      for (int i = tid; i < n; i += nth) {
+        const int v = s_valid[i];
+        const int ret = wadd(s_ret[i], v ? half_link : 0);
+        s_ret[i] = ret;
+        const int lat = v ? wsub(ret, s_issue[i]) : 0;
+        a.ret_out[base + i] = v ? ret : 0;
+        a.lat_out[base + i] = lat;
+        const int w = s_iw[i] && v, r = !s_iw[i] && v;
+        const int slow = s_dev[i] == SLOW, sz = s_size[i];
+        acc.c[S_READS_FAST] += r && !slow;
+        acc.c[S_WRITES_FAST] += w && !slow;
+        acc.c[S_READS_SLOW] += r && slow;
+        acc.c[S_WRITES_SLOW] += w && slow;
+        acc.c[S_N_READS] += r;
+        acc.c[S_VALID] += v;
+        acc.s[S_BYTES_READ_FAST] += (r && !slow) ? sz : 0;
+        acc.s[S_BYTES_WRITE_FAST] += (w && !slow) ? sz : 0;
+        acc.s[S_BYTES_READ_SLOW] += (r && slow) ? sz : 0;
+        acc.s[S_BYTES_WRITE_SLOW] += (w && slow) ? sz : 0;
+        acc.s[S_READ_LATENCY] += r ? lat : 0;
+        acc.max_ret = imax(acc.max_ret, v ? ret : I[LAST_RETURN]);
+        acc.max_lat = imax(acc.max_lat, lat);
+      }
+      block_sums(acc, s_part, &sh.sums);
+      STAMP(PH_STAGE345)
+
+      // ---- commit_phase scalars: last return, now, the swap commit plan
+      // (dma.plan_commit), the OWNER update.
+      if (tid == 0) {
+        const Sums& t = sh.sums;
+        const int any = t.c[S_VALID] > 0;
+        sh.any_valid = any;
+        sh.tx_last = s_ret[n - 1];
+        sh.last_ret = any ? t.max_ret : I[LAST_RETURN];
+        const int now = imax(wadd(I[CLOCK], (unsigned)wmul(I[ISSUE_GAP], n)),
+                             sh.last_ret);
+        sh.now = now;
+
+        const int pa = I[DMA_PAGE_A], pb = I[DMA_PAGE_B];
+        const int dur = a.spp * (3 * I[DMA_CYCLES_PER_SUBBLOCK]);
+        const int done = I[DMA_ACTIVE] == 1 && now >= I[DMA_START] + dur;
+        const int ia = pa >= 0 ? pa : 0, ib = pb >= 0 ? pb : 0;
+        const int da = sh.row_a[DEVICE], db = sh.row_b[DEVICE];
+        const int fa = sh.row_a[FRAME], fbr = sh.row_b[FRAME];
+        const int ea = sh.row_a[EPOCH], eb = sh.row_b[EPOCH];
+        const int fla = sh.row_a[FLAGS], flb = sh.row_b[FLAGS];
+        const int commit_a = done && pa >= 0, commit_b = done && pb >= 0;
+        const int chg_a = commit_a && db == SLOW, chg_b = commit_b && da == SLOW;
+        const int rp = I[RESCUE_PAGE];
+        const int dead_a = (fla & POISONED) && pa == rp && pa >= 0;
+        const int dead_b = (flb & POISONED) && pb == rp && pb >= 0;
+        const int new_fla = dead_b ? ((fla | DEAD) & ~PINNED)
+                                   : (dead_a ? (fla & ~DEAD) : fla);
+        const int new_flb = dead_a ? ((flb | DEAD) & ~PINNED)
+                                   : (dead_b ? (flb & ~DEAD) : flb);
+        const int rows[10] = {ia, ib, ia, ib, ia, ib, chg_a ? fbr : 0,
+                              chg_b ? fa : 0, ia, ib};
+        const int lanes[10] = {DEVICE, DEVICE, FRAME, FRAME, EPOCH,
+                               EPOCH, WEAR, WEAR, FLAGS, FLAGS};
+        const int delta[10] = {commit_a ? db - da : 0,
+                               commit_b ? da - db : 0,
+                               commit_a ? fbr - fa : 0,
+                               commit_b ? fa - fbr : 0,
+                               commit_a ? now - ea : 0,
+                               commit_b ? now - eb : 0,
+                               chg_a ? a.charge : 0,
+                               chg_b ? a.charge : 0,
+                               commit_a ? new_fla - fla : 0,
+                               commit_b ? new_flb - flb : 0};
+        for (int k = 0; k < 10; ++k) {
+          sh.p_row[k] = rows[k];
+          sh.p_lane[k] = lanes[k];
+          sh.p_delta[k] = delta[k];
+          const int wm = lanes[k] == WEAR;
+          s_wrow[n + k] = wm ? rows[k] : 0;
+          s_ww[n + k] = wm ? delta[k] : 0;
+          s_wpre[n + k] = (k == 6 && chg_a)   ? sh.wear_fbr
+                          : (k == 7 && chg_b) ? sh.wear_fa
+                                              : sh.wear0;
+        }
+        const int any_dead = (commit_a && dead_a) || (commit_b && dead_b);
+        sh.tombstone = any_dead ? (dead_a ? pb : pa) : -1;
+        sh.done = done;
+        sh.dma_active = done ? 0 : I[DMA_ACTIVE];
+        sh.dma_a = done ? -1 : pa;
+        sh.dma_b = done ? -1 : pb;
+        sh.dma_start = I[DMA_START];
+        sh.swaps = I[DMA_SWAPS_DONE] + done;
+        const int promoted = done && db == FAST;
+        sh.own_idx = promoted ? fbr * W + OWNER : NP * W;
+        sh.own_delta = promoted ? imax(pa, 0) - sh.own_pre : 0;
+        sh.rescue = (done && sh.tombstone >= 0) ? -1 : rp;
+      }
+      __syncthreads();
+      STAMP(PH_COMMIT)
+
+      // ---- table.saturating_weights for HOTNESS and WEAR.
+      for (int i = tid; i < n; i += nth)
+        s_t0[i] = saturate(s_page, s_hotw, i, s_hot[i], HOTNESS_CAP, bound_h);
+      for (int k = tid; k < n + 10; k += nth)
+        s_t1[k] = saturate(s_wrow, s_ww, k, s_wpre[k], WEAR_CAP, bound_w);
+      __syncthreads();   // every pre-chunk read is done: the commit may write
+      STAMP(PH_SATW)
+
+      // ---- commit_phase: ONE scatter-add of int32 deltas (mode="drop").
+      {
+        const long long size = (long long)NP * W;
+        auto add = [&](long long idx, int upd) {
+          if (upd == 0) return;
+          if (idx < 0) idx += size;
+          if (idx >= 0 && idx < size) atomicAdd(table + idx, upd);
+        };
+        for (int i = tid; i < n; i += nth)
+          add((long long)s_page[i] * W + HOTNESS, s_t0[i]);
+        for (int k = tid; k < n + 10; k += nth)
+          add((long long)s_wrow[k] * W + WEAR, s_t1[k]);
+        if (tid < 10)
+          add((long long)sh.p_row[tid] * W + sh.p_lane[tid],
+              sh.p_lane[tid] == WEAR ? 0 : sh.p_delta[tid]);
+        if (tid == 0) add(sh.own_idx, sh.own_delta);
+      }
+      __syncthreads();
+      STAMP(PH_COMMIT)
+    }
+
+    // ---- commit_phase: decay shift and min-wear scrub on decay
+    // boundaries, the rows split among the cluster's CTAs.
+    if (do_decay) {
+      cluster.sync();   // the commit has landed
+      const int shift = I[HOTNESS_DECAY_SHIFT];
+      const int hi = imin(row_hi, n_slow_rows);
+      int m = INT_MAX;
+      for (int r0 = row_lo + tid; r0 < row_hi; r0 += UNROLL * nth) {
+        int4 head[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int r = r0 + u * nth;
+          if (r < row_hi) head[u] = ld_head(table, r);
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int r = r0 + u * nth;
+          if (r < row_hi) {
+            st(table, (long long)r * W + HOTNESS, shr(head[u].z, shift));
+            if (r < hi) m = imin(m, head[u].w);
           }
         }
-        int arg = 0;
-        for (int k = 1; k < 9; ++k)
-          if (hist[k] > hist[arg]) arg = k;
-        const int stride = arg - 4, strength = hist[arg];
-        const int streaming = strength > n / 4;
-        const int target = clampi(s_page[last] + stride, 0, NP - 1);
-        const int tfl = ld(table, (long long)target * W + FLAGS);
-        const int target_is_slow =
-            ld(table, (long long)target * W + DEVICE) == SLOW &&
-            !(tfl & PINNED) && !(tfl & RETIRED);
-        clock_victim(victim, vfound, skip);
-        const int hw = vfound && sh.heat >= I[HOT_THRESHOLD] &&
-                       sh.heat > hot_at(victim);
-        const int want_stream = streaming && target_is_slow && vfound;
-        p_want = want_stream || hw;
-        cand = want_stream ? target : sh.cand;
-        new_ptr = floormod(ptr + skip + p_want, nf);
-        break;
       }
-      case P_HOTNESS_GLOBAL: {
-        cand = sh.cand;
-        victim = sh.victim;
-        p_want = sh.hg_heat >= I[HOT_THRESHOLD] &&
-                 sh.hg_heat > hot_at(victim);
-        break;
+      const VI part = block_arg<false>(VI{m, 0}, scratch);
+      if (tid == 0) c_part[0] = part;
+      cluster.sync();   // every CTA's share is done and visible
+      if (lead && tid == 0) {
+        int mw = n_slow_rows < NP ? BIG : INT_MAX;
+        for (int k = 0; k < n_cta; ++k)
+          mw = imin(mw, cluster.map_shared_rank(&c_part[0], k)->v);
+        sh.min_wear = mw;
       }
-      default:   // P_STATIC
-        break;
+    } else if (lead && tid == 0) {
+      sh.min_wear = I[MIN_WEAR];
+    }
+    if (lead) {
+      __syncthreads();
+      STAMP(PH_DECAY)
+
+      // ---- retire_phase: a due FaultPlan death (thread 0), else the first
+      // endurance crossing among the pages observed this boundary.
+      if (tid == 0) {
+        const int* de = a.deaths + (long long)bi * a.nd * 2;
+        const int cur = gidx(imin(I[FAULT_CURSOR], a.nd - 1), a.nd);
+        const int due = I[FAULT_CURSOR] < a.nd && de[2 * cur] <= chunk_idx;
+        const int consume = due && sh.rescue < 0;
+        const int ev_p = clampi(de[2 * cur + 1], 0, NP - 1);
+        const int ev_flags = ld(table, (long long)ev_p * W + FLAGS);
+        sh.death_fire = consume && (ev_flags & DEAD) == 0;
+        sh.ev_p = ev_p;
+        sh.fault_cursor = I[FAULT_CURSOR] + consume;
+      }
+      VI f = identity<false>();
+      for (int k = tid; k < n + 2; k += nth) {
+        int cnd, ok;
+        if (k < n) {
+          cnd = s_page[k];
+          ok = s_valid[k];
+        } else {
+          const int p = k == n ? I[DMA_PAGE_A] : I[DMA_PAGE_B];
+          cnd = imax(p, 0);
+          ok = p >= 0;
+        }
+        const long long r = clampi(cnd, 0, NP - 1);
+        const int4 head = ld_head(table, r);
+        const int slow = head.x == SLOW;
+        const int wear =
+            ld(table, (long long)gidx(slow ? head.y : 0, NP) * W + WEAR);
+        const int over = ok && I[ENDURANCE_BUDGET] > 0 && slow &&
+                         wear > I[ENDURANCE_BUDGET] &&
+                         (ld(table, r * W + FLAGS) & DEAD) == 0;
+        f = better<false>(f, VI{over ? 0 : 1, k});
+      }
+      f = block_arg<false>(f, scratch);
+      if (tid == 0) {
+        const int j = f.v == 0 ? f.i : 0;
+        int cand_j = j < n ? s_page[j]
+                           : imax(j == n ? I[DMA_PAGE_A] : I[DMA_PAGE_B], 0);
+        cand_j = clampi(cand_j, 0, NP - 1);
+        const int wear_fire = sh.rescue < 0 && !sh.death_fire && f.v == 0;
+        const int fire = sh.death_fire || wear_fire;
+        const int p_ret = sh.death_fire ? sh.ev_p : cand_j;
+        if (fire) {
+          const long long k = (long long)p_ret * W + FLAGS;
+          st(table, k, (ld(table, k) | POISONED) & ~PINNED);
+        }
+        sh.rescue = fire ? p_ret : sh.rescue;
+        sh.retired = fire ? p_ret : -1;
+      }
+      __syncthreads();
+      STAMP(PH_RETIRE)
     }
 
-    // Post-policy proposal mask: device sanity plus the pin bits.
-    const long long rc = (long long)gidx(cand, NP) * W;
-    const long long rv = (long long)gidx(victim, NP) * W;
-    const int unpinned = !((ld(table, rc + FLAGS) & PINNED) ||
-                           (ld(table, rv + FLAGS) & PINNED));
-    const int want = p_want && sh.any_valid && unpinned &&
-                     ld(table, rc + DEVICE) == SLOW &&
-                     ld(table, rv + DEVICE) == FAST;
+    // ---- policies.hotness_global_policy: whole-table argmax / argmin,
+    // the rows split among the cluster's CTAs.
+    if (pol == P_HOTNESS_GLOBAL) {
+      cluster.sync();   // the retirement's FLAGS stamp has landed
+      VI hot = identity<true>(), cold = identity<false>();
+      for (int r0 = row_lo + tid; r0 < row_hi; r0 += UNROLL * nth) {
+        int4 head[UNROLL];
+        int fl[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int r = r0 + u * nth;
+          if (r < row_hi) {
+            head[u] = ld_head(table, r);
+            fl[u] = ld(table, (long long)r * W + FLAGS);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int r = r0 + u * nth;
+          if (r < row_hi) {
+            const int pinned = (fl[u] & (PINNED | RETIRED)) != 0;
+            hot = better<true>(
+                hot, VI{head[u].x == SLOW && !pinned ? head[u].z : -1, r});
+            cold = better<false>(
+                cold, VI{head[u].x == FAST && !pinned ? head[u].z : BIG, r});
+          }
+        }
+      }
+      hot = block_arg<true>(hot, scratch);
+      cold = block_arg<false>(cold, scratch);
+      if (tid == 0) {
+        c_part[0] = hot;
+        c_part[1] = cold;
+      }
+      cluster.sync();   // every CTA's share is done and visible
+      if (lead && tid == 0) {
+        hot = identity<true>();
+        cold = identity<false>();
+        for (int k = 0; k < n_cta; ++k) {
+          const VI* p = cluster.map_shared_rank(&c_part[0], k);
+          hot = better<true>(hot, p[0]);
+          cold = better<false>(cold, p[1]);
+        }
+        sh.hot = hot;
+        sh.cold = cold;
+      }
+    }
+    if (!lead) continue;
+    __syncthreads();
 
-    // Rescue migration override.
-    const int rescue = sh.rescue;
-    const int pending = rescue >= 0;
-    const int resc = clampi(rescue, 0, NP - 1);
-    const int r_slow = ld(table, (long long)resc * W + DEVICE) == SLOW;
-    int r_victim, r_found, r_skip;
-    clock_victim(r_victim, r_found, r_skip);
-    const int dj = donor.v == 0 ? donor.i : 0;
-    const int pg_dj = clampi(s_page[dj], 0, NP - 1);
-    const int r_want = pending && (r_slow ? r_found : donor.v == 0);
-    const int final_want = pending ? r_want : want;
-    const int page_a = pending ? (r_slow ? resc : pg_dj) : cand;
-    const int page_b = pending ? (r_slow ? r_victim : resc) : victim;
+    // ---- policy_phase: the policy that policy_id selects (clamped, as
+    // lax.switch clamps), mapped through the registry to a built-in.
+    const int nf = I[N_FAST_PAGES];
+    const int ptr = I[CLOCK_PTR];
+    const bool chunk_cand = pol == P_HOTNESS || pol == P_WRITE_BIAS ||
+                            pol == P_STREAM || pol == P_WEAR_LEVEL;
+    // policies._chunk_candidate: the hottest eligible slow page of the
+    // chunk; and the rescue donor: the first healthy slow-resident page.
+    VI best = identity<true>(), donor = identity<false>();
+    for (int i = tid; i < n; i += nth) {
+      const long long r = clampi(s_page[i], 0, NP - 1);
+      const int4 head = ld_head(table, r);
+      const int fl = ld(table, r * W + FLAGS);
+      const int v = s_valid[i];
+      if (chunk_cand) {
+        int ok = v && head.x == SLOW && !(fl & PINNED) && !(fl & RETIRED);
+        if (pol == P_WEAR_LEVEL) {
+          const int slow = v && head.x == SLOW;
+          const int fw =
+              ld(table, (long long)gidx(slow ? head.y : 0, NP) * W + WEAR);
+          ok = ok && fw <= sh.min_wear + I[WEAR_SLACK];
+        }
+        best = better<true>(best, VI{ok ? head.z : -1, i});
+      }
+      const int dok = v && head.x == SLOW &&
+                      (fl & (PINNED | RETIRED | POISONED)) == 0;
+      donor = better<false>(donor, VI{dok ? 0 : 1, i});
+    }
+    if (chunk_cand) best = block_arg<true>(best, scratch);
+    donor = block_arg<false>(donor, scratch);
+    if (pol == P_STREAM) {
+      // The dominant small stride of the chunk's page stream: a histogram
+      // of the deltas with |d| <= 4, d != 0 (|INT32_MIN| is INT32_MIN, so
+      // it counts, as in JAX), and the last valid request.
+      if (tid < 9) sh.hist[tid] = 0;
+      if (tid == 0) sh.last_valid = -1;
+      __syncthreads();
+      int last = -1;
+      int bins[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+      for (int i = tid; i < n; i += nth) {
+        if (s_valid[i]) last = imax(last, i);
+        if (i + 1 < n) {
+          const int d = (s_valid[i + 1] && s_valid[i])
+                            ? wsub(s_page[i + 1], s_page[i]) : 0;
+          const int in_range = d == INT_MIN || (d >= -4 && d <= 4 && d != 0);
+          bins[clampi(wadd(d, 4u), 0, 8)] += in_range;
+        }
+      }
+      for (int k = 0; k < 9; ++k) {
+        const int s = (int)__reduce_add_sync(FULL, (unsigned)bins[k]);
+        if (lane == 0 && s) atomicAdd(&sh.hist[k], s);
+      }
+      last = __reduce_max_sync(FULL, last);
+      if (lane == 0) atomicMax(&sh.last_valid, last);
+      __syncthreads();
+    }
+    // policies._clock_victim: the first eligible frame within the window,
+    // its CLOCK_WINDOW owners and their flags read by as many lanes.
+    if (warp == 0) {
+      int owner = 0, ok = 0;
+      if (lane < CLOCK_WINDOW) {
+        const int frame = floormod(ptr + lane, nf);
+        owner = ld(table, (long long)gidx(frame, NP) * W + OWNER);
+        const int fl = ld(table, (long long)gidx(owner, NP) * W + FLAGS);
+        ok = !(fl & (PINNED | RETIRED));
+      }
+      const unsigned okm = __ballot_sync(FULL, ok);
+      const int first = okm ? __ffs(okm) - 1 : -1;
+      const int victim = __shfl_sync(FULL, owner, first >= 0 ? first : 0);
+      if (lane == 0) {
+        sh.v_found = first >= 0;
+        sh.victim = victim;
+        sh.v_skip = first >= 0 ? first : CLOCK_WINDOW;
+        if (chunk_cand) {
+          sh.cand = s_page[best.i];
+          sh.heat = best.v;
+        }
+      }
+    }
+    __syncthreads();
 
-    // dma.maybe_start: a pinned or tombstoned member vetoes the swap.
-    const int vetoed =
-        ((ld(table, (long long)gidx(page_a, NP) * W + FLAGS) |
-          ld(table, (long long)gidx(page_b, NP) * W + FLAGS)) &
-         (PINNED | RETIRED)) != 0;
-    const int started = sh.dma_active == 0 && final_want && !vetoed;
-    const int ptr_rescue = floormod(ptr + r_skip + 1, nf);
-    const int clock_ptr =
-        pending ? ((r_slow && started) ? ptr_rescue : ptr)
-                : ((started || !p_want) ? new_ptr : ptr);
+    if (tid == 0) {
+      auto hot_at = [&](int p) {
+        return ld(table, (long long)gidx(p, NP) * W + HOTNESS);
+      };
+      const int vfound = sh.v_found, skip = sh.v_skip;
+      int p_want = 0, cand = 0, victim = 0, new_ptr = ptr;
+      switch (pol) {
+        case P_HOTNESS:
+        case P_WRITE_BIAS:
+        case P_WEAR_LEVEL: {
+          victim = sh.victim;
+          cand = sh.cand;
+          p_want = vfound && sh.heat >= I[HOT_THRESHOLD] &&
+                   sh.heat > hot_at(victim);
+          new_ptr = floormod(ptr + skip + p_want, nf);
+          break;
+        }
+        case P_STREAM: {
+          int arg = 0;
+          for (int k = 1; k < 9; ++k)
+            if (sh.hist[k] > sh.hist[arg]) arg = k;
+          const int stride = arg - 4, strength = sh.hist[arg];
+          const int streaming = strength > n / 4;
+          const int last = imax(sh.last_valid, 0);
+          const int target = clampi(s_page[last] + stride, 0, NP - 1);
+          const int tfl = ld(table, (long long)target * W + FLAGS);
+          const int target_is_slow =
+              ld(table, (long long)target * W + DEVICE) == SLOW &&
+              !(tfl & PINNED) && !(tfl & RETIRED);
+          victim = sh.victim;
+          const int hw = vfound && sh.heat >= I[HOT_THRESHOLD] &&
+                         sh.heat > hot_at(victim);
+          const int want_stream = streaming && target_is_slow && vfound;
+          p_want = want_stream || hw;
+          cand = want_stream ? target : sh.cand;
+          new_ptr = floormod(ptr + skip + p_want, nf);
+          break;
+        }
+        case P_HOTNESS_GLOBAL: {
+          cand = sh.hot.i;
+          victim = sh.cold.i;
+          p_want = sh.hot.v >= I[HOT_THRESHOLD] && sh.hot.v > hot_at(victim);
+          break;
+        }
+        default:   // P_STATIC
+          break;
+      }
 
-    int* o = a.sc_out + bi * N_OUT;
-    o[CLOCK] = sh.now;
-    o[CLOCK_PTR] = clock_ptr;
-    o[CHUNK_IDX] = I[CHUNK_IDX] + 1;
-    o[DMA_ACTIVE] = started ? 1 : sh.dma_active;
-    o[DMA_PAGE_A] = started ? page_a : sh.dma_a;
-    o[DMA_PAGE_B] = started ? page_b : sh.dma_b;
-    o[DMA_START] = started ? sh.now : sh.dma_start;
-    o[DMA_SWAPS_DONE] = sh.swaps;
-    o[LINK_FREE_RX] = sh.any_valid ? sh.rx_last : I[LINK_FREE_RX];
-    o[LINK_FREE_TX] = sh.any_valid ? sh.tx_last : I[LINK_FREE_TX];
-    o[LAST_RETURN] = sh.last_ret;
-    o[RESCUE_PAGE] = sh.rescue;
-    o[MIN_WEAR] = sh.min_wear;
-    o[FAULT_CURSOR] = sh.fault_cursor;
-    o[OUT_HELD] = sh.held;
-    o[OUT_RETIRED] = sh.retired;
-    o[OUT_TOMBSTONE] = sh.tombstone;
+      // Post-policy proposal mask: device sanity plus the pin bits.
+      const long long rc = (long long)gidx(cand, NP) * W;
+      const long long rv = (long long)gidx(victim, NP) * W;
+      const int unpinned = !((ld(table, rc + FLAGS) & PINNED) ||
+                             (ld(table, rv + FLAGS) & PINNED));
+      const int want = p_want && sh.any_valid && unpinned &&
+                       ld(table, rc + DEVICE) == SLOW &&
+                       ld(table, rv + DEVICE) == FAST;
+
+      // Rescue migration override (the CLOCK victim is the same table
+      // read the policies make).
+      const int rescue = sh.rescue;
+      const int pending = rescue >= 0;
+      const int resc = clampi(rescue, 0, NP - 1);
+      const int r_slow = ld(table, (long long)resc * W + DEVICE) == SLOW;
+      const int dj = donor.v == 0 ? donor.i : 0;
+      const int pg_dj = clampi(s_page[dj], 0, NP - 1);
+      const int r_want = pending && (r_slow ? vfound : donor.v == 0);
+      const int final_want = pending ? r_want : want;
+      const int page_a = pending ? (r_slow ? resc : pg_dj) : cand;
+      const int page_b = pending ? (r_slow ? sh.victim : resc) : victim;
+
+      // dma.maybe_start: a pinned or tombstoned member vetoes the swap.
+      const int vetoed =
+          ((ld(table, (long long)gidx(page_a, NP) * W + FLAGS) |
+            ld(table, (long long)gidx(page_b, NP) * W + FLAGS)) &
+           (PINNED | RETIRED)) != 0;
+      const int started = sh.dma_active == 0 && final_want && !vetoed;
+      const int ptr_rescue = floormod(ptr + skip + 1, nf);
+      const int clock_ptr =
+          pending ? ((r_slow && started) ? ptr_rescue : ptr)
+                  : ((started || !p_want) ? new_ptr : ptr);
+
+      // What the chunk reports; then counters.update: each chunk's sums,
+      // rounded once, folded as c + s in float32 in JAX's order.
+      const Sums& t = sh.sums;
+      int* co = a.chunk_out + ((long long)bi * a.n_chunks + c) * N_CHUNK_OUT;
+      co[CO_HELD] = t.c[S_HELD];
+      co[CO_RETIRED] = sh.retired;
+      co[CO_TOMBSTONE] = sh.tombstone;
+      const int add_i[N_COUNTER_INTS] = {
+          t.c[S_READS_FAST], t.c[S_WRITES_FAST], t.c[S_READS_SLOW],
+          t.c[S_WRITES_SLOW], t.c[S_N_READS], 0, t.c[S_HELD],
+          t.c[S_POISONED], sh.retired >= 0, t.c[S_INJECTED]};
+      for (int k = 0; k < N_COUNTER_INTS; ++k)
+        ci[k] = wadd(ci[k], (unsigned)add_i[k]);
+      ci[MAX_LATENCY] = imax(ci[MAX_LATENCY], t.max_lat);
+      const float brf = __ll2float_rn(t.s[S_BYTES_READ_FAST]);
+      const float bwf = __ll2float_rn(t.s[S_BYTES_WRITE_FAST]);
+      const float brs = __ll2float_rn(t.s[S_BYTES_READ_SLOW]);
+      const float bws = __ll2float_rn(t.s[S_BYTES_WRITE_SLOW]);
+      const float bits_fast = __fmul_rn(8.0f, __fadd_rn(brf, bwf));
+      const float energy = __fadd_rn(
+          __fadd_rn(__fmul_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST]),
+                    __fmul_rn(__fmul_rn(8.0f, brs),
+                              F[POWER_PJ_PER_BIT_SLOW_READ])),
+          __fmul_rn(__fmul_rn(8.0f, bws), F[POWER_PJ_PER_BIT_SLOW_WRITE]));
+      cf[BYTES_READ_FAST] = __fadd_rn(cf[BYTES_READ_FAST], brf);
+      cf[BYTES_WRITE_FAST] = __fadd_rn(cf[BYTES_WRITE_FAST], bwf);
+      cf[BYTES_READ_SLOW] = __fadd_rn(cf[BYTES_READ_SLOW], brs);
+      cf[BYTES_WRITE_SLOW] = __fadd_rn(cf[BYTES_WRITE_SLOW], bws);
+      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],
+                                       __ll2float_rn(t.s[S_READ_LATENCY]));
+      cf[ENERGY_PJ] = __fadd_rn(cf[ENERGY_PJ], energy);
+
+      // The state the next chunk starts from.
+      I[CLOCK] = sh.now;
+      I[CLOCK_PTR] = clock_ptr;
+      I[CHUNK_IDX] = wadd(chunk_idx, 1u);
+      I[DMA_ACTIVE] = started ? 1 : sh.dma_active;
+      I[DMA_PAGE_A] = started ? page_a : sh.dma_a;
+      I[DMA_PAGE_B] = started ? page_b : sh.dma_b;
+      I[DMA_START] = started ? sh.now : sh.dma_start;
+      I[DMA_SWAPS_DONE] = sh.swaps;
+      if (sh.any_valid) {
+        I[LINK_FREE_RX] = sh.rx_last;
+        I[LINK_FREE_TX] = sh.tx_last;
+      }
+      I[LAST_RETURN] = sh.last_ret;
+      I[RESCUE_PAGE] = sh.rescue;
+      I[MIN_WEAR] = sh.min_wear;
+      I[FAULT_CURSOR] = sh.fault_cursor;
+    }
+    __syncthreads();
+    STAMP(PH_POLICY)
   }
-  STAMP(PH_POLICY)
-  if (a.phases && tid == 0)
+
+  cluster.sync();   // no CTA leaves while the leader may read its shares
+  if (!lead) return;
+  if (tid < N_STATE) a.sc_out[bi * N_STATE + tid] = I[tid];
+  if (tid < N_COUNTER_INTS) a.ctr_int_out[bi * N_COUNTER_INTS + tid] = ci[tid];
+  if (tid < N_COUNTER_FLOATS)
+    a.ctr_float_out[bi * N_COUNTER_FLOATS + tid] = cf[tid];
+  for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
+  if (stamp)
     for (int k = 0; k < N_PHASES; ++k) a.phases[bi * N_PHASES + k] += ph_acc[k];
 #undef STAMP
 }
@@ -759,16 +1141,20 @@ extern "C" int chunk_step_launch(
     void* table, const void* page, const void* offset, const void* is_write,
     const void* size, const void* valid, const void* ints, const void* floats,
     const void* bank_free, const void* transient, const void* deaths,
-    const void* reg_map, void* sc_out, void* bank_out, void* ret_out,
-    void* dev_out, void* lat_out, void* poi_out, void* inj_out, void* phases,
-    int batch,
-    int n_pages, int chunk, int n_banks, int nt, int nd, int n_reg,
-    int wb_index, int subblock, int spp, int charge, cudaStream_t stream) {
-  if (batch <= 0 || n_pages <= 0 || chunk <= 0 || n_banks <= 0 || nt <= 0 ||
-      nd <= 0 || n_reg <= 0 || subblock <= 0)
+    const void* reg_map, const void* ctr_int, const void* ctr_float,
+    void* sc_out, void* bank_out, void* chunk_out, void* ret_out,
+    void* dev_out, void* lat_out, void* poi_out, void* inj_out,
+    void* ctr_int_out, void* ctr_float_out, void* phases, int batch,
+    int cluster,
+    int n_pages, int chunk, int n_chunks, int n_banks, int nt, int nd,
+    int n_reg, int wb_index, int subblock, int spp, int charge,
+    cudaStream_t stream) {
+  if (batch <= 0 || cluster <= 0 || cluster > MAX_CLUSTER || n_pages <= 0 ||
+      chunk <= 0 || n_chunks <= 0 || n_banks <= 0 || 2 * n_banks > 0xffff ||
+      nt <= 0 || nd <= 0 || n_reg <= 0 || subblock <= 0)
     return (int)cudaErrorInvalidValue;
-  size_t smem =
-      sizeof(int) * ((size_t)13 * chunk + 4 * ((size_t)chunk + 10) +
+  const size_t smem =
+      sizeof(int) * ((size_t)15 * chunk + 5 * ((size_t)chunk + 10) +
                      2 * (size_t)n_banks);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -788,16 +1174,34 @@ extern "C" int chunk_step_launch(
          static_cast<const int*>(transient),
          static_cast<const int*>(deaths),
          static_cast<const int*>(reg_map),
+         static_cast<const int*>(ctr_int),
+         static_cast<const float*>(ctr_float),
          static_cast<int*>(sc_out),
          static_cast<int*>(bank_out),
+         static_cast<int*>(chunk_out),
+         static_cast<int*>(ctr_int_out),
+         static_cast<float*>(ctr_float_out),
          static_cast<int*>(ret_out),
          static_cast<int*>(dev_out),
          static_cast<int*>(lat_out),
          static_cast<int*>(poi_out),
          static_cast<int*>(inj_out),
          static_cast<long long*>(phases),
-         n_pages, chunk, n_banks, nt, nd, n_reg, wb_index, subblock, spp,
-         charge};
-  chunk_step_kernel<<<batch, THREADS, smem, stream>>>(a);
+         n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index,
+         subblock, spp, charge};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch * cluster));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, chunk_step_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

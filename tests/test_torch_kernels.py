@@ -254,7 +254,16 @@ def test_packed_scalar_layout_matches_the_cuda_source():
     assert tuple(ints[:-1]) == tcs.SC_FIELDS + tcs.INT_PARAM_FIELDS
     floats = enum("FloatSlot")
     assert tuple(floats[:-1]) == tcs.FLOAT_PARAM_ORDER
-    assert tcs.N_OUT_SC == 17 and "N_OUT };" in src
+    assert "constexpr int N_STATE = FAULT_CURSOR + 1;" in src
+    assert ints.index("fault_cursor") + 1 == len(tcs.SC_FIELDS) == 14
+    assert tuple(enum("CounterInt")[:-1]) == tcs.COUNTER_INT_FIELDS
+    assert tuple(enum("CounterFloat")[:-1]) == tcs.COUNTER_FLOAT_FIELDS
+    assert len(tcs.COUNTER_INT_FIELDS) + len(tcs.COUNTER_FLOAT_FIELDS) == \
+        len(tcore.counters.Counters._fields)
+    assert tuple(c.removeprefix("co_") for c in enum("ChunkOut")[:-1]) == \
+        tcs.CHUNK_OUT
+    assert tuple(c.removeprefix("ph_") for c in enum("Phase")[:-1]) == \
+        tcs.PHASES
     pol = enum("Policy")
     assert tuple(p.removeprefix("p_") for p in pol) == POLICIES
     cs = tcore.small_platform()
@@ -279,7 +288,7 @@ def test_chunk_step_knob_on_cpu_tensors():
                                   table)
     with pytest.raises(ValueError, match="CUDA"):
         tcs.chunk_step_cuda(cfg, PolicyRegistry.snapshot(), table[None],
-                            *([None] * 10))
+                            *([None] * 12))
 
 
 # ------------------------------------------------------------ on the card
