@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Show that phase 6 of ``chip_smoke.py`` catches a wrong model kernel.
+"""Show that ``chip_smoke.py`` catches a wrong kernel.
 
 Run from the root of a checkout, with one CUDA device visible:
 
     python3 chip_faults.py
 
-Each planted fault is one edit to one CUDA source (a skipped kv tile in
-either flash path, a split dropped by the decode combine, a mask edge
-moved by one key, a dropped RWKV state update), made in
-a temporary copy of ``src/`` and ``chip_smoke.py``, never in the
-checkout. In a process of its own the faulty kernel runs the phase-6
-cases of its kernel at full width, and each result is held to its plain
-version by ``chip_smoke.case_error`` (``ref.kernel_error``'s allowance).
-One JSON line per case gives the error's share of the allowance and of
-the old absolute bfloat16 limit (2e-2, scaled where |value| > 1). The
-script exits nonzero when a fault escapes the allowance in every case of
-its kernel, or when a fault cannot be planted or run.
+Each planted fault is one edit to one CUDA source, made in a temporary
+copy of ``src/`` and ``chip_smoke.py``, never in the checkout, and run in
+a process of its own. A fault in the chunk-step kernel (a warp's carry
+dropped in the block scan, a bank lane's register not carried to the
+next chunk, one chunk's fold of a float counter skipped, one cluster
+CTA's share of the decay pass skipped) runs phase 4
+(``chip_smoke.check_chunk_step``), which must stop at a mismatch. A fault
+in a model kernel (a skipped kv tile in either flash path, a split
+dropped by the decode combine, a mask edge moved by one key, a dropped
+RWKV state update) runs the phase-6 cases of its kernel at full width,
+each result held to its plain version by ``chip_smoke.case_error``
+(``ref.kernel_error``'s allowance). One JSON line per case gives whether
+it was caught (for a model kernel, the error's share of the allowance
+and of the old absolute bfloat16 limit, 2e-2 scaled where |value| > 1).
+The script exits nonzero when a fault escapes in every case of its
+kernel, or when a fault cannot be planted or run.
 """
 from __future__ import annotations
 
@@ -31,6 +36,27 @@ CSRC = "src/repro_torch/kernels/csrc/"
 
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
+    ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
+     "TX)", "chunk_step", CSRC + "chunk_step.cu",
+     "  MP pre = mp_then(s_warp[WARPS + warp], ex);",
+     "  MP pre = mp_then(warp == 1 ? mp_id() : s_warp[WARPS + warp], ex);"),
+    ("chunk step: bank lane 3's register not carried to the next chunk",
+     "chunk_step", CSRC + "chunk_step.cu",
+     "        if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);",
+     "        if (lane == 0 && L != 3)\n"
+     "          s_bank[L] = imax(wadd(free0, carry.s), carry.a);"),
+    ("chunk step: chunk 1's fold of sum_read_latency skipped", "chunk_step",
+     CSRC + "chunk_step.cu",
+     "      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],",
+     "      if (c != 1)\n"
+     "      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],"),
+    ("chunk step: cluster CTA 1's share of the decay pass skipped",
+     "chunk_step", CSRC + "chunk_step.cu",
+     "      for (int r0 = row_lo + tid; r0 < row_hi; r0 += UNROLL * nth) {\n"
+     "        int4 head[UNROLL];\n#pragma unroll",
+     "      for (int r0 = row_lo + tid; r0 < row_hi && rank != 1;\n"
+     "           r0 += UNROLL * nth) {\n"
+     "        int4 head[UNROLL];\n#pragma unroll"),
     ("flash wgmma: middle kv tile skipped", "flash_attention",
      CSRC + "flash_attention.cu",
      "      const int k0 = t * BK;\n",
@@ -75,6 +101,17 @@ from repro_torch.kernels import rwkv_scan as rw
 torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
+if kernel == "chunk_step":
+    import repro_torch as rt
+    from repro_torch.kernels import chunk_step
+    row = {"fault": fault, "case": "phase 4"}
+    try:
+        cs.check_chunk_step(torch, dev, rt, chunk_step)
+        row["caught"] = False
+    except cs.Mismatch as e:
+        row.update(caught=True, why=str(e))
+    print(json.dumps(row), flush=True)
+    sys.exit(0)
 for case in cs.model_cases(torch, dev, ops, fa, da, rw):
     if case.kernel != kernel or "gradient" in case.label:
         continue

@@ -15,20 +15,26 @@ Phases, each printing its lines in order:
    paper's geometry (294,912 x 8 table), B in {1, 4}, m in {512, 514},
    with negative and past-the-end pages: ``torch.equal``; its time, the
    plain version's, and one advanced-indexing call's (``library_ms``).
-4. **Kernel B** (``chunk_step``) against its plain version
-   (``step_ref(seq=True)``) after every chunk: each of the six policies,
-   on ``small_platform`` and on the paper geometry, from an adversarial
-   state (pins, a poisoned page, a swap in flight) with an endurance
-   budget and a fault plan of deaths and transients, over more than
-   2 x ``decay_every`` chunks; once with B = 2 design points (different
-   params) in one launch.
+4. **Kernel B** (``chunk_step``) against its plain version (the loop of
+   ``step_ref(seq=True)`` and ``counters.update``): each of the six
+   policies, on ``small_platform`` and on the paper geometry, from an
+   adversarial state (pins, a poisoned page, a swap in flight) with an
+   endurance budget and a fault plan of deaths and transients, over more
+   than 2 x ``decay_every`` chunks, launched once per chunk (compared
+   after every chunk) and once over all the chunks (final state, the 16
+   counters and every output); then B = 2 design points (different
+   params) over all their chunks in one launch.
 5. **The main path at full size** — ``Engine(paper_platform().with_(
    chunk=512, policy="hotness", hot_threshold=4)).run`` on the port's
    ``520.omnetpp`` trace at scale 1e-4 (1,342,177 requests, 2,622
-   chunks), once through kernel B (``chunk_step_kernel="auto"``) and once
-   through the scan path whose stage-2 gather is kernel A (``"off"``);
-   each route's launch count must equal the number of chunks, and the two
-   final states and outputs must be bitwise equal.
+   chunks), once through kernel B (``chunk_step_kernel="auto"``: one
+   launch) and once through the scan path whose stage-2 gather is kernel
+   A (``"off"``: one launch per chunk); the two final states, counters
+   and outputs must be bitwise equal. Then kernel B's device time per
+   chunk over the whole trace (three runs), its share of the "auto"
+   route's wall time, its clock64() phase split, the same run with one
+   thread block per point instead of a cluster (results equal), and its
+   plain version's time.
 6. **The model kernels at full width** — the entry points
    ``ops.flash_attention``, ``ops.decode_attention`` and
    ``ops.rwkv_chunk`` driven once per case at the widths of the repo's
@@ -461,6 +467,14 @@ def run_main_path(torch, dev, rt, hl, cs) -> dict:
     check_same_state(torch, a.state, b.state)
     check_outputs(torch, rt, cfg, a, n)
     print("  both routes: final states, counters and outputs bitwise equal")
+    # A chunk's float32 sums are exact below 2^24, in any order.
+    pad = n_chunks * cfg.chunk - n
+    lat = torch.nn.functional.pad(a.outs["latency"], (0, pad))
+    reads = torch.nn.functional.pad(~trace.is_write, (0, pad))
+    worst = int(torch.where(reads, lat, 0).reshape(n_chunks, cfg.chunk)
+                .sum(dim=1, dtype=torch.int64).max())
+    print(f"  largest read-latency sum of a chunk: {worst} (2^24 = "
+          f"{2 ** 24})")
     return {"cfg": cfg, "trace": trace, "n": n, "n_chunks": n_chunks,
             "results": results}
 
@@ -516,12 +530,12 @@ def kernel_b_numbers(torch, dev, rt, cs, main) -> dict:
     runs = [device_ms(torch, lambda: eng.run(main["trace"]), 1,
                       "chunk_step_kernel") / n_chunks for _ in range(3)]
     k_ms = sorted(runs)[1]
-    wall = main["results"]["auto"][2]
+    wall_ms = main["results"]["auto"][2] * 1e3
     print(f"  kernel B over the {n_chunks} main-path chunks in one launch: "
           + " / ".join(f"{r * 1e3:.3f}" for r in runs)
-          + f" us/chunk (device, three runs); {k_ms * n_chunks * 1e3:.1f} "
-          f"ms of the 'auto' route's {wall * 1e3:.1f} ms wall "
-          f"({k_ms * n_chunks / wall:.3f} of it)")
+          + f" us/chunk (device, three runs); {k_ms * n_chunks:.2f} ms of "
+          f"the 'auto' route's {wall_ms:.2f} ms wall, a device share of "
+          f"{k_ms * n_chunks / wall_ms:.3f}")
     phases = torch.zeros(1, len(cs.PHASES), dtype=torch.int64, device=dev)
     run(phases=phases)
     cyc = phases[0].tolist()

@@ -30,9 +30,10 @@
 // service), composition is associative, and a block scan (each thread's
 // run of requests, a warp scan, a scan of the warp totals) gives every
 // done time (core/latency.py's closed form). The bank queues are the same
-// scan segmented by lane: one warp per lane walks the chunk in groups of
-// 32, picks its lane's requests with __ballot_sync and carries the lane's
-// register from group to group and, in shared memory, to the next chunk.
+// scan segmented by lane: a counting sort (__ballot_sync) puts each lane's
+// requests, in order, side by side, and one warp per lane scans them, 32
+// a round, carrying the lane's register from round to round and, in
+// shared memory, to the next chunk.
 // The in-order return is a prefix max. Adds are uint32, so they wrap as
 // int32 does; the scans give the sequential loops' values bit for bit
 // wherever those never pass INT32_MAX (then every partial composition lies
@@ -75,7 +76,7 @@ constexpr int BIG = 1 << 30;
 constexpr int CLOCK_WINDOW = 8;
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_CLUSTER = 8;
+constexpr int MAX_CLUSTER = 16;
 constexpr int UNROLL = 4;          // rows in flight per thread in a table pass
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -431,6 +432,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   int* s_ww = s_wrow + n + 10;
   int* s_wpre = s_ww + n + 10;
   int* s_bank = s_wpre + n + 10;  // bank_free register file (2 * n_banks)
+  int* s_seg = s_bank + NB;       // lane segments of the sort (2 n_banks + 1)
 
   // ---- the run's inputs: scalars, params, counters, bank registers.
   if (tid < N_INTS) I[tid] = a.ints[bi * N_INTS + tid];
@@ -584,37 +586,73 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
       __syncthreads();
       STAMP(PH_REDIRECT)
 
-      // ---- stage 3: bank queues (_seq_bank_resolve), one warp per lane.
-      // A request whose bank lies outside [0, 2 n_banks) reads the clamped
-      // lane's register and leaves it alone (the gather and drop rules).
+      // ---- stage 3: bank queues (_seq_bank_resolve). A counting sort
+      // gathers each lane's requests, in order, into one segment of
+      // s_sorted (one warp per lane counts and places them with
+      // __ballot_sync); then the lane's warp scans its segment, 32
+      // requests a round, carrying the lane's register. A request whose
+      // bank lies outside [0, 2 n_banks) sits in the clamped lane's
+      // segment, reads its register and leaves it alone (the gather and
+      // drop rules).
+      int* s_sorted = s_t0;
       for (int L = warp; L < NB; L += WARPS) {
-        const int free0 = s_bank[L];
-        MP carry = mp_id();
+        int cnt = 0;
+#pragma unroll 4
+        for (int g = 0; g < n; g += 32) {
+          const int i = g + lane;
+          const int code = i < n ? s_lane[i] : -1;
+          cnt += __popc(__ballot_sync(FULL, code >= 0 && (code & 0xffff) == L));
+        }
+        if (lane == 0) s_seg[L] = cnt;
+      }
+      __syncthreads();
+      if (warp == 0) {   // exclusive offsets of the lanes' segments
+        int total = 0;
+        for (int b0 = 0; b0 < NB; b0 += 32) {
+          const int L = b0 + lane;
+          const int v = L < NB ? s_seg[L] : 0;
+          int x = v;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(FULL, x, d);
+            if (lane >= d) x += y;
+          }
+          if (L < NB) s_seg[L] = total + x - v;
+          total += __shfl_sync(FULL, x, 31);
+        }
+        if (lane == 0) s_seg[NB] = total;
+      }
+      __syncthreads();
+      for (int L = warp; L < NB; L += WARPS) {
+        int pos = s_seg[L];
+#pragma unroll 4
         for (int g = 0; g < n; g += 32) {
           const int i = g + lane;
           const int code = i < n ? s_lane[i] : -1;
           const bool m = code >= 0 && (code & 0xffff) == L;
           const unsigned mask = __ballot_sync(FULL, m);
-          if (mask == 0) continue;
+          if (m) s_sorted[pos + __popc(mask & ((1u << lane) - 1))] = i;
+          pos += __popc(mask);
+        }
+        __syncwarp();
+        const int free0 = s_bank[L];
+        MP carry = mp_id();
+        for (int j0 = s_seg[L]; j0 < s_seg[L + 1]; j0 += 32) {
+          const int j = j0 + lane;
+          const bool m = j < s_seg[L + 1];
+          const int i = m ? s_sorted[j] : 0;
           const int arr = m ? imax(s_arr[i], NEG) : 0;
           const int srv = m ? s_msrv[i] : 0;
-          const MP e = (m && (code >> 16)) ? mp_elem(arr, srv) : mp_id();
-          MP ex, total;
-          if ((mask & (mask - 1)) == 0) {   // one request of the lane here
-            ex = mp_id();
-            total = shfl_mp(e, __ffs(mask) - 1);
-          } else {
-            const MP incl = warp_scan(e, lane);
-            ex = shfl_up_mp(incl, 1);
-            if (lane == 0) ex = mp_id();
-            total = shfl_mp(incl, 31);
-          }
+          const MP e = (m && (s_lane[i] >> 16)) ? mp_elem(arr, srv) : mp_id();
+          const MP incl = warp_scan(e, lane);
+          MP ex = shfl_up_mp(incl, 1);
+          if (lane == 0) ex = mp_id();
           if (m) {
             const MP pre = mp_then(carry, ex);
             const int reg = imax(wadd(free0, pre.s), pre.a);
             s_mdone[i] = wadd(imax(arr, reg), (unsigned)srv);
           }
-          carry = mp_then(carry, total);
+          carry = mp_then(carry, shfl_mp(incl, 31));
         }
         if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);
       }
@@ -1155,11 +1193,16 @@ extern "C" int chunk_step_launch(
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(int) * ((size_t)15 * chunk + 5 * ((size_t)chunk + 10) +
-                     2 * (size_t)n_banks);
+                     4 * (size_t)n_banks + 1);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         chunk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (cluster > 8) {   // past the portable cluster size
+    cudaError_t e = cudaFuncSetAttribute(
+        chunk_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
   Args a{static_cast<int*>(table),

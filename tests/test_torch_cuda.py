@@ -1,4 +1,5 @@
-"""The attention and RWKV CUDA kernels against their plain versions.
+"""The chunk-step, attention and RWKV CUDA kernels against their plain
+versions.
 
 These tests need a CUDA card (the kernels have no CPU mode): they are
 marked ``cuda`` and skip elsewhere. The file imports neither ``jax`` nor
@@ -6,15 +7,23 @@ marked ``cuda`` and skip elsewhere. The file imports neither ``jax`` nor
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each case goes through the port's entry point (``ops.*``), checks that
-the kernel was launched exactly once, and compares with the plain version
-on the same card within ``ref.kernel_error``'s allowance, the one
-``chip_smoke.py`` holds the kernels to at full width.
+The chunk-step kernel runs a whole trace in one launch and is held bit
+for bit against its plain version (the loop of ``step_ref(seq=True)``
+and ``counters.update``). Each model-kernel case goes through the port's
+entry point (``ops.*``), checks that the kernel was launched exactly
+once, and compares with the plain version on the same card within
+``ref.kernel_error``'s allowance, the one ``chip_smoke.py`` holds the
+kernels to at full width.
 """
 import numpy as np
 import pytest
 import torch
 
+import repro_torch
+import repro_torch.core as tcore
+from repro_torch.core import emulator as t_emu, table as t_table
+from repro_torch.core.policies import PolicyRegistry
+from repro_torch.kernels import chunk_step as t_cs
 from repro_torch.kernels import decode_attention as t_da
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops as t_ops
@@ -146,3 +155,107 @@ def test_decode_attention_across_splits(cuda_device, dtype):
         assert not got[0].any()
         _within("attention", got[1:], t_da.decode_attention_plain(
             q, kc, vc, lens, window=window)[1:])
+
+
+# ------------------------------------------------------------ chunk step
+POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
+            "wear_level")
+
+
+def _chunk_scenario(dev, policy, n_chunks=11, seed=0):
+    """small_platform(chunk=16) from an adversarial state (pins, a
+    poisoned page, a swap in flight), endurance retirement on, and a
+    fault plan of deaths and transients."""
+    cfg = tcore.small_platform(chunk=16, policy=policy, hot_threshold=2,
+                               decay_every=4, endurance_budget=6,
+                               write_weight=3)
+    params = cfg.runtime(dev)
+    st = tcore.init_state(cfg, params)
+    nf = cfg.n_fast_pages
+    tab = t_table.set_flags(st.table, [0, 1], t_table.PIN_FAST)
+    tab = t_table.set_flags(tab, [nf + 1], t_table.PIN_SLOW)
+    tab = t_table.set_flags(tab, [nf + 3], t_table.POISONED)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    st = st._replace(table=tab, dma=st.dma._replace(
+        active=i32(1), page_a=i32(nf + 2), page_b=i32(nf - 1),
+        start=i32(0)))
+    rng = np.random.default_rng(seed)
+    n = n_chunks * cfg.chunk
+    page = np.where(rng.random(n) < 0.5, nf + rng.integers(0, 8, n),
+                    rng.integers(0, cfg.n_pages, n)).astype(np.int32)
+    page[rng.random(n) < 0.15] = nf + 2
+    off = (rng.integers(0, cfg.page_size // 64, n) * 64).astype(np.int32)
+    trace = tcore.Trace(*(torch.as_tensor(x, device=dev) for x in (
+        page, off, rng.random(n) < 0.5, np.full(n, 64, np.int32))))
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[-5:] = False
+    plan = tcore.seeded_plan(seed, pages=np.arange(nf, nf + 12),
+                             n_chunks=n_chunks, n_deaths=2, n_transient=8,
+                             device=dev)
+    return cfg, params, st, trace, valid, plan
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    if isinstance(x, tuple):
+        return [y for v in x for y in _leaves(v)]
+    return [x]
+
+
+def _assert_equal(got, want):
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+def test_chunk_step_one_launch_equals_the_plain_loop(cuda_device, policy):
+    """Every chunk in ONE launch against the plain per-chunk loop: final
+    state (table, scalars, bank registers, the 16 counters) and every
+    output, with deaths, transients and retirements firing."""
+    cfg, params, st, trace, valid, plan = _chunk_scenario(cuda_device,
+                                                          policy)
+    reg = PolicyRegistry.snapshot()
+    before = t_cs.KERNEL.launches
+    got = t_emu._emulate_impl(cfg.with_(chunk_step_kernel="on"), reg, trace,
+                              valid, t_emu.clone_state(st), params, plan)
+    torch.cuda.synchronize()
+    assert t_cs.KERNEL.launches == before + 1
+    want = t_emu._emulate_impl(cfg, reg, trace, valid, t_emu.clone_state(st),
+                               params, plan, seq=True)
+    _assert_equal(got, want)
+    assert int((want[1]["retired_page"] >= 0).sum()) > 0
+    assert int(want[0].counters.transient_faults) > 0
+
+
+@pytest.mark.cuda
+def test_engine_run_launches_once_and_updates_the_state_in_place(
+        cuda_device):
+    """``Engine.run`` on "auto": one launch of the chunk-step kernel per
+    run (a padded trace of 13 chunks), the passed state's own tensors
+    updated, and the same results as the CPU loop."""
+    cfg = tcore.small_platform(chunk=16, hot_threshold=2)
+    rng = np.random.default_rng(1)
+    n = 200
+    arrays = (rng.integers(0, cfg.n_pages, n).astype(np.int32),
+              (rng.integers(0, cfg.page_size // 64, n) * 64).astype(np.int32),
+              rng.random(n) < 0.4, np.full(n, 64, np.int32))
+    eng = repro_torch.Engine(cfg)
+    cpu = repro_torch.Engine(cfg, device="cpu")
+    state = eng.init_state()
+    ptrs = [t.data_ptr() for t in _leaves(state)]
+    before = t_cs.KERNEL.launches
+    for _ in range(2):   # the second run continues from the first's state
+        res = eng.run(tcore.Trace(*(torch.as_tensor(a, device=cuda_device)
+                                    for a in arrays)), state=state)
+    torch.cuda.synchronize()
+    assert t_cs.KERNEL.launches == before + 2
+    assert [t.data_ptr() for t in _leaves(res.state)] == ptrs
+    trace = tcore.Trace(*(torch.as_tensor(a) for a in arrays))
+    ref = cpu.run(trace)
+    ref = cpu.run(trace, state=ref.state)
+    _assert_equal(tuple(t.cpu() for t in _leaves(res)), tuple(_leaves(ref)))

@@ -8,8 +8,8 @@ step and held bit for bit against the plain version and the JAX package:
   threads takes its run of requests, then a warp scan of 32 lanes, then a
   scan of the 16 warp totals), against ``_seq_maxplus`` and
   ``repro.core.latency.maxplus_scan``;
-* the bank queues as one warp per lane (groups of 32 requests, the
-  lane's requests picked by a ballot, the lane register carried), against
+* the bank queues as a counting sort by lane and one warp per lane over
+  its requests, 32 a round, the lane register carried, against
   ``_seq_bank_resolve`` and the JAX resolvers;
 * the counter fold (each chunk's integer sums exactly, rounded once, then
   ``c + s`` in float32), against ``counters.update`` in both packages;
@@ -116,9 +116,10 @@ def block_maxplus(arrival, service):
 
 
 def lane_resolve(arrival, service, bank, bank_free):
-    """The kernel's stage 3: per lane, groups of 32 requests; a request
-    whose bank is out of range reads the clamped lane and writes
-    nothing."""
+    """The kernel's stage 3: each lane's requests in order (the counting
+    sort), scanned 32 a round with the lane's register carried; a request
+    whose bank is out of range sits in the clamped lane, reads its
+    register and writes nothing."""
     n, nb = len(arrival), len(bank_free)
     bw = np.where(bank < 0, bank + nb, bank)
     upd = (bw >= 0) & (bw < nb)
@@ -130,26 +131,20 @@ def lane_resolve(arrival, service, bank, bank_free):
     for L in range(nb):
         free0 = free[L]
         carry = ident()
-        for g in range(0, n, LANES):
-            i = np.arange(g, g + LANES)
-            ic = np.minimum(i, n - 1)
-            m = (i < n) & (lane[ic] == L)
-            if not m.any():
-                continue
-            e = elem(arr[ic], srv[ic])
-            e = (np.where(m & upd[ic], e[0], 0),
-                 np.where(m & upd[ic], e[1], INT_MIN))
-            if m.sum() == 1:                 # one request of the lane here
-                k = int(np.argmax(m))
-                ex, total = ident(LANES), (e[0][k], e[1][k])
-            else:
-                incl = warp_scan(e)
-                ex, total = shift_lanes(incl, 1), (incl[0][-1], incl[1][-1])
-            pre = then(carry, ex)
+        seg = np.flatnonzero(lane == L)
+        for j0 in range(0, len(seg), LANES):
+            idx = seg[j0:j0 + LANES]
+            k = len(idx)
+            es, ea = elem(arr[idx], srv[idx])
+            e = ident(LANES)
+            e[0][:k] = np.where(upd[idx], es, 0)
+            e[1][:k] = np.where(upd[idx], ea, INT_MIN)
+            incl = warp_scan(e)
+            ex = shift_lanes(incl, 1)
+            pre = then(carry, (ex[0][:k], ex[1][:k]))
             reg = np.maximum(wrap(free0 + pre[0]), pre[1])
-            d = wrap(np.maximum(arr[ic], reg) + srv[ic])
-            done[i[m]] = d[m]
-            carry = then(carry, total)
+            done[idx] = wrap(np.maximum(arr[idx], reg) + srv[idx])
+            carry = then(carry, (incl[0][-1], incl[1][-1]))
         free[L] = max(int(wrap(free0 + carry[0])), int(carry[1]))
     return done.astype(np.int32), free.astype(np.int32)
 
@@ -261,7 +256,7 @@ def test_lane_resolve_matches_the_sequential_loop(n, nb, out_of_range):
 @given(data=st.data(), n=st.integers(1, 300), nb=st.sampled_from([2, 8, 32]))
 def test_lane_resolve_property(data, n, nb):
     """Any arrivals (NEG often), services, banks in [-nb - 2, nb + 2) and
-    registers: the per-lane warp scan gives the sequential loop's values
+    registers: the per-lane scan gives the sequential loop's values
     wherever those stay in int32."""
     ints = st.integers
     arrival = np.array(data.draw(st.lists(
