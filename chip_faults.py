@@ -42,14 +42,15 @@ FAULTS = [
      "  MP pre = mp_then(warp == 1 ? mp_id() : s_warp[WARPS + warp], ex);"),
     ("chunk step: bank lane 3's register not carried to the next chunk",
      "chunk_step", CSRC + "chunk_step.cu",
-     "        if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);",
-     "        if (lane == 0 && L != 3)\n"
-     "          s_bank[L] = imax(wadd(free0, carry.s), carry.a);"),
+     "          if (lane == 0) s_bank[L] = "
+     "imax(wadd(free0, carry.s), carry.a);",
+     "          if (lane == 0 && L != 3)\n"
+     "            s_bank[L] = imax(wadd(free0, carry.s), carry.a);"),
     ("chunk step: chunk 1's fold of sum_read_latency skipped", "chunk_step",
      CSRC + "chunk_step.cu",
-     "      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],",
-     "      if (c != 1)\n"
-     "      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],"),
+     "        cf[k] = __fadd_rn(cf[k], add);",
+     "        if (c != 1 || k != SUM_READ_LATENCY)\n"
+     "          cf[k] = __fadd_rn(cf[k], add);"),
     ("chunk step: cluster CTA 1's share of the decay pass skipped",
      "chunk_step", CSRC + "chunk_step.cu",
      "      for (int r0 = row_lo + tid; r0 < row_hi; r0 += UNROLL * nth) {\n"

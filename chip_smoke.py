@@ -219,7 +219,8 @@ def check_lookup(torch, dev, hl) -> dict:
 # --------------------------------------------------------------- phase 4
 def adversarial_setup(torch, dev, rt, cfg, n_chunks, seed):
     """Pins, a poisoned page, a swap in flight; a trace hammering a few
-    slow pages and the swap pair; a plan of deaths and transients."""
+    slow pages and the swap pair, with a few pages out of range; a plan of
+    deaths and transients."""
     import numpy as np
     from repro_torch.core import table as tl
     params = cfg.runtime(dev)
@@ -237,6 +238,9 @@ def adversarial_setup(torch, dev, rt, cfg, n_chunks, seed):
                     rng.integers(0, cfg.n_pages, n)).astype(np.int32)
     page[rng.random(n) < 0.15] = nf + 2
     page[rng.random(n) < 0.1] = nf - 1
+    # Pages past the table and negative ones (JAX's gather rules).
+    page[rng.random(n) < 0.01] = cfg.n_pages + 3
+    page[rng.random(n) < 0.01] = -2
     off = (rng.integers(0, cfg.page_size // 64, n) * 64).astype(np.int32)
     trace = rt.core.Trace(*(torch.as_tensor(x, device=dev) for x in (
         page, off, rng.random(n) < 0.5, np.full(n, 64, np.int32))))

@@ -30,10 +30,11 @@
 // service), composition is associative, and a block scan (each thread's
 // run of requests, a warp scan, a scan of the warp totals) gives every
 // done time (core/latency.py's closed form). The bank queues are the same
-// scan segmented by lane: a counting sort (__ballot_sync) puts each lane's
-// requests, in order, side by side, and one warp per lane scans them, 32
-// a round, carrying the lane's register from round to round and, in
-// shared memory, to the next chunk.
+// scan segmented by lane: a stable counting sort (__match_any_sync per
+// group of 32, a block scan of the counts) puts each lane's requests, in
+// order, side by side, and one warp per lane scans them, 32 a round,
+// carrying the lane's register from round to round and, in shared memory,
+// to the next chunk.
 // The in-order return is a prefix max. Adds are uint32, so they wrap as
 // int32 does; the scans give the sequential loops' values bit for bit
 // wherever those never pass INT32_MAX (then every partial composition lies
@@ -76,7 +77,7 @@ constexpr int BIG = 1 << 30;
 constexpr int CLOCK_WINDOW = 8;
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_CLUSTER = 16;
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 constexpr int UNROLL = 4;          // rows in flight per thread in a table pass
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -195,6 +196,10 @@ __device__ __forceinline__ int ld(const int* t, long long i) {
 __device__ __forceinline__ void st(int* t, long long i, int v) {
   __stcg(t + i, v);
 }
+// Bring a line into L2 ahead of its use.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
 // DEVICE, FRAME, HOTNESS and WEAR of a row: its first 16 bytes.
 __device__ __forceinline__ int4 ld_head(const int* t, long long row) {
   return __ldcg(reinterpret_cast<const int4*>(t + row * W));
@@ -259,6 +264,42 @@ __device__ void block_maxplus(const int* arr, const int* srv, int* out,
   for (int i = lo; i < hi; ++i) {
     pre = mp_then(pre, mp_elem(arr[i], srv ? srv[i] : 0));
     out[i] = pre.a;
+  }
+  __syncthreads();
+}
+
+// Exclusive prefix sums of x[0, m) in place, every thread of the block
+// calling. Thread t takes x[t * per, t * per + per).
+__device__ void block_exsum(int* x, int m, int* s_w) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (m + THREADS - 1) / THREADS;
+  const int lo = imin(tid * per, m), hi = imin(lo + per, m);
+  int run = 0;
+  for (int i = lo; i < hi; ++i) run += x[i];
+  int incl = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) s_w[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < WARPS ? s_w[lane] : 0;
+    int t = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, t, d);
+      if (lane >= d) t += y;
+    }
+    if (lane < WARPS) s_w[WARPS + lane] = t - v;
+  }
+  __syncthreads();
+  int pre = s_w[WARPS + warp] + incl - run;
+  for (int i = lo; i < hi; ++i) {
+    const int v = x[i];
+    x[i] = pre;
+    pre += v;
   }
   __syncthreads();
 }
@@ -379,10 +420,9 @@ struct Shared {
   int rx_last, tx_last, any_valid, last_ret, now;
   int done, tombstone, dma_active, dma_a, dma_b, dma_start, swaps;
   int own_idx, own_delta, own_pre, wear0, wear_fa, wear_fbr;
-  int min_wear, rescue, retired, death_fire, ev_p, fault_cursor;
+  int min_wear, rescue, retired, ev_chunk, ev_p, fault_cursor;
   int p_row[10], p_lane[10], p_delta[10];
   int row_a[W], row_b[W];
-  int cand, heat, victim, v_found, v_skip;
   int hist[9], last_valid;
   VI hot, cold;
   Sums sums;
@@ -393,6 +433,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   __shared__ Shared sh;
   __shared__ VI scratch[WARPS + 1];
   __shared__ MP s_warp[2 * WARPS];
+  __shared__ int s_wsum[2 * WARPS];
   __shared__ Sums s_part[WARPS];
   __shared__ int I[N_INTS];
   __shared__ float F[N_FLOATS];
@@ -432,7 +473,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   int* s_ww = s_wrow + n + 10;
   int* s_wpre = s_ww + n + 10;
   int* s_bank = s_wpre + n + 10;  // bank_free register file (2 * n_banks)
-  int* s_seg = s_bank + NB;       // lane segments of the sort (2 n_banks + 1)
+  int* s_cnt = s_bank + NB;  // the sort's (lane, group of 32) counts
 
   // ---- the run's inputs: scalars, params, counters, bank registers.
   if (tid < N_INTS) I[tid] = a.ints[bi * N_INTS + tid];
@@ -509,15 +550,29 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         s_hot[i] = head.z;
         a.poi_out[base + i] = poi;
         acc.c[S_POISONED] += poi;
-        s_hotw[i] = v ? 1 + (eff_w - 1) * iw : 0;
+        s_hotw[i] = v ? wadd(1, (unsigned)wmul(wsub(eff_w, 1), iw)) : 0;
         s_t0[i] = imax(issue, v ? I[LINK_FREE_RX] : NEG);
         s_t1[i] = v ? ceil_cycles(iw ? sz : 16, lb) : 0;
+        if (c + 1 < a.n_chunks) {   // the next chunk's requests into L2
+          const long long nx = base + n + i;
+          prefetch_l2(a.valid + nx);
+          prefetch_l2(a.page + nx);
+          prefetch_l2(a.offset + nx);
+          prefetch_l2(a.is_write + nx);
+          prefetch_l2(a.size + nx);
+        }
       }
       if (tid < W) {
         sh.row_a[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_A], 0), 0,
                                                     NP - 1) * W + tid);
         sh.row_b[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_B], 0), 0,
                                                     NP - 1) * W + tid);
+      }
+      if (tid == 32) {   // the FaultPlan death next in line (retire_phase)
+        const int* de = a.deaths + (long long)bi * a.nd * 2;
+        const int cur = gidx(imin(I[FAULT_CURSOR], a.nd - 1), a.nd);
+        sh.ev_chunk = de[2 * cur];
+        sh.ev_p = clampi(de[2 * cur + 1], 0, NP - 1);
       }
       __syncthreads();
       STAMP(PH_LOAD)
@@ -586,77 +641,62 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
       __syncthreads();
       STAMP(PH_REDIRECT)
 
-      // ---- stage 3: bank queues (_seq_bank_resolve). A counting sort
-      // gathers each lane's requests, in order, into one segment of
-      // s_sorted (one warp per lane counts and places them with
-      // __ballot_sync); then the lane's warp scans its segment, 32
-      // requests a round, carrying the lane's register. A request whose
-      // bank lies outside [0, 2 n_banks) sits in the clamped lane's
-      // segment, reads its register and leaves it alone (the gather and
-      // drop rules).
-      int* s_sorted = s_t0;
-      for (int L = warp; L < NB; L += WARPS) {
-        int cnt = 0;
-#pragma unroll 4
-        for (int g = 0; g < n; g += 32) {
-          const int i = g + lane;
-          const int code = i < n ? s_lane[i] : -1;
-          cnt += __popc(__ballot_sync(FULL, code >= 0 && (code & 0xffff) == L));
-        }
-        if (lane == 0) s_seg[L] = cnt;
-      }
-      __syncthreads();
-      if (warp == 0) {   // exclusive offsets of the lanes' segments
-        int total = 0;
-        for (int b0 = 0; b0 < NB; b0 += 32) {
-          const int L = b0 + lane;
-          const int v = L < NB ? s_seg[L] : 0;
-          int x = v;
-#pragma unroll
-          for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(FULL, x, d);
-            if (lane >= d) x += y;
+      // ---- stage 3: bank queues (_seq_bank_resolve). A stable counting
+      // sort puts each lane's requests, in order, side by side in
+      // s_sorted: each group of 32 requests counts its lanes with
+      // __match_any_sync, and a block scan of the (lane, group) counts
+      // gives every request its place. Then one warp per lane scans its
+      // requests, 32 a round, carrying the lane's register. A request
+      // whose bank lies outside [0, 2 n_banks) sits with the clamped lane,
+      // reads its register and leaves it alone (the gather and drop rules).
+      {
+        const int G = (n + 31) / 32;
+        int* s_sorted = s_t0;
+        int* s_rank = s_t1;
+        for (int k = tid; k < NB * G; k += nth) s_cnt[k] = 0;
+        __syncthreads();
+        for (int i0 = warp * 32; i0 < n; i0 += nth) {
+          const int i = i0 + lane;
+          const int L = i < n ? (s_lane[i] & 0xffff) : -1;
+          const unsigned peers = __match_any_sync(FULL, L);
+          const int rank = __popc(peers & ((1u << lane) - 1));
+          if (i < n) {
+            s_rank[i] = rank;
+            if (rank == 0) s_cnt[L * G + i0 / 32] = __popc(peers);
           }
-          if (L < NB) s_seg[L] = total + x - v;
-          total += __shfl_sync(FULL, x, 31);
         }
-        if (lane == 0) s_seg[NB] = total;
-      }
-      __syncthreads();
-      for (int L = warp; L < NB; L += WARPS) {
-        int pos = s_seg[L];
-#pragma unroll 4
-        for (int g = 0; g < n; g += 32) {
-          const int i = g + lane;
-          const int code = i < n ? s_lane[i] : -1;
-          const bool m = code >= 0 && (code & 0xffff) == L;
-          const unsigned mask = __ballot_sync(FULL, m);
-          if (m) s_sorted[pos + __popc(mask & ((1u << lane) - 1))] = i;
-          pos += __popc(mask);
-        }
-        __syncwarp();
-        const int free0 = s_bank[L];
-        MP carry = mp_id();
-        for (int j0 = s_seg[L]; j0 < s_seg[L + 1]; j0 += 32) {
-          const int j = j0 + lane;
-          const bool m = j < s_seg[L + 1];
-          const int i = m ? s_sorted[j] : 0;
-          const int arr = m ? imax(s_arr[i], NEG) : 0;
-          const int srv = m ? s_msrv[i] : 0;
-          const MP e = (m && (s_lane[i] >> 16)) ? mp_elem(arr, srv) : mp_id();
-          const MP incl = warp_scan(e, lane);
-          MP ex = shfl_up_mp(incl, 1);
-          if (lane == 0) ex = mp_id();
-          if (m) {
-            const MP pre = mp_then(carry, ex);
-            const int reg = imax(wadd(free0, pre.s), pre.a);
-            s_mdone[i] = wadd(imax(arr, reg), (unsigned)srv);
+        __syncthreads();
+        block_exsum(s_cnt, NB * G, s_wsum);
+        for (int i = tid; i < n; i += nth)
+          s_sorted[s_cnt[(s_lane[i] & 0xffff) * G + i / 32] + s_rank[i]] = i;
+        __syncthreads();
+        for (int L = warp; L < NB; L += WARPS) {
+          const int lo = s_cnt[L * G];
+          const int hi = L + 1 < NB ? s_cnt[(L + 1) * G] : n;
+          const int free0 = s_bank[L];
+          MP carry = mp_id();
+          for (int j0 = lo; j0 < hi; j0 += 32) {
+            const int j = j0 + lane;
+            const bool m = j < hi;
+            const int i = m ? s_sorted[j] : 0;
+            const int arr = m ? imax(s_arr[i], NEG) : 0;
+            const int srv = m ? s_msrv[i] : 0;
+            const MP e = (m && (s_lane[i] >> 16)) ? mp_elem(arr, srv)
+                                                  : mp_id();
+            const MP incl = warp_scan(e, lane);
+            MP ex = shfl_up_mp(incl, 1);
+            if (lane == 0) ex = mp_id();
+            if (m) {
+              const MP pre = mp_then(carry, ex);
+              const int reg = imax(wadd(free0, pre.s), pre.a);
+              s_mdone[i] = wadd(imax(arr, reg), (unsigned)srv);
+            }
+            carry = mp_then(carry, shfl_mp(incl, 31));
           }
-          carry = mp_then(carry, shfl_mp(incl, 31));
+          if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);
         }
-        if (lane == 0) s_bank[L] = imax(wadd(free0, carry.s), carry.a);
+        __syncthreads();
       }
-      __syncthreads();
 
       // ---- stage 4: tag-match in-order return (_seq_inorder) ...
       for (int i = tid; i < n; i += nth)
@@ -724,7 +764,8 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         const int ea = sh.row_a[EPOCH], eb = sh.row_b[EPOCH];
         const int fla = sh.row_a[FLAGS], flb = sh.row_b[FLAGS];
         const int commit_a = done && pa >= 0, commit_b = done && pb >= 0;
-        const int chg_a = commit_a && db == SLOW, chg_b = commit_b && da == SLOW;
+        const int chg_a = commit_a && db == SLOW;
+        const int chg_b = commit_b && da == SLOW;
         const int rp = I[RESCUE_PAGE];
         const int dead_a = (fla & POISONED) && pa == rp && pa >= 0;
         const int dead_b = (flb & POISONED) && pb == rp && pb >= 0;
@@ -842,18 +883,10 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
       STAMP(PH_DECAY)
 
       // ---- retire_phase: a due FaultPlan death (thread 0), else the first
-      // endurance crossing among the pages observed this boundary.
-      if (tid == 0) {
-        const int* de = a.deaths + (long long)bi * a.nd * 2;
-        const int cur = gidx(imin(I[FAULT_CURSOR], a.nd - 1), a.nd);
-        const int due = I[FAULT_CURSOR] < a.nd && de[2 * cur] <= chunk_idx;
-        const int consume = due && sh.rescue < 0;
-        const int ev_p = clampi(de[2 * cur + 1], 0, NP - 1);
-        const int ev_flags = ld(table, (long long)ev_p * W + FLAGS);
-        sh.death_fire = consume && (ev_flags & DEAD) == 0;
-        sh.ev_p = ev_p;
-        sh.fault_cursor = I[FAULT_CURSOR] + consume;
-      }
+      // endurance crossing among the pages observed this boundary (each
+      // candidate row's FLAGS kept in s_t0 for the stamp).
+      int ev_flags = 0;
+      if (tid == 0) ev_flags = ld(table, (long long)sh.ev_p * W + FLAGS);
       VI f = identity<false>();
       for (int k = tid; k < n + 2; k += nth) {
         int cnd, ok;
@@ -867,27 +900,32 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         }
         const long long r = clampi(cnd, 0, NP - 1);
         const int4 head = ld_head(table, r);
+        const int fl = ld(table, r * W + FLAGS);
         const int slow = head.x == SLOW;
         const int wear =
             ld(table, (long long)gidx(slow ? head.y : 0, NP) * W + WEAR);
         const int over = ok && I[ENDURANCE_BUDGET] > 0 && slow &&
-                         wear > I[ENDURANCE_BUDGET] &&
-                         (ld(table, r * W + FLAGS) & DEAD) == 0;
+                         wear > I[ENDURANCE_BUDGET] && (fl & DEAD) == 0;
+        s_t0[k] = fl;
         f = better<false>(f, VI{over ? 0 : 1, k});
       }
       f = block_arg<false>(f, scratch);
       if (tid == 0) {
+        const int due =
+            I[FAULT_CURSOR] < a.nd && sh.ev_chunk <= chunk_idx;
+        const int consume = due && sh.rescue < 0;
+        const int death_fire = consume && (ev_flags & DEAD) == 0;
+        sh.fault_cursor = I[FAULT_CURSOR] + consume;
         const int j = f.v == 0 ? f.i : 0;
         int cand_j = j < n ? s_page[j]
                            : imax(j == n ? I[DMA_PAGE_A] : I[DMA_PAGE_B], 0);
         cand_j = clampi(cand_j, 0, NP - 1);
-        const int wear_fire = sh.rescue < 0 && !sh.death_fire && f.v == 0;
-        const int fire = sh.death_fire || wear_fire;
-        const int p_ret = sh.death_fire ? sh.ev_p : cand_j;
-        if (fire) {
-          const long long k = (long long)p_ret * W + FLAGS;
-          st(table, k, (ld(table, k) | POISONED) & ~PINNED);
-        }
+        const int wear_fire = sh.rescue < 0 && !death_fire && f.v == 0;
+        const int fire = death_fire || wear_fire;
+        const int p_ret = death_fire ? sh.ev_p : cand_j;
+        if (fire)
+          st(table, (long long)p_ret * W + FLAGS,
+             ((death_fire ? ev_flags : s_t0[j]) | POISONED) & ~PINNED);
         sh.rescue = fire ? p_ret : sh.rescue;
         sh.retired = fire ? p_ret : -1;
       }
@@ -951,14 +989,57 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     const int ptr = I[CLOCK_PTR];
     const bool chunk_cand = pol == P_HOTNESS || pol == P_WRITE_BIAS ||
                             pol == P_STREAM || pol == P_WEAR_LEVEL;
+    // policies._clock_victim: the first eligible frame within the window.
+    // Its CLOCK_WINDOW owners, their rows and flags are read by as many
+    // lanes of warp 0, and the rescue page's row by one more, ahead of the
+    // candidate pass.
+    int v_found = 0, victim_c = 0, v_skip = 0, v_hot = 0, v_dev = 0;
+    int v_fl = 0, r_dev = 0, r_fl = 0;
+    if (warp == 0) {
+      int owner = 0, ok = 0, fl = 0;
+      int4 oh = make_int4(0, 0, 0, 0);
+      if (lane == CLOCK_WINDOW) {   // the rescue page's row
+        const long long rr = (long long)clampi(sh.rescue, 0, NP - 1) * W;
+        oh.x = ld(table, rr + DEVICE);
+        fl = ld(table, rr + FLAGS);
+      }
+      if (lane < CLOCK_WINDOW) {
+        const int frame = floormod(ptr + lane, nf);
+        owner = ld(table, (long long)gidx(frame, NP) * W + OWNER);
+        const long long ro = gidx(owner, NP);
+        oh = ld_head(table, ro);
+        fl = ld(table, ro * W + FLAGS);
+        ok = !(fl & (PINNED | RETIRED));
+      }
+      const unsigned okm = __ballot_sync(FULL, ok);
+      const int first = okm ? __ffs(okm) - 1 : -1;
+      const int src = first >= 0 ? first : 0;
+      v_found = first >= 0;
+      v_skip = first >= 0 ? first : CLOCK_WINDOW;
+      victim_c = __shfl_sync(FULL, owner, src);
+      v_hot = __shfl_sync(FULL, oh.z, src);
+      v_dev = __shfl_sync(FULL, oh.x, src);
+      v_fl = __shfl_sync(FULL, fl, src);
+      r_dev = __shfl_sync(FULL, oh.x, CLOCK_WINDOW);
+      r_fl = __shfl_sync(FULL, fl, CLOCK_WINDOW);
+    }
     // policies._chunk_candidate: the hottest eligible slow page of the
-    // chunk; and the rescue donor: the first healthy slow-resident page.
+    // chunk (its row by the gather rule); and the rescue donor: the first
+    // healthy slow-resident page (its row clamped). Each request's
+    // candidate row's DEVICE and FLAGS stay in s_t0 / s_t1, and the
+    // donor row's FLAGS in s_wrow, for thread 0's final checks.
     VI best = identity<true>(), donor = identity<false>();
     for (int i = tid; i < n; i += nth) {
-      const long long r = clampi(s_page[i], 0, NP - 1);
-      const int4 head = ld_head(table, r);
-      const int fl = ld(table, r * W + FLAGS);
+      const long long rc = gidx(s_page[i], NP);
+      const long long rd = clampi(s_page[i], 0, NP - 1);
+      const int4 head = ld_head(table, rc);
+      const int fl = ld(table, rc * W + FLAGS);
+      const int d_dev = rd == rc ? head.x : ld(table, rd * W + DEVICE);
+      const int d_fl = rd == rc ? fl : ld(table, rd * W + FLAGS);
       const int v = s_valid[i];
+      s_t0[i] = head.x;
+      s_t1[i] = fl;
+      s_wrow[i] = d_fl;
       if (chunk_cand) {
         int ok = v && head.x == SLOW && !(fl & PINNED) && !(fl & RETIRED);
         if (pol == P_WEAR_LEVEL) {
@@ -969,8 +1050,8 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         }
         best = better<true>(best, VI{ok ? head.z : -1, i});
       }
-      const int dok = v && head.x == SLOW &&
-                      (fl & (PINNED | RETIRED | POISONED)) == 0;
+      const int dok = v && d_dev == SLOW &&
+                      (d_fl & (PINNED | RETIRED | POISONED)) == 0;
       donor = better<false>(donor, VI{dok ? 0 : 1, i});
     }
     if (chunk_cand) best = block_arg<true>(best, scratch);
@@ -1001,143 +1082,160 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
       if (lane == 0) atomicMax(&sh.last_valid, last);
       __syncthreads();
     }
-    // policies._clock_victim: the first eligible frame within the window,
-    // its CLOCK_WINDOW owners and their flags read by as many lanes.
-    if (warp == 0) {
-      int owner = 0, ok = 0;
-      if (lane < CLOCK_WINDOW) {
-        const int frame = floormod(ptr + lane, nf);
-        owner = ld(table, (long long)gidx(frame, NP) * W + OWNER);
-        const int fl = ld(table, (long long)gidx(owner, NP) * W + FLAGS);
-        ok = !(fl & (PINNED | RETIRED));
-      }
-      const unsigned okm = __ballot_sync(FULL, ok);
-      const int first = okm ? __ffs(okm) - 1 : -1;
-      const int victim = __shfl_sync(FULL, owner, first >= 0 ? first : 0);
+
+    if (warp == 1) {
+      // What the chunk reports; then counters.update, one counter a lane
+      // (beside thread 0's policy tail): each chunk's sums, rounded once,
+      // folded as c + s in float32 in JAX's order.
+      const Sums& t = sh.sums;
       if (lane == 0) {
-        sh.v_found = first >= 0;
-        sh.victim = victim;
-        sh.v_skip = first >= 0 ? first : CLOCK_WINDOW;
-        if (chunk_cand) {
-          sh.cand = s_page[best.i];
-          sh.heat = best.v;
+        int* co =
+            a.chunk_out + ((long long)bi * a.n_chunks + c) * N_CHUNK_OUT;
+        co[CO_HELD] = t.c[S_HELD];
+        co[CO_RETIRED] = sh.retired;
+        co[CO_TOMBSTONE] = sh.tombstone;
+      }
+      if (lane < N_COUNTER_INTS) {
+        const int k = lane;
+        int add = 0;
+        switch (k) {
+          case READS_FAST: add = t.c[S_READS_FAST]; break;
+          case WRITES_FAST: add = t.c[S_WRITES_FAST]; break;
+          case READS_SLOW: add = t.c[S_READS_SLOW]; break;
+          case WRITES_SLOW: add = t.c[S_WRITES_SLOW]; break;
+          case N_READS: add = t.c[S_N_READS]; break;
+          case REORDER_HELD: add = t.c[S_HELD]; break;
+          case POISON_FAULTS: add = t.c[S_POISONED]; break;
+          case FRAMES_RETIRED: add = sh.retired >= 0; break;
+          case TRANSIENT_FAULTS: add = t.c[S_INJECTED]; break;
+          default: break;
         }
+        ci[k] = k == MAX_LATENCY ? imax(ci[k], t.max_lat)
+                                 : wadd(ci[k], (unsigned)add);
+      } else if (lane < N_COUNTER_INTS + N_COUNTER_FLOATS) {
+        const int k = lane - N_COUNTER_INTS;
+        const float brf = __ll2float_rn(t.s[S_BYTES_READ_FAST]);
+        const float bwf = __ll2float_rn(t.s[S_BYTES_WRITE_FAST]);
+        const float brs = __ll2float_rn(t.s[S_BYTES_READ_SLOW]);
+        const float bws = __ll2float_rn(t.s[S_BYTES_WRITE_SLOW]);
+        float add;
+        switch (k) {
+          case BYTES_READ_FAST: add = brf; break;
+          case BYTES_WRITE_FAST: add = bwf; break;
+          case BYTES_READ_SLOW: add = brs; break;
+          case BYTES_WRITE_SLOW: add = bws; break;
+          case SUM_READ_LATENCY:
+            add = __ll2float_rn(t.s[S_READ_LATENCY]);
+            break;
+          default: {   // ENERGY_PJ
+            const float bits_fast = __fmul_rn(8.0f, __fadd_rn(brf, bwf));
+            add = __fadd_rn(
+                __fadd_rn(__fmul_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST]),
+                          __fmul_rn(__fmul_rn(8.0f, brs),
+                                    F[POWER_PJ_PER_BIT_SLOW_READ])),
+                __fmul_rn(__fmul_rn(8.0f, bws),
+                          F[POWER_PJ_PER_BIT_SLOW_WRITE]));
+          }
+        }
+        cf[k] = __fadd_rn(cf[k], add);
       }
     }
-    __syncthreads();
-
     if (tid == 0) {
-      auto hot_at = [&](int p) {
-        return ld(table, (long long)gidx(p, NP) * W + HOTNESS);
-      };
-      const int vfound = sh.v_found, skip = sh.v_skip;
-      int p_want = 0, cand = 0, victim = 0, new_ptr = ptr;
+      // Rows the final checks read: DEVICE, FLAGS and HOTNESS of the
+      // proposal's pages, from what was read above where it is the same
+      // row, else from the table.
+      int cand = 0, victim = 0, p_want = 0, new_ptr = ptr;
+      int c_dev = 0, c_fl = 0, t_dev = 0, t_fl = 0, t_hot = 0;
+      bool c_known = false, t_known = false;
       switch (pol) {
         case P_HOTNESS:
         case P_WRITE_BIAS:
-        case P_WEAR_LEVEL: {
-          victim = sh.victim;
-          cand = sh.cand;
-          p_want = vfound && sh.heat >= I[HOT_THRESHOLD] &&
-                   sh.heat > hot_at(victim);
-          new_ptr = floormod(ptr + skip + p_want, nf);
-          break;
-        }
+        case P_WEAR_LEVEL:
         case P_STREAM: {
-          int arg = 0;
-          for (int k = 1; k < 9; ++k)
-            if (sh.hist[k] > sh.hist[arg]) arg = k;
-          const int stride = arg - 4, strength = sh.hist[arg];
-          const int streaming = strength > n / 4;
-          const int last = imax(sh.last_valid, 0);
-          const int target = clampi(s_page[last] + stride, 0, NP - 1);
-          const int tfl = ld(table, (long long)target * W + FLAGS);
-          const int target_is_slow =
-              ld(table, (long long)target * W + DEVICE) == SLOW &&
-              !(tfl & PINNED) && !(tfl & RETIRED);
-          victim = sh.victim;
-          const int hw = vfound && sh.heat >= I[HOT_THRESHOLD] &&
-                         sh.heat > hot_at(victim);
-          const int want_stream = streaming && target_is_slow && vfound;
-          p_want = want_stream || hw;
-          cand = want_stream ? target : sh.cand;
-          new_ptr = floormod(ptr + skip + p_want, nf);
+          victim = victim_c;
+          t_known = true;
+          t_dev = v_dev;
+          t_fl = v_fl;
+          t_hot = v_hot;
+          cand = s_page[best.i];
+          c_known = true;
+          c_dev = s_t0[best.i];
+          c_fl = s_t1[best.i];
+          const int hw = v_found && best.v >= I[HOT_THRESHOLD] &&
+                         best.v > v_hot;
+          p_want = hw;
+          if (pol == P_STREAM) {
+            int arg = 0;
+            for (int k = 1; k < 9; ++k)
+              if (sh.hist[k] > sh.hist[arg]) arg = k;
+            const int stride = arg - 4, strength = sh.hist[arg];
+            const int streaming = strength > n / 4;
+            const int last = imax(sh.last_valid, 0);
+            const int target = clampi(s_page[last] + stride, 0, NP - 1);
+            const int tfl = ld(table, (long long)target * W + FLAGS);
+            const int tdev = ld(table, (long long)target * W + DEVICE);
+            const int target_is_slow =
+                tdev == SLOW && !(tfl & PINNED) && !(tfl & RETIRED);
+            const int want_stream = streaming && target_is_slow && v_found;
+            p_want = want_stream || hw;
+            if (want_stream) {
+              cand = target;
+              c_dev = tdev;
+              c_fl = tfl;
+            }
+          }
+          new_ptr = floormod(ptr + v_skip + p_want, nf);
           break;
         }
         case P_HOTNESS_GLOBAL: {
           cand = sh.hot.i;
           victim = sh.cold.i;
-          p_want = sh.hot.v >= I[HOT_THRESHOLD] && sh.hot.v > hot_at(victim);
+          const long long rv = (long long)gidx(victim, NP) * W;
+          t_hot = ld(table, rv + HOTNESS);
+          p_want = sh.hot.v >= I[HOT_THRESHOLD] && sh.hot.v > t_hot;
           break;
         }
         default:   // P_STATIC
           break;
       }
-
-      // Post-policy proposal mask: device sanity plus the pin bits.
       const long long rc = (long long)gidx(cand, NP) * W;
       const long long rv = (long long)gidx(victim, NP) * W;
-      const int unpinned = !((ld(table, rc + FLAGS) & PINNED) ||
-                             (ld(table, rv + FLAGS) & PINNED));
+      if (!c_known) {
+        c_dev = ld(table, rc + DEVICE);
+        c_fl = ld(table, rc + FLAGS);
+      }
+      if (!t_known) {
+        t_dev = ld(table, rv + DEVICE);
+        t_fl = ld(table, rv + FLAGS);
+      }
+
+      // Post-policy proposal mask: device sanity plus the pin bits.
+      const int unpinned = !((c_fl & PINNED) || (t_fl & PINNED));
       const int want = p_want && sh.any_valid && unpinned &&
-                       ld(table, rc + DEVICE) == SLOW &&
-                       ld(table, rv + DEVICE) == FAST;
+                       c_dev == SLOW && t_dev == FAST;
 
       // Rescue migration override (the CLOCK victim is the same table
       // read the policies make).
       const int rescue = sh.rescue;
       const int pending = rescue >= 0;
       const int resc = clampi(rescue, 0, NP - 1);
-      const int r_slow = ld(table, (long long)resc * W + DEVICE) == SLOW;
+      const int r_slow = r_dev == SLOW;
       const int dj = donor.v == 0 ? donor.i : 0;
       const int pg_dj = clampi(s_page[dj], 0, NP - 1);
-      const int r_want = pending && (r_slow ? vfound : donor.v == 0);
+      const int r_want = pending && (r_slow ? v_found : donor.v == 0);
       const int final_want = pending ? r_want : want;
       const int page_a = pending ? (r_slow ? resc : pg_dj) : cand;
-      const int page_b = pending ? (r_slow ? sh.victim : resc) : victim;
+      const int page_b = pending ? (r_slow ? victim_c : resc) : victim;
 
       // dma.maybe_start: a pinned or tombstoned member vetoes the swap.
-      const int vetoed =
-          ((ld(table, (long long)gidx(page_a, NP) * W + FLAGS) |
-            ld(table, (long long)gidx(page_b, NP) * W + FLAGS)) &
-           (PINNED | RETIRED)) != 0;
+      const int fl_a = pending ? (r_slow ? r_fl : s_wrow[dj]) : c_fl;
+      const int fl_b = pending ? (r_slow ? v_fl : r_fl) : t_fl;
+      const int vetoed = ((fl_a | fl_b) & (PINNED | RETIRED)) != 0;
       const int started = sh.dma_active == 0 && final_want && !vetoed;
-      const int ptr_rescue = floormod(ptr + skip + 1, nf);
+      const int ptr_rescue = floormod(ptr + v_skip + 1, nf);
       const int clock_ptr =
           pending ? ((r_slow && started) ? ptr_rescue : ptr)
                   : ((started || !p_want) ? new_ptr : ptr);
-
-      // What the chunk reports; then counters.update: each chunk's sums,
-      // rounded once, folded as c + s in float32 in JAX's order.
-      const Sums& t = sh.sums;
-      int* co = a.chunk_out + ((long long)bi * a.n_chunks + c) * N_CHUNK_OUT;
-      co[CO_HELD] = t.c[S_HELD];
-      co[CO_RETIRED] = sh.retired;
-      co[CO_TOMBSTONE] = sh.tombstone;
-      const int add_i[N_COUNTER_INTS] = {
-          t.c[S_READS_FAST], t.c[S_WRITES_FAST], t.c[S_READS_SLOW],
-          t.c[S_WRITES_SLOW], t.c[S_N_READS], 0, t.c[S_HELD],
-          t.c[S_POISONED], sh.retired >= 0, t.c[S_INJECTED]};
-      for (int k = 0; k < N_COUNTER_INTS; ++k)
-        ci[k] = wadd(ci[k], (unsigned)add_i[k]);
-      ci[MAX_LATENCY] = imax(ci[MAX_LATENCY], t.max_lat);
-      const float brf = __ll2float_rn(t.s[S_BYTES_READ_FAST]);
-      const float bwf = __ll2float_rn(t.s[S_BYTES_WRITE_FAST]);
-      const float brs = __ll2float_rn(t.s[S_BYTES_READ_SLOW]);
-      const float bws = __ll2float_rn(t.s[S_BYTES_WRITE_SLOW]);
-      const float bits_fast = __fmul_rn(8.0f, __fadd_rn(brf, bwf));
-      const float energy = __fadd_rn(
-          __fadd_rn(__fmul_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST]),
-                    __fmul_rn(__fmul_rn(8.0f, brs),
-                              F[POWER_PJ_PER_BIT_SLOW_READ])),
-          __fmul_rn(__fmul_rn(8.0f, bws), F[POWER_PJ_PER_BIT_SLOW_WRITE]));
-      cf[BYTES_READ_FAST] = __fadd_rn(cf[BYTES_READ_FAST], brf);
-      cf[BYTES_WRITE_FAST] = __fadd_rn(cf[BYTES_WRITE_FAST], bwf);
-      cf[BYTES_READ_SLOW] = __fadd_rn(cf[BYTES_READ_SLOW], brs);
-      cf[BYTES_WRITE_SLOW] = __fadd_rn(cf[BYTES_WRITE_SLOW], bws);
-      cf[SUM_READ_LATENCY] = __fadd_rn(cf[SUM_READ_LATENCY],
-                                       __ll2float_rn(t.s[S_READ_LATENCY]));
-      cf[ENERGY_PJ] = __fadd_rn(cf[ENERGY_PJ], energy);
 
       // The state the next chunk starts from.
       I[CLOCK] = sh.now;
@@ -1169,7 +1267,8 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
     a.ctr_float_out[bi * N_COUNTER_FLOATS + tid] = cf[tid];
   for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
   if (stamp)
-    for (int k = 0; k < N_PHASES; ++k) a.phases[bi * N_PHASES + k] += ph_acc[k];
+    for (int k = 0; k < N_PHASES; ++k)
+      a.phases[bi * N_PHASES + k] += ph_acc[k];
 #undef STAMP
 }
 
@@ -1193,16 +1292,11 @@ extern "C" int chunk_step_launch(
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(int) * ((size_t)15 * chunk + 5 * ((size_t)chunk + 10) +
-                     4 * (size_t)n_banks + 1);
+                     2 * (size_t)n_banks * (1 + ((size_t)chunk + 31) / 32));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         chunk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (cluster > 8) {   // past the portable cluster size
-    cudaError_t e = cudaFuncSetAttribute(
-        chunk_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
   Args a{static_cast<int*>(table),

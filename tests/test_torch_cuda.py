@@ -164,8 +164,8 @@ POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
 
 def _chunk_scenario(dev, policy, n_chunks=11, seed=0):
     """small_platform(chunk=16) from an adversarial state (pins, a
-    poisoned page, a swap in flight), endurance retirement on, and a
-    fault plan of deaths and transients."""
+    poisoned page, a swap in flight), a few pages out of range, endurance
+    retirement on, and a fault plan of deaths and transients."""
     cfg = tcore.small_platform(chunk=16, policy=policy, hot_threshold=2,
                                decay_every=4, endurance_budget=6,
                                write_weight=3)
@@ -186,6 +186,8 @@ def _chunk_scenario(dev, policy, n_chunks=11, seed=0):
     page = np.where(rng.random(n) < 0.5, nf + rng.integers(0, 8, n),
                     rng.integers(0, cfg.n_pages, n)).astype(np.int32)
     page[rng.random(n) < 0.15] = nf + 2
+    page[rng.random(n) < 0.03] = cfg.n_pages + 3    # JAX's gather rules
+    page[rng.random(n) < 0.03] = -2
     off = (rng.integers(0, cfg.page_size // 64, n) * 64).astype(np.int32)
     trace = tcore.Trace(*(torch.as_tensor(x, device=dev) for x in (
         page, off, rng.random(n) < 0.5, np.full(n, 64, np.int32))))
