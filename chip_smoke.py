@@ -468,7 +468,9 @@ def run_main_path(torch, dev, rt, hl, cs) -> dict:
     for k in a.outs:
         if not torch.equal(a.outs[k], b.outs[k]):
             raise Mismatch(f"main path: outs[{k}] differs between routes")
-    check_same_state(torch, a.state, b.state)
+    for path, x, y in leaves(a.state, b.state):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise Mismatch(f"main path: {path} differs between routes")
     check_outputs(torch, rt, cfg, a, n)
     print("  both routes: final states, counters and outputs bitwise equal")
     # A chunk's float32 sums are exact below 2^24, in any order.
@@ -481,16 +483,6 @@ def run_main_path(torch, dev, rt, hl, cs) -> dict:
           f"{2 ** 24})")
     return {"cfg": cfg, "trace": trace, "n": n, "n_chunks": n_chunks,
             "results": results}
-
-
-def check_same_state(torch, s, t, path="state"):
-    if isinstance(s, tuple):
-        for f in s._fields:
-            check_same_state(torch, getattr(s, f), getattr(t, f),
-                             f"{path}.{f}")
-        return
-    if s.dtype != t.dtype or not torch.equal(s, t):
-        raise Mismatch(f"main path: {path} differs between routes")
 
 
 def check_outputs(torch, rt, cfg, res, n):

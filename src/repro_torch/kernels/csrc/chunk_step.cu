@@ -196,10 +196,6 @@ __device__ __forceinline__ int ld(const int* t, long long i) {
 __device__ __forceinline__ void st(int* t, long long i, int v) {
   __stcg(t + i, v);
 }
-// Bring a line into L2 ahead of its use.
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
 // DEVICE, FRAME, HOTNESS and WEAR of a row: its first 16 bytes.
 __device__ __forceinline__ int4 ld_head(const int* t, long long row) {
   return __ldcg(reinterpret_cast<const int4*>(t + row * W));
@@ -418,7 +414,7 @@ __device__ __forceinline__ int saturate(const int* tgt, const int* w, int k,
 // Chunk-level scalars shared between the phases (written by thread 0).
 struct Shared {
   int rx_last, tx_last, any_valid, last_ret, now;
-  int done, tombstone, dma_active, dma_a, dma_b, dma_start, swaps;
+  int tombstone, dma_active, dma_a, dma_b, dma_start, swaps;
   int own_idx, own_delta, own_pre, wear0, wear_fa, wear_fbr;
   int min_wear, rescue, retired, ev_chunk, ev_p, fault_cursor;
   int p_row[10], p_lane[10], p_delta[10];
@@ -553,14 +549,6 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         s_hotw[i] = v ? wadd(1, (unsigned)wmul(wsub(eff_w, 1), iw)) : 0;
         s_t0[i] = imax(issue, v ? I[LINK_FREE_RX] : NEG);
         s_t1[i] = v ? ceil_cycles(iw ? sz : 16, lb) : 0;
-        if (c + 1 < a.n_chunks) {   // the next chunk's requests into L2
-          const long long nx = base + n + i;
-          prefetch_l2(a.valid + nx);
-          prefetch_l2(a.page + nx);
-          prefetch_l2(a.offset + nx);
-          prefetch_l2(a.is_write + nx);
-          prefetch_l2(a.size + nx);
-        }
       }
       if (tid < W) {
         sh.row_a[tid] = ld(table, (long long)clampi(imax(I[DMA_PAGE_A], 0), 0,
@@ -800,7 +788,6 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
         }
         const int any_dead = (commit_a && dead_a) || (commit_b && dead_b);
         sh.tombstone = any_dead ? (dead_a ? pb : pa) : -1;
-        sh.done = done;
         sh.dma_active = done ? 0 : I[DMA_ACTIVE];
         sh.dma_a = done ? -1 : pa;
         sh.dma_b = done ? -1 : pb;

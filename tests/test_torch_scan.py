@@ -34,7 +34,7 @@ from repro_torch.core.emulator import clone_state
 from repro_torch.kernels import chunk_step as tcs
 
 from test_torch_core import POLICIES, T, assert_same, t_params, t_plan, t_state
-from test_torch_kernels import _scenario
+from test_torch_kernels import _scenario, _t_scalars
 
 INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
 NEG = -2 ** 30
@@ -459,8 +459,8 @@ def test_chunk_step_launch_of_one_chunk(monkeypatch):
     reg = tcore.PolicyRegistry.snapshot()
     params, plan = t_params(cfg.runtime()), t_plan(jplan)
     ts = t_state(js)
-    plain = (ts.table.clone(), _scalars(ts), ts.bank_free.clone())
-    kern = (ts.table.clone(), _scalars(ts), ts.bank_free.clone())
+    plain = (ts.table.clone(), _t_scalars(ts), ts.bank_free.clone())
+    kern = (ts.table.clone(), _t_scalars(ts), ts.bank_free.clone())
     monkeypatch.setattr(tcs, "chunk_step_cuda", plain_kernel)
     monkeypatch.setattr(tcs, "use_chunk_step_kernel", lambda c, t: True)
     for c in range(len(arrays[0]) // cfg.chunk):
@@ -473,10 +473,3 @@ def test_chunk_step_launch_of_one_chunk(monkeypatch):
         for a, b in zip(_flat((tuple(kern), ko)), _flat((tuple(plain), po))):
             assert torch.equal(a.to(torch.int32), b.to(torch.int32)), c
 
-
-def _scalars(s):
-    return tcs.StepScalars(
-        clock=s.clock, clock_ptr=s.clock_ptr, chunk_idx=s.chunk_idx,
-        dma=s.dma, link_free_rx=s.link_free_rx, link_free_tx=s.link_free_tx,
-        last_return=s.last_return, rescue_page=s.rescue_page,
-        min_wear=s.min_wear, fault_cursor=s.fault_cursor)
