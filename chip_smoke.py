@@ -10,14 +10,17 @@ Phases, each printing its lines in order:
 1. **Device** — the card's name and power limit (``nvidia-smi``).
 2. **Build** — ``nvcc`` compiles all five hand-written kernels from
    ``src/repro_torch/kernels/csrc`` for ``sm_90a`` into
-   ``build/repro_torch/`` (one process per source, started together).
+   ``build/repro_torch/``, and kernel B once more with its clock64()
+   phase stamps (one process per library, started together).
 3. **Kernel A** (``hmmu_lookup``) against its plain version at the
    paper's geometry (294,912 x 8 table), B in {1, 4}, m in {512, 514},
    with negative and past-the-end pages: ``torch.equal``; its time, the
    plain version's, and one advanced-indexing call's (``library_ms``).
 4. **Kernel B** (``chunk_step``) against its plain version (the loop of
    ``step_ref(seq=True)`` and ``counters.update``): each of the six
-   policies, on ``small_platform`` and on the paper geometry, from an
+   policies, on ``small_platform``, on the paper geometry and on the
+   paper geometry with a flash slow tier (a chunk's read latencies sum
+   past 2^24, which must happen at least once), from an
    adversarial state (pins, a poisoned page, a swap in flight) with an
    endurance budget and a fault plan of deaths and transients, over more
    than 2 x ``decay_every`` chunks, launched once per chunk (compared
@@ -31,10 +34,11 @@ Phases, each printing its lines in order:
    launch) and once through the scan path whose stage-2 gather is kernel
    A (``"off"``: one launch per chunk); the two final states, counters
    and outputs must be bitwise equal. Then kernel B's device time per
-   chunk over the whole trace (three runs), its share of the "auto"
-   route's wall time, its clock64() phase split, the same run with one
-   thread block per point instead of a cluster (results equal), and its
-   plain version's time.
+   chunk over the whole trace and its share of the wall time of the same
+   ``Engine.run`` (three runs), its clock64() phase split from the
+   stamped build and that build's time, the same run with one thread
+   block per point instead of a cluster (results equal), and its plain
+   version's time.
 6. **The model kernels at full width** — the entry points
    ``ops.flash_attention``, ``ops.decode_attention`` and
    ``ops.rwkv_chunk`` driven once per case at the widths of the repo's
@@ -103,17 +107,28 @@ def wall_ms(torch, fn, iters: int) -> float:
 
 
 def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
-    """Device milliseconds per call of ``fn`` from a CUPTI trace
-    (``torch.profiler``): the kernels whose name contains ``name``, or
-    every kernel when ``name`` is None. Falls back to CUDA events around
-    the calls when the trace shows no device time."""
+    """Device milliseconds per call of ``fn``: see
+    :func:`device_and_wall_ms`."""
+    return device_and_wall_ms(torch, fn, iters, name)[0]
+
+
+def device_and_wall_ms(torch, fn, iters: int, name: str | None = None
+                       ) -> tuple[float, float]:
+    """(device, host-clock) milliseconds per call of ``fn``, both from the
+    same calls: the device time from a CUPTI trace (``torch.profiler``)
+    of the kernels whose name contains ``name`` (every kernel when
+    ``name`` is None), the wall time around those calls, synchronised.
+    Falls back to CUDA events around the calls when the trace shows no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
     total_us = 0.0
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
@@ -122,17 +137,19 @@ def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
         if t and (name is None or name in ev.key):
             total_us += t
     if total_us > 0:
-        return total_us / 1e3 / iters
+        return total_us / 1e3 / iters, wall
     print(f"  (no device time in the trace for {name or 'the call'}: "
           "timing with CUDA events)")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    return start.elapsed_time(end) / iters, wall
 
 
 def kernel_resources(log: str) -> list[tuple[str, int, int]]:
@@ -306,17 +323,31 @@ def compare_run(torch, where, got, want) -> int:
         *leaves(ks, ps), *(("outs." + k, ko[k], po[k]) for k in po)])
 
 
-def state_of(rt, cs, table, out, b):
-    """Design point ``b``'s final EmulatorState from a chunk-step launch."""
-    sc = cs._unpack_out_scalars(out.scalars[b])
-    return rt.core.EmulatorState(
-        table=table, clock_ptr=sc.clock_ptr, chunk_idx=sc.chunk_idx,
-        dma=sc.dma, clock=sc.clock, bank_free=out.bank_free[b],
-        link_free_rx=sc.link_free_rx, link_free_tx=sc.link_free_tx,
-        last_return=sc.last_return,
-        counters=rt.core.emulator.kernel_counters(out, b),
-        rescue_page=sc.rescue_page, min_wear=sc.min_wear,
-        fault_cursor=sc.fault_cursor)
+def kernel_args(torch, cs, points, trace, valid, plan) -> tuple:
+    """``chunk_step_cuda``'s tensors, [B, ...] each, for the design points
+    ``points`` ((params, state) pairs) running one trace and plan; the
+    table is a stacked copy, which the launch updates."""
+    def stack(xs):
+        return torch.stack(xs).contiguous()
+
+    def same(x):
+        return stack([x.to(torch.int32)] * len(points))
+    packed = [cs._pack_scalars(p, scalars_of(cs, st)) for p, st in points]
+    ctrs = [cs.pack_counters(st.counters) for _, st in points]
+    return (stack([st.table for _, st in points]),
+            stack([p[0] for p in packed]), stack([p[1] for p in packed]),
+            stack([st.bank_free for _, st in points]),
+            *(same(x) for x in (*trace, valid)), same(plan.transient),
+            same(plan.deaths), stack([c[0] for c in ctrs]),
+            stack([c[1] for c in ctrs]))
+
+
+def read_sum_max(torch, cfg, trace, valid, latency) -> int:
+    """The largest integer sum of one chunk's read latencies: above 2^24
+    a float32 sum of them is no longer exact in every order."""
+    reads = (~trace.is_write & valid).reshape(-1, cfg.chunk)
+    lat = latency.reshape(-1, cfg.chunk).to(torch.int64)
+    return int(torch.where(reads, lat, 0).sum(dim=1).max())
 
 
 def check_chunk_step(torch, dev, rt, cs) -> dict:
@@ -324,9 +355,13 @@ def check_chunk_step(torch, dev, rt, cs) -> dict:
     reg = PolicyRegistry.snapshot()
     err = 0
     times = {}
+    # "flash": the paper geometry with a flash slow tier, whose read
+    # latencies sum past 2^24 within a chunk (the counters' exact sums).
+    paper = rt.core.paper_platform().with_(chunk=512)
     geometries = (
-        ("small", rt.core.small_platform(chunk=16)),
-        ("paper", rt.core.paper_platform().with_(chunk=512)))
+        ("small", rt.core.small_platform(chunk=16)), ("paper", paper),
+        ("flash", paper.with_(slow=rt.core.TECHNOLOGIES["flash"])))
+    worst = 0
     for geom, base in geometries:
         for policy in POLICIES:
             cfg = base.with_(policy=policy, hot_threshold=2, decay_every=4,
@@ -375,6 +410,8 @@ def check_chunk_step(torch, dev, rt, cs) -> dict:
                                       seq=True)
             err = max(err, compare_run(torch, f"{geom}/{policy}, one launch",
                                        k_run, p_run))
+            worst = max(worst, read_sum_max(torch, cfg, trace, valid,
+                                            p_run[1]["latency"]))
             print(f"  kernel B  {geom:5s} {policy:14s} {n_chunks} chunks "
                   f"equal per chunk and in one launch; swaps "
                   f"{int(k[1].dma.swaps_done)}, retirements {retired}, "
@@ -384,6 +421,11 @@ def check_chunk_step(torch, dev, rt, cs) -> dict:
             if retired == 0 or injected == 0:
                 raise Mismatch(f"{geom}/{policy}: the fault paths never fired")
             times[(geom, policy)] = (k_s / n_chunks, p_s / n_chunks)
+    print(f"  kernel B  largest read-latency sum of a chunk in phase 4: "
+          f"{worst} (2^24 = {2 ** 24})")
+    if worst <= 2 ** 24:
+        raise Mismatch("no phase-4 chunk summed its read latencies past "
+                       "2^24")
     err = max(err, check_batched(torch, dev, rt, cs, reg))
     return {"max_abs_err": err, "times": times}
 
@@ -401,23 +443,10 @@ def check_batched(torch, dev, rt, cs, reg) -> int:
     setups = [adversarial_setup(torch, dev, rt, c, n_chunks, seed=11)
               for c in cfgs]
     _, _, trace, valid, plan = setups[0]
-
-    def two(x):
-        return torch.stack([x.to(torch.int32)] * 2).contiguous()
-
-    def stack(xs):
-        return torch.stack(xs).contiguous()
-    packed = [cs._pack_scalars(s[0], scalars_of(cs, s[1])) for s in setups]
-    ctrs = [cs.pack_counters(s[1].counters) for s in setups]
-    table = stack([s[1].table for s in setups])
+    args = kernel_args(torch, cs, [s[:2] for s in setups], trace, valid,
+                       plan)
     cs.KERNEL.reset()
-    out = cs.chunk_step_cuda(
-        base, reg, table, stack([p[0] for p in packed]),
-        stack([p[1] for p in packed]),
-        stack([s[1].bank_free for s in setups]),
-        *(two(x) for x in (*trace, valid)), two(plan.transient),
-        two(plan.deaths), stack([c[0] for c in ctrs]),
-        stack([c[1] for c in ctrs]))
+    out = cs.chunk_step_cuda(base, reg, *args)
     torch.cuda.synchronize()
     if cs.KERNEL.launches != 1:
         raise Mismatch(f"B=2: {cs.KERNEL.launches} launches")
@@ -425,7 +454,7 @@ def check_batched(torch, dev, rt, cs, reg) -> int:
     for b, ((params, st, *_), cfg) in enumerate(zip(setups, cfgs)):
         want = emu._emulate_impl(cfg, reg, trace, valid, emu.clone_state(st),
                                  params, plan, seq=True)
-        got = (state_of(rt, cs, table[b], out, b),
+        got = (emu.kernel_state(args[0][b], out, b),
                emu.kernel_outs(base, out, valid, b))
         err = max(err, compare_run(torch, f"B=2 point {b}", got, want))
     print(f"  kernel B  B=2 (hotness, wear_level; different params) "
@@ -474,12 +503,10 @@ def run_main_path(torch, dev, rt, hl, cs) -> dict:
     check_outputs(torch, rt, cfg, a, n)
     print("  both routes: final states, counters and outputs bitwise equal")
     # A chunk's float32 sums are exact below 2^24, in any order.
-    pad = n_chunks * cfg.chunk - n
-    lat = torch.nn.functional.pad(a.outs["latency"], (0, pad))
-    reads = torch.nn.functional.pad(~trace.is_write, (0, pad))
-    worst = int(torch.where(reads, lat, 0).reshape(n_chunks, cfg.chunk)
-                .sum(dim=1, dtype=torch.int64).max())
-    print(f"  largest read-latency sum of a chunk: {worst} (2^24 = "
+    padded, valid = rt.core.pad_trace(cfg, trace)
+    lat = torch.nn.functional.pad(a.outs["latency"], (0, len(valid) - n))
+    print(f"  largest read-latency sum of a chunk: "
+          f"{read_sum_max(torch, cfg, padded, valid, lat)} (2^24 = "
           f"{2 ** 24})")
     return {"cfg": cfg, "trace": trace, "n": n, "n_chunks": n_chunks,
             "results": results}
@@ -508,10 +535,12 @@ def check_outputs(torch, rt, cfg, res, n):
 
 def kernel_b_numbers(torch, dev, rt, cs, main) -> dict:
     """Kernel B on the whole main trace in one launch: its device time per
-    chunk (three runs), the device's share of the "auto" route's wall
-    time, the clock64() phase split, one CTA per point against the
-    cluster (same results, and their times), its plain version's wall
-    time per chunk, and its byte bound."""
+    chunk and the device's share of the wall time of the same
+    ``Engine.run`` (three runs), the clock64() phase split and the time of
+    the stamped build, one CTA per point against the cluster (same
+    results, and their times), its plain version's wall time per chunk,
+    and its byte bound. The measurement options go to
+    ``chunk_step_cuda`` directly."""
     from repro_torch.core.policies import PolicyRegistry
     emu = rt.core.emulator
     cfg, n_chunks = main["cfg"], main["n_chunks"]
@@ -519,30 +548,40 @@ def kernel_b_numbers(torch, dev, rt, cs, main) -> dict:
     eng = rt.Engine(on)
     reg = PolicyRegistry.snapshot()
     trace, valid = rt.core.pad_trace(cfg, main["trace"])
+    plan = rt.core.FaultPlan.empty(device=dev)
 
-    def run(**launch):
-        return emu._emulate_impl(on, reg, trace, valid, eng.init_state(),
-                                 eng.params, **launch)
-    runs = [device_ms(torch, lambda: eng.run(main["trace"]), 1,
-                      "chunk_step_kernel") / n_chunks for _ in range(3)]
-    k_ms = sorted(runs)[1]
-    wall_ms = main["results"]["auto"][2] * 1e3
-    print(f"  kernel B over the {n_chunks} main-path chunks in one launch: "
-          + " / ".join(f"{r * 1e3:.3f}" for r in runs)
-          + f" us/chunk (device, three runs); {k_ms * n_chunks:.2f} ms of "
-          f"the 'auto' route's {wall_ms:.2f} ms wall, a device share of "
-          f"{k_ms * n_chunks / wall_ms:.3f}")
-    phases = torch.zeros(1, len(cs.PHASES), dtype=torch.int64, device=dev)
-    run(phases=phases)
-    cyc = phases[0].tolist()
+    def launch(**kw):
+        args = kernel_args(torch, cs, [(eng.params, eng.init_state())],
+                           trace, valid, plan)
+        out = cs.chunk_step_cuda(on, reg, *args, **kw)
+        return emu.kernel_state(args[0][0], out), emu.kernel_outs(on, out,
+                                                                  valid)
+    runs = [device_and_wall_ms(torch, lambda: eng.run(main["trace"]), 1,
+                               "chunk_step_kernel") for _ in range(3)]
+    k_ms, wall_ms = sorted(runs)[1]
+    k_ms /= n_chunks
+    print(f"  kernel B over the {n_chunks} main-path chunks in one launch "
+          f"(three Engine.run calls, each traced): " + "; ".join(
+              f"{d / n_chunks * 1e3:.3f} us/chunk, {d:.2f} of {w:.2f} ms "
+              f"wall, a device share of {d / w:.3f}" for d, w in runs))
+    stamped = torch.zeros(1, len(cs.PHASES), dtype=torch.int64, device=dev)
+    launch(phases=stamped)
+    cyc = stamped[0].tolist()
     tot = sum(cyc)
-    print("  kernel B phase split (clock64 on the leader's thread 0, share "
-          "of the cycles; us/chunk at the device time): " + ", ".join(
+    print("  kernel B phase split (stamped build, clock64 on the leader's "
+          "thread 0, share of the cycles; us/chunk at the release build's "
+          "device time): " + ", ".join(
               f"{nm} {c / tot:.3f} ({c / tot * k_ms * 1e3:.2f})"
               for nm, c in zip(cs.PHASES, cyc)))
-    one_ms = device_ms(torch, lambda: run(cluster=1), 1,
+    stamped_ms = device_ms(torch, lambda: launch(phases=stamped.zero_()), 1,
+                           "chunk_step_kernel") / n_chunks
+    rel_ms = device_ms(torch, launch, 1, "chunk_step_kernel") / n_chunks
+    print(f"  kernel B stamped build {stamped_ms * 1e3:.3f} us/chunk, "
+          f"release build {rel_ms * 1e3:.3f} us/chunk (device, one call "
+          f"each, same inputs)")
+    one_ms = device_ms(torch, lambda: launch(cluster=1), 1,
                        "chunk_step_kernel") / n_chunks
-    a, b = run(), run(cluster=1)
+    a, b = launch(), launch(cluster=1)
     for name, x, y in [*leaves(a[0], b[0]),
                        *((k, a[1][k], b[1][k]) for k in a[1])]:
         if not torch.equal(x, y):
@@ -975,12 +1014,14 @@ def main() -> int:
               f"{torch.version.cuda}", flush=True)
 
         t0 = time.perf_counter()
-        all_kernels = (hl.KERNEL, cs.KERNEL, fa.KERNEL, da.KERNEL, rw.KERNEL)
+        all_kernels = (hl.KERNEL, cs.KERNEL, fa.KERNEL, da.KERNEL, rw.KERNEL,
+                       cs.KERNEL_STAMPED)
         build.build_all(all_kernels)
         print(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
               f"{build.BUILD_DIR}", flush=True)
         for k in all_kernels:
-            print(f"    {k.name}: {k.library.name}; registers / spilled "
+            print(f"    {' '.join((k.name, *k.defines))}: {k.library.name}; "
+                  f"registers / spilled "
                   f"bytes: " + ", ".join(f"{n} {r}/{sp}" for n, r, sp in
                                          kernel_resources(k.build_log)))
 

@@ -142,6 +142,21 @@ def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
     return new_state, out
 
 
+def _tensors(x) -> list:
+    return [y for v in x for y in _tensors(v)] if isinstance(x, tuple) \
+        else [x]
+
+
+def _write_back(state: EmulatorState, new: EmulatorState) -> EmulatorState:
+    """Copy ``new`` into ``state``'s own tensors; returns ``state``. Both
+    routes of :func:`_emulate_impl` end here, so a passed state is
+    updated in place wherever the run went."""
+    for dst, src in zip(_tensors(state), _tensors(new), strict=True):
+        if dst is not src:
+            dst.copy_(src)
+    return state
+
+
 def kernel_counters(out: chunk_step_lib.KernelOut, b: int = 0
                     ) -> counters_lib.Counters:
     """Design point ``b``'s counters from a chunk-step launch (views)."""
@@ -149,6 +164,20 @@ def kernel_counters(out: chunk_step_lib.KernelOut, b: int = 0
     vals = dict(zip(cs.COUNTER_INT_FIELDS, out.counters_int[b]))
     vals.update(zip(cs.COUNTER_FLOAT_FIELDS, out.counters_float[b]))
     return counters_lib.Counters(**vals)
+
+
+def kernel_state(table: torch.Tensor, out: chunk_step_lib.KernelOut,
+                 b: int = 0) -> EmulatorState:
+    """Design point ``b``'s final state from a chunk-step launch that
+    updated ``table`` (views of ``out``)."""
+    sc = chunk_step_lib._unpack_out_scalars(out.scalars[b])
+    return EmulatorState(
+        table=table, clock_ptr=sc.clock_ptr, chunk_idx=sc.chunk_idx,
+        dma=sc.dma, clock=sc.clock, bank_free=out.bank_free[b],
+        link_free_rx=sc.link_free_rx, link_free_tx=sc.link_free_tx,
+        last_return=sc.last_return, counters=kernel_counters(out, b),
+        rescue_page=sc.rescue_page, min_wear=sc.min_wear,
+        fault_cursor=sc.fault_cursor)
 
 
 def kernel_outs(cfg: EmulatorConfig, out: chunk_step_lib.KernelOut,
@@ -167,12 +196,11 @@ def kernel_outs(cfg: EmulatorConfig, out: chunk_step_lib.KernelOut,
 
 def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
                     trace: Trace, valid: torch.Tensor, state: EmulatorState,
-                    params: RuntimeParams, faults: FaultPlan, **launch
+                    params: RuntimeParams, faults: FaultPlan
                     ) -> tuple[EmulatorState, dict]:
-    """Every chunk of the trace in ONE launch of the chunk-step kernel;
-    the final state, bank registers and counters are written back into
-    ``state``'s own tensors (the table is updated in place by the
-    kernel). ``launch`` goes to :func:`chunk_step_cuda`."""
+    """Every chunk of the trace in ONE launch of the chunk-step kernel
+    (which updates the table in place); returns the final state and the
+    outputs."""
     cs = chunk_step_lib
     ints, floats = cs._pack_scalars(params, _step_scalars(state))
     c_int, c_float = cs.pack_counters(state.counters)
@@ -181,45 +209,40 @@ def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
     out = cs.chunk_step_cuda(
         cfg, registry, state.table[None], ints[None], floats[None],
         state.bank_free[None], *vec, faults.transient[None],
-        faults.deaths[None], c_int[None], c_float[None], **launch)
-    for dst, src in [
-            *zip(cs.scalar_tensors(_step_scalars(state)), out.scalars[0]),
-            (state.bank_free, out.bank_free[0]),
-            *zip(state.counters, kernel_counters(out))]:
-        dst.copy_(src)
-    return state, kernel_outs(cfg, out, valid)
+        faults.deaths[None], c_int[None], c_float[None])
+    return kernel_state(state.table, out), kernel_outs(cfg, out, valid)
 
 
 def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
                   valid: torch.Tensor, state: EmulatorState,
                   params: RuntimeParams, faults: FaultPlan | None = None, *,
-                  seq: bool = False, **launch
-                  ) -> tuple[EmulatorState, dict]:
-    """Run the chunk step over a chunk-multiple trace. ``state.table`` is
-    updated in place. Where :func:`chunk_step.use_chunk_step_kernel`
-    picks the kernel, one launch runs the whole trace and writes the
-    final state into ``state`` (``launch`` options go to that launch);
-    otherwise a loop over the chunks. ``seq=True`` is that loop through
-    ``step_ref(seq=True)``: the kernel's plain version."""
+                  seq: bool = False) -> tuple[EmulatorState, dict]:
+    """Run the chunk step over a chunk-multiple trace and write the final
+    state into ``state``'s own tensors (returned). Where
+    :func:`chunk_step.use_chunk_step_kernel` picks the kernel, one launch
+    runs the whole trace; otherwise a loop over the chunks. ``seq=True``
+    is that loop through ``step_ref(seq=True)``: the kernel's plain
+    version."""
     if faults is None:
         faults = FaultPlan.empty(device=state.table.device)
     n = len(trace)
     if n % cfg.chunk:
         raise ValueError("pad the trace to a chunk multiple first")
-    if n and not seq and chunk_step_lib.use_chunk_step_kernel(cfg,
-                                                              state.table):
-        return _emulate_kernel(cfg, registry, trace, valid, state, params,
-                               faults, **launch)
-    parts = []
-    for lo in range(0, n, cfg.chunk):
-        sl = slice(lo, lo + cfg.chunk)
-        state, out = _chunk_step(cfg, params, registry, faults, state,
-                                 Trace(*(x[sl] for x in trace)), valid[sl],
-                                 seq)
-        parts.append(out)
-    if not parts:
+    if n == 0:
         z = torch.zeros(0, dtype=torch.int32, device=state.table.device)
         return state, {"returns": z, "device": z, "latency": z,
                        "faulted": z.bool(), "retired_page": z,
                        "tombstone": z}
-    return state, {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    if not seq and chunk_step_lib.use_chunk_step_kernel(cfg, state.table):
+        new, outs = _emulate_kernel(cfg, registry, trace, valid, state,
+                                    params, faults)
+        return _write_back(state, new), outs
+    new, parts = state, []
+    for lo in range(0, n, cfg.chunk):
+        sl = slice(lo, lo + cfg.chunk)
+        new, out = _chunk_step(cfg, params, registry, faults, new,
+                               Trace(*(x[sl] for x in trace)), valid[sl],
+                               seq)
+        parts.append(out)
+    return _write_back(state, new), {
+        k: torch.cat([p[k] for p in parts]) for k in parts[0]}

@@ -483,7 +483,8 @@ COUNTER_FLOAT_FIELDS = tuple(f for f in counters_lib.Counters._fields
                              if f in counters_lib.FLOAT_FIELDS)
 # What the kernel reports per chunk (the .cu's ChunkOut enum).
 CHUNK_OUT = ("held", "retired", "tombstone")
-# The kernel's clock64() split of a chunk (the .cu's Phase enum).
+# The kernel's clock64() split of a chunk (the .cu's Phase enum), made
+# only by the stamped build, KERNEL_STAMPED.
 PHASES = ("load", "rx", "redirect", "stage345", "commit", "satw", "decay",
           "retire", "policy")
 # CTAs per design point: the leader runs the chunk loop, all of them share
@@ -495,6 +496,10 @@ _I32 = torch.int32
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
     (PTR,) * 25 + (INT,) * 13)
+# The same source with clock64() stamps per phase: measurement only.
+KERNEL_STAMPED = CudaKernel(
+    "chunk_step", "chunk_step_launch", KERNEL.argtypes,
+    defines=("-DREPRO_PHASE_STAMPS",))
 
 
 class KernelOut(NamedTuple):
@@ -566,7 +571,7 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
     ``deaths`` int32[B, nd, 2]; the counters from :func:`pack_counters`,
     int32[B, 10] and float32[B, 6]. ``phases``, when given, is an
     int64[B, 9] to which the leading block's thread 0 adds the cycles of
-    each of PHASES.
+    each of PHASES: the launch then goes to :data:`KERNEL_STAMPED`.
     """
     dev = table.device
     if not table.is_cuda:
@@ -617,7 +622,7 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         out(b, len(SC_FIELDS)), out(b, nb), out(b, n // chunk, len(CHUNK_OUT)),
         *(out(b, n) for _ in range(5)), out(b, len(COUNTER_INT_FIELDS)),
         out(b, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32))
-    KERNEL.launch(
+    (KERNEL if phases is None else KERNEL_STAMPED).launch(
         dev,
         table.data_ptr(), page.data_ptr(), offset.data_ptr(),
         is_write.data_ptr(), size.data_ptr(), valid.data_ptr(),
@@ -653,11 +658,11 @@ def use_chunk_step_kernel(cfg: EmulatorConfig, table: torch.Tensor) -> bool:
 def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
                table: torch.Tensor, params: RuntimeParams, sc: StepScalars,
                bank_free: torch.Tensor, page, offset, is_write, size, valid,
-               faults: faults_lib.FaultPlan | None = None, phases=None):
+               faults: faults_lib.FaultPlan | None = None):
     """THE chunk step — the CUDA kernel (a launch of one chunk) or the
     scan path, resolved by :func:`use_chunk_step_kernel` (bitwise equal
     either way). Signature and returns as :func:`step_ref`; ``table`` is
-    updated in place; ``phases`` as in :func:`chunk_step_cuda`."""
+    updated in place."""
     if faults is None:
         faults = faults_lib.FaultPlan.empty(device=table.device)
     if not use_chunk_step_kernel(cfg, table):
@@ -672,7 +677,7 @@ def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
         torch.zeros(1, len(COUNTER_INT_FIELDS), dtype=_I32,
                     device=table.device),
         torch.zeros(1, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32,
-                    device=table.device), phases=phases)
+                    device=table.device))
     held, retired, tombstone = out.chunks[0, 0]
     outs = {"returns": out.returns[0], "device": out.device[0],
             "latency": out.latency[0], "held": held,

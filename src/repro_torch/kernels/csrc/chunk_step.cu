@@ -119,7 +119,10 @@ enum CounterFloat {
 };
 // What each chunk reports (kernels/chunk_step.py: CHUNK_OUT).
 enum ChunkOut { CO_HELD, CO_RETIRED, CO_TOMBSTONE, N_CHUNK_OUT };
-// Phases of the clock64() split of a chunk (kernels/chunk_step.py: PHASES).
+// Phases of the clock64() split of a chunk (kernels/chunk_step.py: PHASES),
+// stamped only in a build with -DREPRO_PHASE_STAMPS: there the leading
+// CTA's thread 0 adds each phase's cycles to `phases`, which must not be
+// null; the release build has no stamps and takes a null `phases`.
 enum Phase { PH_LOAD, PH_RX, PH_REDIRECT, PH_STAGE345, PH_COMMIT, PH_SATW,
              PH_DECAY, PH_RETIRE, PH_POLICY, N_PHASES };
 
@@ -148,7 +151,8 @@ struct Args {
   int* lat_out;
   int* poi_out;
   int* inj_out;
-  long long* phases;     // int64[B, N_PHASES] cycles per phase, or null
+  long long* phases;     // int64[B, N_PHASES] cycles per phase (stamped
+                         // build only)
   int n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index, subblock,
       spp, charge;
 };
@@ -497,15 +501,19 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
                                           : imax(a.charge, 1));
   cluster.sync();   // every CTA has started before any remote access
 
+#ifdef REPRO_PHASE_STAMPS
   long long ph_acc[N_PHASES] = {0};
   long long t_prev = clock64();
-  const bool stamp = lead && a.phases != nullptr && tid == 0;
+  const bool stamp = lead && tid == 0;
 #define STAMP(ph)                      \
   if (stamp) {                         \
     const long long t_now = clock64(); \
     ph_acc[ph] += t_now - t_prev;      \
     t_prev = t_now;                    \
   }
+#else
+#define STAMP(ph)
+#endif
 
   for (int c = 0; c < a.n_chunks; ++c) {
     const int chunk_idx = wadd(chunk0, (unsigned)c);
@@ -1253,9 +1261,11 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   if (tid < N_COUNTER_FLOATS)
     a.ctr_float_out[bi * N_COUNTER_FLOATS + tid] = cf[tid];
   for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
+#ifdef REPRO_PHASE_STAMPS
   if (stamp)
     for (int k = 0; k < N_PHASES; ++k)
       a.phases[bi * N_PHASES + k] += ph_acc[k];
+#endif
 #undef STAMP
 }
 
@@ -1277,6 +1287,11 @@ extern "C" int chunk_step_launch(
       chunk <= 0 || n_chunks <= 0 || n_banks <= 0 || 2 * n_banks > 0xffff ||
       nt <= 0 || nd <= 0 || n_reg <= 0 || subblock <= 0)
     return (int)cudaErrorInvalidValue;
+#ifdef REPRO_PHASE_STAMPS
+  if (phases == nullptr) return (int)cudaErrorInvalidValue;
+#else
+  if (phases != nullptr) return (int)cudaErrorInvalidValue;
+#endif
   const size_t smem =
       sizeof(int) * ((size_t)15 * chunk + 5 * ((size_t)chunk + 10) +
                      2 * (size_t)n_banks * (1 + ((size_t)chunk + 31) / 32));

@@ -162,13 +162,15 @@ POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
             "wear_level")
 
 
-def _chunk_scenario(dev, policy, n_chunks=11, seed=0):
+def _chunk_scenario(dev, policy, n_chunks=11, seed=0, slow="3dxpoint"):
     """small_platform(chunk=16) from an adversarial state (pins, a
     poisoned page, a swap in flight), a few pages out of range, endurance
-    retirement on, and a fault plan of deaths and transients."""
+    retirement on, and a fault plan of deaths and transients; ``slow``
+    names the slow tier's technology."""
     cfg = tcore.small_platform(chunk=16, policy=policy, hot_threshold=2,
                                decay_every=4, endurance_budget=6,
-                               write_weight=3)
+                               write_weight=3,
+                               slow=tcore.TECHNOLOGIES[slow])
     params = cfg.runtime(dev)
     st = tcore.init_state(cfg, params)
     nf = cfg.n_fast_pages
@@ -232,6 +234,32 @@ def test_chunk_step_one_launch_equals_the_plain_loop(cuda_device, policy):
     _assert_equal(got, want)
     assert int((want[1]["retired_page"] >= 0).sum()) > 0
     assert int(want[0].counters.transient_faults) > 0
+
+
+def _read_sums(cfg, trace, valid, latency):
+    """Each chunk's integer sum of its read latencies."""
+    reads = (~trace.is_write & valid).reshape(-1, cfg.chunk)
+    lat = latency.reshape(-1, cfg.chunk).to(torch.int64)
+    return torch.where(reads, lat, 0).sum(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+def test_chunk_step_counters_exact_past_2_24(cuda_device, policy):
+    """A slow tier of hard disks: a chunk's read latencies sum past 2^24,
+    where float32 sums in different orders differ; the kernel's counter
+    fold equals the plain loop's (each chunk's exact sum rounded once)
+    bit for bit."""
+    cfg, params, st, trace, valid, plan = _chunk_scenario(cuda_device,
+                                                          policy, slow="hdd")
+    reg = PolicyRegistry.snapshot()
+    got = t_emu._emulate_impl(cfg.with_(chunk_step_kernel="on"), reg, trace,
+                              valid, t_emu.clone_state(st), params, plan)
+    want = t_emu._emulate_impl(cfg, reg, trace, valid, t_emu.clone_state(st),
+                               params, plan, seq=True)
+    assert int(_read_sums(cfg, trace, valid,
+                          want[1]["latency"]).max()) > 2 ** 24
+    _assert_equal(got, want)
 
 
 @pytest.mark.cuda

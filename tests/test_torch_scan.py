@@ -452,6 +452,31 @@ def test_one_launch_route_writes_the_run_into_the_passed_state(
         assert torch.equal(got.outs[k], want.outs[k]), k
 
 
+@pytest.mark.parametrize("policy", POLICIES)
+def test_loop_route_writes_the_run_into_the_passed_state(policy):
+    """``Engine.run`` through the per-chunk loop (the CPU route): the
+    final state and counters are written into the tensors of the state
+    passed in, as on the one-launch route, and equal a run on a clone."""
+    _, cfg, js, arrays, jplan = _scenario(policy)
+    eng = repro_torch.Engine(cfg, device="cpu")
+    trace = tcore.Trace(*map(T, arrays[:4]))
+    valid, plan, start = T(arrays[4]), t_plan(jplan), t_state(js)
+    before = [t.clone() for t in _flat(start)]
+    want = eng.run(trace, valid=valid, state=start, donate=False,
+                   faults=plan)
+    for a, b in zip(_flat(start), before):
+        assert torch.equal(a, b)
+    state = clone_state(start)
+    ptrs = [t.data_ptr() for t in _flat(state)]
+    got = eng.run(trace, valid=valid, state=state, faults=plan)
+    assert [t.data_ptr() for t in _flat(got.state)] == ptrs
+    for a, b, w in zip(_flat(state), _flat(got.state), _flat(want.state)):
+        assert a is b
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert int(state.chunk_idx) == int(start.chunk_idx) + len(valid) // \
+        cfg.chunk
+
+
 def test_chunk_step_launch_of_one_chunk(monkeypatch):
     """``chunk_step`` on the kernel route (one chunk per launch, its
     kernel replaced by :func:`plain_kernel`) against ``step_ref``."""
