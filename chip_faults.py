@@ -9,8 +9,9 @@ Each planted fault is one edit to one CUDA source, made in a temporary
 copy of ``src/`` and ``chip_smoke.py``, never in the checkout, and run in
 a process of its own. A fault in the chunk-step kernel (a warp's carry
 dropped in the block scan, a bank lane's register not carried to the
-next chunk, one chunk's fold of a float counter skipped, one cluster
-CTA's share of the decay pass skipped) runs phase 4
+next chunk, one chunk's fold of a float counter skipped, a chunk's sums
+added in float32, which only a chunk summing past 2^24 shows, one
+cluster CTA's share of the decay pass skipped) runs phase 4
 (``chip_smoke.check_chunk_step``), which must stop at a mismatch. A fault
 in a model kernel (a skipped kv tile in either flash path, a split
 dropped by the decode combine, a mask edge moved by one key, a dropped
@@ -51,6 +52,11 @@ FAULTS = [
      "        cf[k] = __fadd_rn(cf[k], add);",
      "        if (c != 1 || k != SUM_READ_LATENCY)\n"
      "          cf[k] = __fadd_rn(cf[k], add);"),
+    ("chunk step: a chunk's integer sums added in float32 (warp and block "
+     "tree order)", "chunk_step", CSRC + "chunk_step.cu",
+     "      x.s[k] += __shfl_xor_sync(FULL, x.s[k], off);",
+     "      x.s[k] = (long long)__fadd_rn(\n"
+     "          (float)x.s[k], (float)__shfl_xor_sync(FULL, x.s[k], off));"),
     ("chunk step: cluster CTA 1's share of the decay pass skipped",
      "chunk_step", CSRC + "chunk_step.cu",
      "      for (int r0 = row_lo + tid; r0 < row_hi; r0 += UNROLL * nth) {\n"
