@@ -56,6 +56,10 @@ Phases, each printing its lines in order:
 7. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --only rwkv_scan`` (or ``flash_attention``,
+``decode_attention``) builds that one kernel and runs its phase-6 cases
+alone, for work on one kernel; it prints no result line.
+
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
 Only the port is imported: nothing of JAX or of the ``repro`` package.
@@ -76,6 +80,10 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, NVIDIA's data sheet
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, and fp32
 # outside them (TF32 would break the float32 tolerances).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# A float32 product can also run exactly enough on the TF32 tensor cores
+# (495 TFLOP/s dense) as three TF32 products (3xTF32): 165e12 float32
+# FLOP/s, the least time of the RWKV kernel's float32 products.
+FP32_3XTF32_FLOPS = 495e12 / 3
 POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
             "wear_level")
 
@@ -150,6 +158,28 @@ def device_and_wall_ms(torch, fn, iters: int, name: str | None = None
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / iters
     return start.elapsed_time(end) / iters, wall
+
+
+def device_ms_by_kernel(torch, fn, iters: int, names) -> dict:
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    names contain each of ``names`` (one CUPTI trace, ``torch.profiler``);
+    all 0 when the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        for n in names:
+            if n in ev.key:
+                out[n] += t / 1e3 / iters
+    return out
 
 
 def kernel_resources(log: str) -> list[tuple[str, int, int]]:
@@ -713,9 +743,11 @@ def attention_pairs(sq, skv, causal, window) -> int:
     return total
 
 
-def bound(flops: float, byts: float, dtype: str) -> tuple[float, str]:
-    """The least time (ms) for ``flops`` and ``byts``, and which bounds."""
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound(flops: float, byts: float, dtype: str,
+          rate: float | None = None) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` (at ``rate`` FLOP/s, by default
+    the card's peak for ``dtype``) and ``byts``, and which bounds."""
+    t_ops = flops / (rate or PEAK_FLOPS[dtype])
     t_mem = byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
                                      else "bytes")
@@ -739,6 +771,7 @@ class Case(NamedTuple):
     library: Callable | None
     flops: float
     byts: float
+    rate: float | None = None     # FLOP/s of the bound, if not the peak
 
 
 def randn(torch, dev, seed, shape, dtype):
@@ -848,7 +881,8 @@ def rwkv_case(torch, dev, ops, rw, label, seed, dtype):
                 lambda: rw.rwkv_chunk_scan_cuda(r, k, v, logw, u, c),
                 lambda: rw.rwkv_scan_plain(r, k, v, logw, u, c)[0], None,
                 b * h * n * per_chunk,
-                nbytes(r, k, v, logw, u) + b * h * s * d * 4)
+                nbytes(r, k, v, logw, u) + b * h * s * d * 4,
+                FP32_3XTF32_FLOPS if dtype == "float32" else None)
 
 
 def model_cases(torch, dev, ops, fa, da, rw) -> list:
@@ -918,10 +952,10 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
     if variants["wgmma"] != bf16:
         raise Mismatch(f"{variants['wgmma']} of the {bf16} bf16 flash cases "
                        "took the wgmma path")
-    sass = sass_counts(fa.KERNEL.library)
-    if sass is None:
+    sass = sass_counts(fa.KERNEL.library) if bf16 else None
+    if bf16 and sass is None:
         print("  flash SASS: not checked (no cuobjdump found)")
-    else:
+    elif bf16:
         print(f"  flash SASS: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} "
               "UTMALDG instructions")
         if sass["HGMMA"] == 0:
@@ -939,7 +973,8 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
         ms = timer(case.kernel_call)
         plain_ms = timer(case.plain)
         lib_ms = timer(case.library) if case.library else None
-        bound_ms, bound_by = bound(case.flops, case.byts, case.dtype)
+        bound_ms, bound_by = bound(case.flops, case.byts, case.dtype,
+                                   case.rate)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         print(f"  {case.kernel:16s} {case.config:12s} {case.label:30s} "
               f"{case.dtype}: max|err| {err:.3e} ({over:.3f} of its "
@@ -951,6 +986,13 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
         if over > 1.0:
             raise Mismatch(f"{case.kernel} {case.label}: max|err| {err:.3e} "
                            f"exceeds its allowance")
+        if case.kernel == "rwkv_scan" and case.dtype == "bfloat16":
+            split = device_ms_by_kernel(torch, case.kernel_call, 20,
+                                        rw.LAUNCHES)
+            print("    its launches (CUPTI, 20 calls): " + (", ".join(
+                f"{n} {t:.4f} ms" for n, t in split.items())
+                if any(split.values()) else "not measured (no device time "
+                "in the trace)"), flush=True)
         results.append({"case": case, "err": err, "ms": ms,
                         "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by})
@@ -980,7 +1022,13 @@ def model_kernel_rows(m6) -> list:
     return rows
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("flash_attention", "decode_attention",
+                             "rwkv_scan"):
+        print("usage: chip_smoke.py [--only flash_attention|decode_attention"
+              "|rwkv_scan]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1016,6 +1064,8 @@ def main() -> int:
         t0 = time.perf_counter()
         all_kernels = (hl.KERNEL, cs.KERNEL, fa.KERNEL, da.KERNEL, rw.KERNEL,
                        cs.KERNEL_STAMPED)
+        if only:
+            all_kernels = tuple(k for k in all_kernels if k.name == only)
         build.build_all(all_kernels)
         print(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
               f"{build.BUILD_DIR}", flush=True)
@@ -1024,6 +1074,14 @@ def main() -> int:
                   f"registers / spilled "
                   f"bytes: " + ", ".join(f"{n} {r}/{sp}" for n, r, sp in
                                          kernel_resources(k.build_log)))
+
+        if only:
+            print(f"[6] {only} at full width", flush=True)
+            cases = [c for c in model_cases(torch, dev, ops, fa, da, rw)
+                     if c.kernel == only]
+            check_model_kernels(torch, ref, fa, da, rw, cases)
+            print(card_line())
+            return 0
 
         print("[3] kernel A (hmmu_lookup) against its plain version",
               flush=True)
@@ -1077,4 +1135,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,196 +18,471 @@
 //   state = state * exp(cum[C-1])[:, None] + kt^T v
 // The final state is not returned (the TPU kernel does not return it).
 //
-// Design. One block of 256 threads per (b, h). The fp32 state lives in
-// shared memory across a loop over the chunks, which takes the place of
-// the TPU's sequential grid axis. Each chunk's r, k, v and logw are loaded
-// once into shared memory as fp32 (row stride D + 1, no bank conflicts);
-// the prefix sum runs one thread per key channel; qp overwrites
-// r, kp overwrites k once kt is formed, and att reuses the prefix sum's
-// buffer. Every product is an fp32 FMA loop; exp is expf (no fast math).
-// At rwkv6 widths (C = 128, Dk = Dv = 64) the block holds ~212 KB of
-// shared memory.
+// Design: the chunks in parallel, over three launches on one stream.
+//   1. chunk_state_kernel, one block per (b*h, chunk) but the last: the
+//      chunk's own state term U_n = kt^T v [Dk, Dv] and its total decay
+//      tot_n = cum[C-1] [Dk], into fp32 scratch.
+//   2. state_scan_kernel, one thread per (b*h, state element): walks the
+//      chunks in order, S_0 = 0, S_{n+1} = S_n * exp(tot_n) + U_n, and
+//      writes S_n, the state entering chunk n, over U_n.
+//   3. chunk_out_kernel, one block per (b*h, chunk): forms qp and kp
+//      again from r, k and logw, then out = (att v + diag * v) + qp S_n.
+// Each block of launches 1 and 3 holds its chunk in shared memory as fp32
+// rows (stride D + 4, zero-padded to C % 16 == 0, Dk % 16 == 0,
+// Dv % 8 == 0) and splits the products over 4 warps: a warp owns 16 rows
+// of the output (query rows in launch 3, key channels in launch 1) and 64
+// of its columns at a time; each lane holds a 4 x 8 tile of them in
+// registers, so every FMA reads registers and each shared-memory read
+// feeds 8 or 4 of them. att lives in registers only: a lane's 4 x 8 tile
+// of a 16 x 64 panel reaches the lanes that need it by shuffles. The
+// prefix sum runs one thread per (16-token block, key channel): the block
+// totals first, then each thread folds the totals before its block in
+// order and rescans its block. exp is expf (no fast math).
 //
-// What bounds it on the H100: bytes. Each token's four rows are read once
-// and its output row written once (~200 MB at one rwkv6 layer over 4,096
-// tokens in bf16) against ~8.6 GFLOP of products, below the ridge point
-// even at the bf16 rate. This first kernel is far from that bound: it runs
-// only B * H blocks (64 at rwkv6 widths, half the SMs) and does its
-// products as fp32 FMAs out of shared memory; tensor-core tiles and more
-// blocks per head (a parallel pass over chunks, then a scan of states) are
-// the later steps.
+// What bounds it on the H100: bytes in bf16 (each token's four rows read
+// once and its output row written once, ~200 MB at one rwkv6 layer over
+// 4,096 tokens, against ~8.6 GFLOP of products), operations in fp32 at
+// the CUDA cores' rate. The design's own traffic adds the scratch (U_n
+// written and read, S_n written and read: 4 x Dk x Dv x 4 bytes per chunk
+// and head, ~134 MB at rwkv6-7b) and a second read of k, v and logw.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;     // launches 1 and 3: 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kScanThreads = 256;  // launch 2
 constexpr int kScanBase = 16;     // block of the prefix sum
 constexpr int kMaxChunk = kScanBase * kScanBase;
+constexpr int kPanel = 64;        // output columns a warp holds at a time
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-size_t smem_floats(int c, int dk, int dv) {
-  size_t ldk = dk + 1, ldv = dv + 1, lda = c + 1;
-  size_t cum_att = c * lda > c * ldk ? c * lda : c * ldk;
-  return 3 * c * ldk            // r -> qp, k -> kp, kt
-         + c * ldv              // v
-         + cum_att              // prefix sum, then att
-         + (size_t)dk * ldv     // state
-         + c + 2 * (size_t)dk;  // diag, total decay, u
+// The padded sizes and strides of one chunk's shared-memory tiles.
+struct Dims {
+  int c, dk, dv;      // real sizes
+  int cp, dkp, dvp;   // padded: C % 16, Dk % 16, Dv % 8
+  int ldk, ldv;       // row strides (floats): D + 4
+  int lvw;            // max(ldk, ldv): the buffer that holds logw, then v
+  int nb;             // 16-token blocks of the prefix sum
+};
+
+__host__ __device__ inline Dims make_dims(int c, int dk, int dv) {
+  Dims m;
+  m.c = c;
+  m.dk = dk;
+  m.dv = dv;
+  m.cp = (c + 15) / 16 * 16;
+  m.dkp = (dk + 15) / 16 * 16;
+  m.dvp = (dv + 7) / 8 * 8;
+  m.ldk = m.dkp + 4;
+  m.ldv = m.dvp + 4;
+  m.lvw = m.ldk > m.ldv ? m.ldk : m.ldv;
+  m.nb = m.cp / kScanBase;
+  return m;
 }
 
+// Launch 3's shared memory: qp and kp [cp][ldk], logw and then v
+// [cp][lvw], diag [cp], the prefix sum's block totals [nb][dk]. Launch 1
+// holds less (kt, logw and then v, the totals).
+size_t out_smem_floats(const Dims& m) {
+  return 2 * (size_t)m.cp * m.ldk + (size_t)m.cp * m.lvw + m.cp +
+         (size_t)m.nb * m.dk;
+}
+size_t state_smem_floats(const Dims& m) {
+  return (size_t)m.cp * m.ldk + (size_t)m.cp * m.lvw + (size_t)m.nb * m.dk;
+}
+
+// 16 bytes of T as fp32 at dst (16-byte aligned).
+__device__ __forceinline__ void store16(const uint4& x, float* dst, float) {
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __uint_as_float(x.x), __uint_as_float(x.y), __uint_as_float(x.z),
+      __uint_as_float(x.w));
+}
+__device__ __forceinline__ void store16(const uint4& x, float* dst,
+                                        __nv_bfloat16) {
+  // a bf16 is the high half of its fp32
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+      __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(
+      __uint_as_float(x.z << 16), __uint_as_float(x.z & 0xffff0000u),
+      __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xffff0000u));
+}
+
+// Rows [c][w] of one chunk (row stride w in device memory) into
+// dst [cp][ld] as fp32, zero-padded to [cp][wp]. 16-byte loads, eight
+// in flight per thread, where the rows allow them.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ src, float* dst, int w,
+                          int wp, int ld, const Dims& m) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kBatch = 8;
+  if (w == wp && w % V == 0 &&
+      reinterpret_cast<unsigned long long>(src) % 16 == 0) {
+    const int per_row = w / V, n = m.c * per_row;
+    const uint4* src16 = reinterpret_cast<const uint4*>(src);
+    for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
+      uint4 x[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q)
+        if (i0 + q * kThreads < n) x[q] = __ldg(src16 + i0 + q * kThreads);
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int i = i0 + q * kThreads;
+        if (i < n)
+          store16(x[q], dst + (i / per_row) * ld + (i % per_row) * V, T());
+      }
+    }
+    for (int i = m.c * wp + threadIdx.x; i < m.cp * wp; i += kThreads)
+      dst[(i / wp) * ld + i % wp] = 0.f;
+    return;
+  }
+  for (int i = threadIdx.x; i < m.cp * wp; i += kThreads) {
+    int t = i / wp, e = i % wp;
+    dst[t * ld + e] = (t < m.c && e < w) ? to_f(src[(long long)t * w + e])
+                                         : 0.f;
+  }
+}
+
+// The prefix sum of logw over one chunk (s_w [cp][ldk], fp32), in XLA's
+// order: each 16-token block summed in order ("within"), and the blocks'
+// totals folded in order before it ("before"); cum = within + before.
+// First the block totals into s_blk [nb][dk]; then, after a barrier,
+// fn(t, d, lw, cum, tot) for every token t < c and channel d, from the
+// thread that owns (t / 16, d). tot is cum[c-1]. Begins and ends with a
+// barrier.
+template <typename Fn>
+__device__ void chunk_prefix(const float* s_w, float* s_blk, const Dims& m,
+                             Fn fn) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < m.nb * m.dk; i += kThreads) {
+    const int j = i / m.dk, d = i % m.dk;
+    const float* x = s_w + j * kScanBase * m.ldk + d;
+    float within = x[0];
+    for (int q = 1; q < kScanBase && j * kScanBase + q < m.c; ++q)
+      within = within + x[q * m.ldk];
+    s_blk[j * m.dk + d] = within;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m.nb * m.dk; i += kThreads) {
+    const int j = i / m.dk, d = i % m.dk;
+    float before = 0.f, tot = s_blk[d];
+    for (int jj = 1; jj < m.nb; ++jj) {
+      if (jj == j) before = tot;
+      tot = tot + s_blk[jj * m.dk + d];
+    }
+    if (m.nb == 1) tot = tot + 0.f;   // cum[c-1] = within + 0, as below
+    const float* x = s_w + j * kScanBase * m.ldk + d;
+    float within = 0.f;
+    for (int q = 0; q < kScanBase && j * kScanBase + q < m.c; ++q) {
+      const float lw = x[q * m.ldk];
+      within = q == 0 ? lw : within + lw;
+      fn(j * kScanBase + q, d, lw, within + before, tot);
+    }
+  }
+  __syncthreads();
+}
+
+// Launch 1: U_n = kt^T v and tot_n for chunk n of head bh (n < chunks-1).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ logw,
-                 const float* __restrict__ u, float* __restrict__ out,
-                 int h, int s, int dk, int dv, int c) {
+chunk_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ logw, float* __restrict__ su,
+                   float* __restrict__ stot, int s, int dk, int dv, int c) {
   extern __shared__ float smem[];
-  const int ldk = dk + 1, ldv = dv + 1, lda = c + 1;
-  float* s_qp = smem;                       // [c][ldk] r, then qp
-  float* s_k = s_qp + c * ldk;              // [c][ldk] k, then kp
-  float* s_kt = s_k + c * ldk;              // [c][ldk]
-  float* s_v = s_kt + c * ldk;              // [c][ldv]
-  float* s_ca = s_v + c * ldv;              // [c][ldk] cum, then [c][lda] att
-  const int n_ca = c * lda > c * ldk ? c * lda : c * ldk;
-  float* s_st = s_ca + n_ca;                // [dk][ldv] state
-  float* s_diag = s_st + dk * ldv;          // [c]
-  float* s_tot = s_diag + c;                // [dk]
-  float* s_u = s_tot + dk;                  // [dk]
+  const Dims m = make_dims(c, dk, dv);
+  const int nc = s / c, nu = nc - 1;
+  const int bh = blockIdx.x / nu, n = blockIdx.x % nu;
+  float* s_kt = smem;                       // [cp][ldk]
+  float* s_v = s_kt + m.cp * m.ldk;         // [cp][lvw]: logw, then v
+  float* s_blk = s_v + m.cp * m.lvw;        // [nb][dk]
+  const long long tok = (long long)bh * s + (long long)n * c;
+  float* tot_out = stot + ((long long)bh * nc + n) * dk;
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const long long base_k = (long long)bh * s * dk;
-  const long long base_v = (long long)bh * s * dv;
-  for (int i = tid; i < dk * dv; i += kThreads)
-    s_st[(i / dv) * ldv + i % dv] = 0.f;
-  for (int i = tid; i < dk; i += kThreads) s_u[i] = u[(bh % h) * dk + i];
+  load_rows(k + tok * dk, s_kt, dk, m.dkp, m.ldk, m);   // k, then kt
+  load_rows(logw + tok * dk, s_v, dk, m.dkp, m.ldk, m);
+  chunk_prefix(s_v, s_blk, m,
+               [&](int t, int d, float, float cum, float tot) {
+                 s_kt[t * m.ldk + d] *= expf(tot - cum);
+                 if (t == 0) tot_out[d] = tot;
+               });
+  load_rows(v + tok * dv, s_v, dv, m.dvp, m.ldv, m);
+  __syncthreads();
 
-  for (int n0 = 0; n0 < s; n0 += c) {
-    __syncthreads();                        // the last chunk is consumed
-    for (int i = tid; i < c * dk; i += kThreads) {
-      int t = i / dk, d = i % dk;
-      long long g = base_k + (long long)(n0 + t) * dk + d;
-      s_qp[t * ldk + d] = to_f(r[g]);
-      s_k[t * ldk + d] = to_f(k[g]);
-      s_ca[t * ldk + d] = to_f(logw[g]);
+  // U [dk][dv] = kt^T v. Item: 16 channels x 64 columns; lane (rg, cg)
+  // holds channels rg + 4i, columns cg + 8j.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  const int n_pan = (m.dvp + kPanel - 1) / kPanel;
+  float* u_out = su + ((long long)bh * nc + n) * dk * dv;
+  for (int it = warp; it < (m.dkp / 16) * n_pan; it += kWarps) {
+    const int d0 = (it / n_pan) * 16, e0 = (it % n_pan) * kPanel;
+    float acc[4][8] = {};
+    for (int t = 0; t < m.cp; ++t) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = s_kt[t * m.ldk + d0 + rg + 4 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        b[j] = e0 + 8 * j < m.dvp ? s_v[t * m.ldv + e0 + cg + 8 * j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    for (int i = tid; i < c * dv; i += kThreads) {
-      int t = i / dv, e = i % dv;
-      s_v[t * ldv + e] = to_f(v[base_v + (long long)(n0 + t) * dv + e]);
-    }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int d = d0 + rg + 4 * i, e = e0 + cg + 8 * j;
+        if (d < dk && e < dv) u_out[(long long)d * dv + e] = acc[i][j];
+      }
+  }
+}
 
-    // diag_t = sum_d (r * k) * u, before r becomes qp.
-    for (int t = tid; t < c; t += kThreads) {
-      float acc = 0.f;
-      for (int d = 0; d < dk; ++d)
-        acc = fmaf(s_qp[t * ldk + d] * s_k[t * ldk + d], s_u[d], acc);
-      s_diag[t] = acc;
+// Launch 2: S_n over U_n, one thread per state element of one head.
+__global__ void __launch_bounds__(kScanThreads)
+state_scan_kernel(float* __restrict__ su, const float* __restrict__ stot,
+                  int nc, int dk, int dv) {
+  const int per_head = (dk * dv + kScanThreads - 1) / kScanThreads;
+  const int bh = blockIdx.x / per_head;
+  const int i = (blockIdx.x % per_head) * kScanThreads + threadIdx.x;
+  if (i >= dk * dv) return;
+  const int d = i / dv;
+  float* p = su + (long long)bh * nc * dk * dv + i;
+  const float* tot = stot + (long long)bh * nc * dk + d;
+  const long long step = (long long)dk * dv;
+  float st = 0.f;
+  for (int n0 = 0; n0 < nc; n0 += 8) {     // the loads of 8 chunks first
+    float un[8], wn[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int n = n0 + q;
+      un[q] = n + 1 < nc ? p[n * step] : 0.f;
+      wn[q] = n + 1 < nc ? tot[(long long)n * dk] : 0.f;
     }
-    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int n = n0 + q;
+      if (n < nc) p[n * step] = st;
+      if (n + 1 < nc) st = st * expf(wn[q]) + un[q];
+    }
+  }
+}
 
-    // Prefix sum, one thread per key channel, in blocks of kScanBase
-    // (the plain version's order; c <= 256, so the block totals need one
-    // in-order level); qp in place of r.
-    for (int d = tid; d < dk; d += kThreads) {
-      float within = 0.f, before = 0.f, totals = 0.f, cum = 0.f;
-      for (int t = 0; t < c; ++t) {
-        float lw = s_ca[t * ldk + d];
-        within = (t % kScanBase == 0) ? lw : within + lw;
-        cum = within + before;
-        s_ca[t * ldk + d] = cum;
-        s_qp[t * ldk + d] *= expf(cum - lw);
-        if (t % kScanBase == kScanBase - 1) {
-          totals = (t < kScanBase) ? within : totals + within;
-          before = totals;
+// Launch 3: out for chunk n of head bh.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ logw,
+                 const float* __restrict__ u, const float* __restrict__ su,
+                 float* __restrict__ out, int h, int s, int dk, int dv,
+                 int c) {
+  extern __shared__ float smem[];
+  const Dims m = make_dims(c, dk, dv);
+  const int nc = s / c;
+  const int bh = blockIdx.x / nc, n = blockIdx.x % nc;
+  float* s_qp = smem;                       // [cp][ldk]
+  float* s_kp = s_qp + m.cp * m.ldk;        // [cp][ldk]
+  float* s_v = s_kp + m.cp * m.ldk;         // [cp][lvw]: logw, then v
+  float* s_diag = s_v + m.cp * m.lvw;       // [cp]
+  float* s_blk = s_diag + m.cp;             // [nb][dk]
+  const long long tok = (long long)bh * s + (long long)n * c;
+  const float* uh = u + (long long)(bh % h) * dk;
+  const float* st = su + ((long long)bh * nc + n) * dk * dv;   // S_n
+  float* oc = out + tok * dv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows(r + tok * dk, s_qp, dk, m.dkp, m.ldk, m);   // r, then qp
+  load_rows(k + tok * dk, s_kp, dk, m.dkp, m.ldk, m);   // k, then kp
+  load_rows(logw + tok * dk, s_v, dk, m.dkp, m.ldk, m);
+  __syncthreads();
+  // diag_t = sum_d (r * k) * u: a warp per token.
+  for (int t = warp; t < m.cp; t += kWarps) {
+    float acc = 0.f;
+    for (int d = lane; d < dk; d += 32)
+      acc = fmaf(s_qp[t * m.ldk + d] * s_kp[t * m.ldk + d], uh[d], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) s_diag[t] = acc;
+  }
+  chunk_prefix(s_v, s_blk, m,
+               [&](int t, int d, float lw, float cum, float) {
+                 s_qp[t * m.ldk + d] *= expf(cum - lw);
+                 s_kp[t * m.ldk + d] *= expf(-cum);
+               });
+  load_rows(v + tok * dv, s_v, dv, m.dvp, m.ldv, m);
+  __syncthreads();
+
+  // Item: 16 query rows x 64 output columns; the rows are dealt to the
+  // warps in snake order (0..3, 7..4, ...) so that the long rows, which
+  // see more keys, spread over the warps. Lane (rg, cg) holds rows
+  // t0 + rg + 4i and columns cg + 8j of each 16 x 64 tile.
+  const int rg = lane / 8, cg = lane % 8;
+  const int n_rows = m.cp / 16;
+  for (int slot = warp; slot < (n_rows + kWarps - 1) / kWarps * kWarps;
+       slot += kWarps) {
+    const int q = slot / kWarps, pos = slot % kWarps;
+    const int rt = q * kWarps + (q % 2 ? kWarps - 1 - pos : pos);
+    if (rt >= n_rows) continue;
+    const int t0 = rt * 16;
+    for (int e0 = 0; e0 < m.dvp; e0 += kPanel) {
+    float o[4][8] = {};
+    // intra = att v over panels of 64 keys below the rows' end
+    for (int s0 = 0; s0 < t0 + 16; s0 += kPanel) {
+      float a[4][8] = {};
+      for (int d = 0; d < m.dkp; d += 4) {
+        float4 qv[4], kv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              &s_qp[(t0 + rg + 4 * i) * m.ldk + d]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kv[j] = s0 + 8 * j < m.cp
+                      ? *reinterpret_cast<const float4*>(
+                            &s_kp[(s0 + cg + 8 * j) * m.ldk + d])
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float x = a[i][j];
+            x = fmaf(qv[i].x, kv[j].x, x);
+            x = fmaf(qv[i].y, kv[j].y, x);
+            x = fmaf(qv[i].z, kv[j].z, x);
+            a[i][j] = fmaf(qv[i].w, kv[j].w, x);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (s0 + cg + 8 * j >= t0 + rg + 4 * i) a[i][j] = 0.f;  // s >= t
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (s0 + 8 * j >= t0 + 16 || s0 + 8 * j >= m.cp) break;
+        for (int cc = 0; cc < 8; ++cc) {
+          const int sk = s0 + 8 * j + cc;
+          float av[4], vv[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[i] = __shfl_sync(kFull, a[i][j], rg * 8 + cc);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            vv[jj] = e0 + 8 * jj < m.dvp
+                         ? s_v[sk * m.ldv + e0 + cg + 8 * jj] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+              o[i][jj] = fmaf(av[i], vv[jj], o[i][jj]);
         }
       }
-      s_tot[d] = cum;
     }
-    __syncthreads();
-
-    // kt, then kp in place of k.
-    for (int i = tid; i < c * dk; i += kThreads) {
-      int t = i / dk, d = i % dk;
-      float cum = s_ca[t * ldk + d];
-      float kv = s_k[t * ldk + d];
-      s_kt[t * ldk + d] = kv * expf(s_tot[d] - cum);
-      s_k[t * ldk + d] = kv * expf(-cum);
+    // + diag * v, then + qp S_n (S_n from device memory, [dk][dv]).
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + rg + 4 * i;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        if (e0 + 8 * jj < m.dvp)
+          o[i][jj] += s_diag[t] * s_v[t * m.ldv + e0 + cg + 8 * jj];
     }
-    __syncthreads();
-
-    // att[t][s] = qp_t . kp_s for s < t, else 0 (the prefix sum is dead).
-    for (int i = tid; i < c * c; i += kThreads) {
-      int t = i / c, j = i % c;
-      float acc = 0.f;
-      if (j < t)
-        for (int d = 0; d < dk; ++d)
-          acc = fmaf(s_qp[t * ldk + d], s_k[j * ldk + d], acc);
-      s_ca[t * lda + j] = acc;
+    float cr[4][8] = {};
+    for (int d = 0; d < dk; ++d) {
+      float qv[4], sv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = s_qp[(t0 + rg + 4 * i) * m.ldk + d];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int e = e0 + cg + 8 * jj;
+        sv[jj] = e < dv ? __ldg(&st[(long long)d * dv + e]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          cr[i][jj] = fmaf(qv[i], sv[jj], cr[i][jj]);
     }
-    __syncthreads();
-
-    // out = (att v + diag * v) + qp state
-    for (int i = tid; i < c * dv; i += kThreads) {
-      int t = i / dv, e = i % dv;
-      float intra = 0.f;
-      for (int j = 0; j < t; ++j)
-        intra = fmaf(s_ca[t * lda + j], s_v[j * ldv + e], intra);
-      intra = intra + s_diag[t] * s_v[t * ldv + e];
-      float carry = 0.f;
-      for (int d = 0; d < dk; ++d)
-        carry = fmaf(s_qp[t * ldk + d], s_st[d * ldv + e], carry);
-      out[base_v + (long long)(n0 + t) * dv + e] = intra + carry;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + rg + 4 * i;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int e = e0 + cg + 8 * jj;
+        if (t < c && e < dv) oc[(long long)t * dv + e] = o[i][jj] + cr[i][jj];
+      }
     }
-    __syncthreads();
-
-    // state = state * exp(total decay) + kt^T v
-    for (int i = tid; i < dk * dv; i += kThreads) {
-      int d = i / dv, e = i % dv;
-      float acc = 0.f;
-      for (int j = 0; j < c; ++j)
-        acc = fmaf(s_kt[j * ldk + d], s_v[j * ldv + e], acc);
-      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) + acc;
     }
   }
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* logw,
-           const void* u, void* out, int b, int h, int s, int dk, int dv,
-           int c, cudaStream_t stream) {
-  auto kernel = rwkv_scan_kernel<T>;
-  size_t smem = smem_floats(c, dk, dv) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           const void* u, void* out, void* su, void* stot, int b, int h,
+           int s, int dk, int dv, int c, cudaStream_t stream) {
+  const Dims m = make_dims(c, dk, dv);
+  const int nc = s / c;
+  const long long bh = (long long)b * h;
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* wt = static_cast<const T*>(logw);
+  float* sut = static_cast<float*>(su);
+  float* stt = static_cast<float*>(stot);
+  cudaError_t e;
+  if (nc > 1) {
+    size_t smem1 = state_smem_floats(m) * sizeof(float);
+    e = cudaFuncSetAttribute(chunk_state_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem1);
+    if (e != cudaSuccess) return (int)e;
+    chunk_state_kernel<T><<<(unsigned)(bh * (nc - 1)), kThreads, smem1,
+                            stream>>>(kt, vt, wt, sut, stt, s, dk, dv, c);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int per_head = (dk * dv + kScanThreads - 1) / kScanThreads;
+  state_scan_kernel<<<(unsigned)(bh * per_head), kScanThreads, 0, stream>>>(
+      sut, stt, nc, dk, dv);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  kernel<<<b * h, kThreads, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(logw),
-      static_cast<const float*>(u), static_cast<float*>(out), h, s, dk, dv,
-      c);
+  size_t smem3 = out_smem_floats(m) * sizeof(float);
+  e = cudaFuncSetAttribute(chunk_out_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem3);
+  if (e != cudaSuccess) return (int)e;
+  chunk_out_kernel<T><<<(unsigned)(bh * nc), kThreads, smem3, stream>>>(
+      rt, kt, vt, wt, static_cast<const float*>(u), sut,
+      static_cast<float*>(out), h, s, dk, dv, c);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (r, k, v and logw); u and out are fp32.
+// su: fp32 scratch [B*H, S/C, Dk, Dv]; stot: fp32 scratch [B*H, S/C, Dk].
 extern "C" int rwkv_scan_launch(const void* r, const void* k, const void* v,
                                 const void* logw, const void* u, void* out,
-                                int dtype, int b, int h, int s, int dk,
-                                int dv, int c, cudaStream_t stream) {
+                                void* su, void* stot, int dtype, int b,
+                                int h, int s, int dk, int dv, int c,
+                                cudaStream_t stream) {
   if (b <= 0 || h <= 0 || s <= 0 || dk <= 0 || dv <= 0 || c <= 0 ||
       c > kMaxChunk || s % c != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(r, k, v, logw, u, out, b, h, s, dk, dv, c, stream);
+    return launch<float>(r, k, v, logw, u, out, su, stot, b, h, s, dk, dv, c,
+                         stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(r, k, v, logw, u, out, b, h, s, dk, dv, c,
-                                 stream);
+    return launch<__nv_bfloat16>(r, k, v, logw, u, out, su, stot, b, h, s,
+                                 dk, dv, c, stream);
   return (int)cudaErrorInvalidValue;
 }

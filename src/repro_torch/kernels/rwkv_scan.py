@@ -15,29 +15,44 @@ import torch
 from ..models.rwkv import rwkv_chunk_scan as rwkv_scan_plain
 from .build import INT, PTR, CudaKernel, check_cuda, dtype_code
 
-__all__ = ["KERNEL", "rwkv_chunk_scan_cuda", "rwkv_scan_plain", "smem_bytes"]
+__all__ = ["KERNEL", "LAUNCHES", "rwkv_chunk_scan_cuda", "rwkv_scan_plain",
+           "smem_bytes"]
 
 KERNEL = CudaKernel("rwkv_scan", "rwkv_scan_launch",
-                    (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                     INT, INT))
+                    (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                     INT, INT, INT, INT))
+
+# The device kernels that one launch enqueues, in order (their names in a
+# profiler trace).
+LAUNCHES = ("chunk_state_kernel", "state_scan_kernel", "chunk_out_kernel")
 
 MAX_CHUNK = 256    # the kernel's prefix sum takes one level of 16-blocks
 
 
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def smem_bytes(c: int, dk: int, dv: int) -> int:
-    """Shared memory of one block at chunk ``c`` (``smem_floats`` in
-    ``csrc/rwkv_scan.cu``): a chunk of rwkv6 width (64) fits the H100's
-    227 KB up to ~135 tokens."""
-    ldk, ldv = dk + 1, dv + 1
-    return 4 * (3 * c * ldk + c * ldv + c * max(c + 1, ldk) + dk * ldv
-                + c + 2 * dk)
+    """Shared memory of one output block at chunk ``c`` (``out_smem_floats``
+    in ``csrc/rwkv_scan.cu``, the larger of the two chunk launches): qp
+    and kp [C, Dk + 4], logw and then v [C, max(Dk, Dv) + 4], diag [C] and
+    the prefix sum's block totals [C / 16, Dk], with C and Dk padded to 16
+    and Dv to 8. At rwkv6 width (64) chunk 256 fits the H100's 227 KB; at
+    width 128 a chunk past 128 tokens does not."""
+    cp, dkp, dvp = _up(c, 16), _up(dk, 16), _up(dv, 8)
+    return 4 * (2 * cp * (dkp + 4) + cp * (max(dkp, dvp) + 4) + cp
+                + cp // 16 * dk)
 
 
 def rwkv_chunk_scan_cuda(r, k, v, logw, u, chunk: int = 128) -> torch.Tensor:
     """Launch the CUDA kernel. r/k/logw [B,H,S,Dk], v [B,H,S,Dv] (all fp32
     or all bf16), u [H,Dk] (cast to fp32), contiguous on one CUDA device
     -> fp32 [B,H,S,Dv]. S must be a multiple of ``min(chunk, S)``, as in
-    the TPU kernel, and the chunk must fit one block's shared memory."""
+    the TPU kernel, and the chunk must fit one block's shared memory. One
+    counted launch enqueues the kernel's three device kernels; the
+    scratch they share (fp32 [B*H, S/C, Dk, Dv] and [B*H, S/C, Dk]) is
+    allocated here."""
     dev = check_cuda("rwkv_chunk_scan_cuda", r, k, v, logw, u)
     code = dtype_code("rwkv_chunk_scan_cuda", r, k, v, logw)
     if r.dim() != 4 or k.shape != r.shape or logw.shape != r.shape or \
@@ -65,7 +80,13 @@ def rwkv_chunk_scan_cuda(r, k, v, logw, u, chunk: int = 128) -> torch.Tensor:
                          "block may hold on this card")
     u = u.to(torch.float32)
     out = torch.empty((b, h, s, dv), dtype=torch.float32, device=dev)
+    # Each chunk's state term U_n, then the state S_n entering it, in place;
+    # and each chunk's total log-decay.
+    states = torch.empty((b * h, s // c, dk, dv), dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty((b * h, s // c, dk), dtype=torch.float32, device=dev)
     KERNEL.launch(dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  logw.data_ptr(), u.data_ptr(), out.data_ptr(), code, b, h,
-                  s, dk, dv, c)
+                  logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                  states.data_ptr(), decay.data_ptr(), code, b, h, s, dk, dv,
+                  c)
     return out

@@ -91,11 +91,23 @@ def test_decode_attention_kernel_equals_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rwkv_kernel_equals_plain(cuda_device, dtype):
-    for chunk, s, d in ((8, 64, 16), (128, 512, 64), (32, 96, 32)):
+    """Chunks 8, 16, 32 and 128 (padded to 16 rows where they are not a
+    multiple), widths 16, 24, 32 and 64, and 32 chunks of 128 at B 2 with
+    rwkv6-7b's decay on its slowest- and fastest-decaying heads."""
+    for b, chunk, s, d, decay in ((1, 8, 64, 16, "normal"),
+                                  (1, 128, 512, 64, "normal"),
+                                  (1, 32, 96, 32, "normal"),
+                                  (1, 16, 48, 24, "normal"),
+                                  (2, 128, 4096, 64, "model")):
         rng = np.random.default_rng(10)
-        r, k, v = _normal(11, cuda_device, DTYPES[dtype], *[(1, 4, s, d)] * 3)
-        logw = torch.from_numpy(-np.exp(rng.standard_normal((1, 4, s, d))
-                                        - 1.5).astype(np.float32))
+        r, k, v = _normal(11, cuda_device, DTYPES[dtype], *[(b, 4, s, d)] * 3)
+        if decay == "model":     # -exp(linspace(-6, -1) + N(0, 0.5^2))
+            base = np.linspace(-6.0, -1.0, 64 * d).reshape(64, 1, d)
+            lw = -np.exp(base[[0, 1, 62, 63]][None]
+                         + 0.5 * rng.standard_normal((b, 4, s, d)))
+        else:
+            lw = -np.exp(rng.standard_normal((b, 4, s, d)) - 1.5)
+        logw = torch.from_numpy(lw.astype(np.float32))
         logw = logw.to(cuda_device, DTYPES[dtype])
         u = torch.from_numpy((rng.standard_normal((4, d)) * 0.3)
                              .astype(np.float32)).to(cuda_device)
@@ -106,10 +118,10 @@ def test_rwkv_kernel_equals_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_rwkv_chunk_past_shared_memory_raises(cuda_device):
-    """Chunk 192 at rwkv6 width needs ~357 KB of shared memory: the
-    wrapper refuses it by name before the launch."""
-    r = torch.zeros((1, 1, 192, 64), device=cuda_device)
-    u = torch.zeros((1, 64), device=cuda_device)
+    """Chunk 192 at width 128 needs ~304 KB of shared memory in the output
+    launch: the wrapper refuses it by name before the launch."""
+    r = torch.zeros((1, 1, 192, 128), device=cuda_device)
+    u = torch.zeros((1, 128), device=cuda_device)
     before = t_rw.KERNEL.launches
     with pytest.raises(ValueError, match="shared memory"):
         t_rw.rwkv_chunk_scan_cuda(r, r, r, r, u, chunk=192)
