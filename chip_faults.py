@@ -14,8 +14,9 @@ added in float32, which only a chunk summing past 2^24 shows, one
 cluster CTA's share of the decay pass skipped) runs phase 4
 (``chip_smoke.check_chunk_step``), which must stop at a mismatch. A fault
 in a model kernel (a skipped kv tile in either flash path, a split
-dropped by the decode combine, a mask edge moved by one key, a dropped
-RWKV state update) runs the phase-6 cases of its kernel at full width,
+dropped by the decode combine, a mask edge moved by one key, one chunk's
+state term skipped in the RWKV state scan, the a_lo b_hi term of the RWKV
+att product dropped) runs the phase-6 cases of its kernel at full width,
 each result held to its plain version by ``chip_smoke.case_error``
 (``ref.kernel_error``'s allowance). One JSON line per case gives whether
 it was caught (for a model kernel, the error's share of the allowance
@@ -87,11 +88,16 @@ FAULTS = [
     ("decode: kv_len edge one row wide", "decode_attention",
      CSRC + "decode_attention.cu",
      "  r.hi = min(len, smax);", "  r.hi = min(len + 1, smax);"),
-    ("rwkv: one chunk's state update dropped", "rwkv_scan",
+    ("rwkv: one chunk's U_n skipped in the state scan", "rwkv_scan",
      CSRC + "rwkv_scan.cu",
-     "      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) + acc;",
-     "      s_st[d * ldv + e] = s_st[d * ldv + e] * expf(s_tot[d]) +"
-     " (n0 == s / 2 ? 0.f : acc);"),
+     "      if (n + 1 < nc) st = st * expf(wn[q]) + un[q];",
+     "      if (n + 1 < nc) st = st * expf(wn[q]) + (n == nc / 2 ? 0.f : "
+     "un[q]);"),
+    ("rwkv: the lo hi term of the att product dropped (2xTF32)",
+     "rwkv_scan", CSRC + "rwkv_scan.cu",
+     "              mma3<true>(a[j], qa, kb);",
+     "              mma3<true>(a[j], FragA{{qa.hi[0], qa.hi[1], qa.hi[2], "
+     "qa.hi[3]}, {0u, 0u, 0u, 0u}}, kb);"),
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name.

@@ -46,13 +46,15 @@ Phases, each printing its lines in order:
    from fixed seeds on the card), each launch counted, and the flash
    kernel's path per call ("wgmma" for every bf16 case, "fma" for fp32);
    the count of ``HGMMA`` and ``UTMALDG`` instructions in the flash
-   library's SASS where ``cuobjdump`` is found; then each case against
+   library's SASS and of TF32 ``HMMA`` (``mma.sync``) in the RWKV
+   library's where ``cuobjdump`` is found; then each case against
    its plain version on the same inputs (max abs error and its share of
    ``repro_torch.kernels.ref.kernel_error``'s allowance), the kernel's
    device time, the plain version's, a library yardstick's where one
    PyTorch call computes the same function
-   (``scaled_dot_product_attention``), and the bound. A case whose bytes
-   fit in the 50 MB L2 is timed with the L2 flushed before each call.
+   (``scaled_dot_product_attention``), and the bound; for the bf16 RWKV
+   case also each of its three device kernels' time (CUPTI). A case whose
+   bytes fit in the 50 MB L2 is timed with the L2 flushed before each call.
 7. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -84,6 +86,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # (495 TFLOP/s dense) as three TF32 products (3xTF32): 165e12 float32
 # FLOP/s, the least time of the RWKV kernel's float32 products.
 FP32_3XTF32_FLOPS = 495e12 / 3
+RWKV_MMA = "HMMA.1688.F32.TF32"   # mma.sync m16n8k8 TF32 in the SASS
 POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
             "wear_level")
 
@@ -711,10 +714,11 @@ def flushed_ms(torch, fn, iters: int = 20) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def sass_counts(library: pathlib.Path) -> dict | None:
-    """Counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-    instructions in a kernel library's SASS, or None when no
-    ``cuobjdump`` is found (the CUDA toolkit's, or Triton's copy)."""
+def sass_counts(library: pathlib.Path,
+                ops=("HGMMA", "UTMALDG")) -> dict | None:
+    """Counts of the instructions ``ops`` (by default ``HGMMA``, wgmma,
+    and ``UTMALDG``, a TMA load) in a kernel library's SASS, or None when
+    no ``cuobjdump`` is found (the CUDA toolkit's, or Triton's copy)."""
     import shutil
     tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
     try:
@@ -728,8 +732,7 @@ def sass_counts(library: pathlib.Path) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
-    return {op: sum(op in ln for ln in sass.splitlines())
-            for op in ("HGMMA", "UTMALDG")}
+    return {op: sum(op in ln for ln in sass.splitlines()) for op in ops}
 
 
 def attention_pairs(sq, skv, causal, window) -> int:
@@ -960,6 +963,14 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
               "UTMALDG instructions")
         if sass["HGMMA"] == 0:
             raise Mismatch("the flash library holds no HGMMA instruction")
+    if any(c.kernel == "rwkv_scan" for c in cases):
+        tf32 = sass_counts(rw.KERNEL.library, (RWKV_MMA,))
+        if tf32 is None:
+            print("  rwkv SASS: not checked (no cuobjdump found)")
+        else:
+            print(f"  rwkv SASS: {tf32[RWKV_MMA]} {RWKV_MMA} instructions")
+            if tf32[RWKV_MMA] == 0:
+                raise Mismatch("the rwkv library holds no TF32 mma.sync")
     results = []
     for case, got in zip(cases, outs):
         plain = case.plain()

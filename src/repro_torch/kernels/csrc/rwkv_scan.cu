@@ -28,39 +28,122 @@
 //   3. chunk_out_kernel, one block per (b*h, chunk): forms qp and kp
 //      again from r, k and logw, then out = (att v + diag * v) + qp S_n.
 // Each block of launches 1 and 3 holds its chunk in shared memory as fp32
-// rows (stride D + 4, zero-padded to C % 16 == 0, Dk % 16 == 0,
-// Dv % 8 == 0) and splits the products over 4 warps: a warp owns 16 rows
-// of the output (query rows in launch 3, key channels in launch 1) and 64
-// of its columns at a time; each lane holds a 4 x 8 tile of them in
-// registers, so every FMA reads registers and each shared-memory read
-// feeds 8 or 4 of them. att lives in registers only: a lane's 4 x 8 tile
-// of a 16 x 64 panel reaches the lanes that need it by shuffles. The
-// prefix sum runs one thread per (16-token block, key channel): the block
-// totals first, then each thread folds the totals before its block in
-// order and rescans its block. exp is expf (no fast math).
+// rows (stride D + 4, so that fragment loads meet no bank conflict;
+// zero-padded to C % 16 == 0, Dk % 16 == 0, Dv % 8 == 0, which is exact)
+// and splits the products over 8 warps: a warp owns 16 rows of the output
+// (query rows in launch 3, key channels in launch 1) and 64 (launch 1: 32)
+// of its columns at a time, as m16n8 accumulator tiles of mma.sync. The
+// four chunk products (qp kp^T, att v, qp S_n, kt^T v) run on the TF32
+// tensor cores as 3xTF32 (see mma3), which holds them within a few fp32
+// roundings: one TF32 product alone misses the allowance 37-68 times over
+// at rwkv6-7b. Launch 3 runs two rounds over its rows: qp S_n, with S_n in
+// the buffer that held logw, into out; then, once v has replaced S_n,
+// att v + diag * v added to it. att never leaves registers: its
+// accumulator tiles are the A fragments of att v, and the key tiles above
+// the rows' diagonal are skipped. Each tile that a block reads from device
+// memory is fetched into registers before the work that precedes its use
+// (v and S_n during the prefix sum and the first round). Two output
+// blocks fit an SM at rwkv6 width (105 KB of shared memory each), three
+// state blocks. The prefix sum runs one thread per (16-token block, key
+// channel) out of shared memory: the block totals first, then each thread
+// folds the totals before its block in order and rescans its block. exp
+// is expf (no fast math).
 //
-// What bounds it on the H100: bytes in bf16 (each token's four rows read
-// once and its output row written once, ~200 MB at one rwkv6 layer over
-// 4,096 tokens, against ~8.6 GFLOP of products), operations in fp32 at
-// the CUDA cores' rate. The design's own traffic adds the scratch (U_n
-// written and read, S_n written and read: 4 x Dk x Dv x 4 bytes per chunk
-// and head, ~134 MB at rwkv6-7b) and a second read of k, v and logw.
+// What bounds it on the H100: bytes (each token's four rows read once and
+// its output row written once, ~200 MB at one rwkv6 layer over 4,096
+// tokens in bf16, ~335 MB in fp32, against ~8.6 GFLOP of products, which
+// 3xTF32 runs in ~0.05 ms at the tensor cores' peak). The design's own
+// traffic adds the scratch (U_n written and read, S_n written and read: 4
+// x Dk x Dv x 4 bytes per chunk and head, ~134 MB at rwkv6-7b) and a
+// second read of k, v and logw.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;     // launches 1 and 3: 4 warps
+constexpr int kThreads = 256;     // launches 1 and 3: 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 256;  // launch 2
+constexpr int kScanBatch = 16;    // chunks whose loads launch 2 issues at once
 constexpr int kScanBase = 16;     // block of the prefix sum
 constexpr int kMaxChunk = kScanBase * kScanBase;
 constexpr int kPanel = 64;        // output columns a warp holds at a time
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPanelU = 32;       // the same in launch 1
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// 3xTF32 on mma.sync.m16n8k8 (fp32 accumulators). An operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi); a product takes hi lo + lo hi
+// + hi hi, which is within a few fp32 roundings of the fp32 product (the
+// lo lo term is below them). A bf16 value is exact in TF32 (lo = 0), so
+// where the B operand is a raw bf16 input (v) the hi lo term is skipped.
+template <typename T> constexpr bool kExactInTf32 = false;
+template <> constexpr bool kExactInTf32<__nv_bfloat16> = true;
+
+// Round to TF32 (nearest, ties away from zero), as cvt.rna.tf32.f32 does,
+// in two integer operations: the conversion unit runs at a quarter of the
+// integer rate and was the products' bottleneck.
+__device__ __forceinline__ unsigned tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// Fragments of m16n8k8 (g = lane / 4, q = lane % 4). A (16 x 8, rows
+// m, columns k): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8,
+// q + 4). B (8 x 8, k x n): b0 (q, g), b1 (q + 4, g). C (16 x 8): c0 (g,
+// 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1). The k axis may
+// be taken in any order that A and B share: an accumulator tile C of one
+// product is the A fragment (c0, c2, c1, c3) of the next with k = 2q in
+// place of q and 2q + 1 in place of q + 4.
+struct FragA {
+  unsigned hi[4], lo[4];
+};
+struct FragB {
+  unsigned hi[2], lo[2];
+};
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  const float x[4] = {a0, a1, a2, a3};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = tf32(x[i]);
+    f.lo[i] = tf32(x[i] - __uint_as_float(f.hi[i]));
+  }
+  return f;
+}
+
+// kExact: b0 and b1 are exact in TF32 (hi = the value, lo = 0).
+template <bool kExact = false>
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  const float x[2] = {b0, b1};
+  FragB f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f.hi[i] = kExact ? __float_as_uint(x[i]) : tf32(x[i]);
+    f.lo[i] = kExact ? 0u : tf32(x[i] - __uint_as_float(f.hi[i]));
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b, 3xTF32; kBLo = false when b is exact in TF32.
+template <bool kBLo>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  if (kBLo) mma(c, a.hi, b.lo);
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.hi);
 }
 
 // The padded sizes and strides of one chunk's shared-memory tiles.
@@ -69,6 +152,8 @@ struct Dims {
   int cp, dkp, dvp;   // padded: C % 16, Dk % 16, Dv % 8
   int ldk, ldv;       // row strides (floats): D + 4
   int lvw;            // max(ldk, ldv): the buffer that holds logw, then v
+  int lds;            // row stride of S_n [dkp][lds]: Dv + 8
+  int vs;             // floats of launch 3's buffer for logw, S_n, then v
   int nb;             // 16-token blocks of the prefix sum
 };
 
@@ -83,15 +168,18 @@ __host__ __device__ inline Dims make_dims(int c, int dk, int dv) {
   m.ldk = m.dkp + 4;
   m.ldv = m.dvp + 4;
   m.lvw = m.ldk > m.ldv ? m.ldk : m.ldv;
+  m.lds = m.dvp + 8;
+  m.vs = m.cp * m.lvw > m.dkp * m.lds ? m.cp * m.lvw : m.dkp * m.lds;
   m.nb = m.cp / kScanBase;
   return m;
 }
 
-// Launch 3's shared memory: qp and kp [cp][ldk], logw and then v
-// [cp][lvw], diag [cp], the prefix sum's block totals [nb][dk]. Launch 1
-// holds less (kt, logw and then v, the totals).
+// Launch 3's shared memory: qp and kp [cp][ldk]; logw [cp][ldk], then S_n
+// [dkp][lds], then v [cp][ldv] in one buffer (vs floats); diag [cp], u
+// [dkp], the prefix sum's block totals [nb][dk]. Launch 1 holds less (kt,
+// logw and then v, the totals).
 size_t out_smem_floats(const Dims& m) {
-  return 2 * (size_t)m.cp * m.ldk + (size_t)m.cp * m.lvw + m.cp +
+  return 2 * (size_t)m.cp * m.ldk + m.vs + m.cp + m.dkp +
          (size_t)m.nb * m.dk;
 }
 size_t state_smem_floats(const Dims& m) {
@@ -115,23 +203,59 @@ __device__ __forceinline__ void store16(const uint4& x, float* dst,
       __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xffff0000u));
 }
 
-// Rows [c][w] of one chunk (row stride w in device memory) into
-// dst [cp][ld] as fp32, zero-padded to [cp][wp]. 16-byte loads, eight
-// in flight per thread, where the rows allow them.
-template <typename T>
-__device__ void load_rows(const T* __restrict__ src, float* dst, int w,
-                          int wp, int ld, const Dims& m) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kBatch = 8;
-  if (w == wp && w % V == 0 &&
-      reinterpret_cast<unsigned long long>(src) % 16 == 0) {
-    const int per_row = w / V, n = m.c * per_row;
-    const uint4* src16 = reinterpret_cast<const uint4*>(src);
-    for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
-      uint4 x[kBatch];
+// Rows [rows][w] of T (row stride w in device memory) into dst
+// [rows_p][ld] as fp32, zero-padded to [rows_p][wp]: fetch() issues the
+// first kBatch 16-byte loads of each thread into registers, store() waits
+// for them, writes them and copies the rest, so that a block can fetch a
+// tile before other work and store it after. Rows that do not allow
+// 16-byte loads are copied element by element in store().
+template <typename T, int kBatch = 8>
+struct RowCopy {
+  static constexpr int V = 16 / sizeof(T);
+  const T* __restrict__ src;
+  int rows, rows_p, w, wp, ld;
+  bool vec;
+  uint4 x[kBatch];
+
+  __device__ RowCopy(const T* __restrict__ src_, int rows_, int rows_p_,
+                     int w_, int wp_, int ld_)
+      : src(src_), rows(rows_), rows_p(rows_p_), w(w_), wp(wp_), ld(ld_) {
+    vec = w == wp && w % V == 0 &&
+          reinterpret_cast<unsigned long long>(src) % 16 == 0;
+  }
+
+  __device__ void fetch() {
+    if (!vec) return;
+    const int n = rows * (w / V);
+    // volatile: the loads stay here, ahead of the work they overlap
 #pragma unroll
-      for (int q = 0; q < kBatch; ++q)
-        if (i0 + q * kThreads < n) x[q] = __ldg(src16 + i0 + q * kThreads);
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      if (i < n)
+        asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(x[q].x), "=r"(x[q].y), "=r"(x[q].z), "=r"(x[q].w)
+                     : "l"(reinterpret_cast<const uint4*>(src) + i));
+    }
+  }
+
+  __device__ void store(float* dst) {
+    if (!vec) {
+      for (int i = threadIdx.x; i < rows_p * wp; i += kThreads) {
+        int t = i / wp, e = i % wp;
+        dst[t * ld + e] =
+            (t < rows && e < w) ? to_f(src[(long long)t * w + e]) : 0.f;
+      }
+      return;
+    }
+    const int per_row = w / V, n = rows * per_row;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
+      if (i0 != threadIdx.x) {
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (i0 + q * kThreads < n)
+            x[q] = __ldg(reinterpret_cast<const uint4*>(src) + i0 +
+                         q * kThreads);
+      }
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         const int i = i0 + q * kThreads;
@@ -139,16 +263,11 @@ __device__ void load_rows(const T* __restrict__ src, float* dst, int w,
           store16(x[q], dst + (i / per_row) * ld + (i % per_row) * V, T());
       }
     }
-    for (int i = m.c * wp + threadIdx.x; i < m.cp * wp; i += kThreads)
+    for (int i = rows * wp + threadIdx.x; i < rows_p * wp; i += kThreads)
       dst[(i / wp) * ld + i % wp] = 0.f;
-    return;
   }
-  for (int i = threadIdx.x; i < m.cp * wp; i += kThreads) {
-    int t = i / wp, e = i % wp;
-    dst[t * ld + e] = (t < m.c && e < w) ? to_f(src[(long long)t * w + e])
-                                         : 0.f;
-  }
-}
+};
+
 
 // The prefix sum of logw over one chunk (s_w [cp][ldk], fp32), in XLA's
 // order: each 16-token block summed in order ("within"), and the blocks'
@@ -163,35 +282,45 @@ __device__ void chunk_prefix(const float* s_w, float* s_blk, const Dims& m,
   __syncthreads();
   for (int i = threadIdx.x; i < m.nb * m.dk; i += kThreads) {
     const int j = i / m.dk, d = i % m.dk;
+    const int nq = min(kScanBase, m.c - j * kScanBase);
     const float* x = s_w + j * kScanBase * m.ldk + d;
     float within = x[0];
-    for (int q = 1; q < kScanBase && j * kScanBase + q < m.c; ++q)
-      within = within + x[q * m.ldk];
+#pragma unroll
+    for (int q = 1; q < kScanBase; ++q)
+      if (q < nq) within = within + x[q * m.ldk];
     s_blk[j * m.dk + d] = within;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < m.nb * m.dk; i += kThreads) {
     const int j = i / m.dk, d = i % m.dk;
+    const int nq = min(kScanBase, m.c - j * kScanBase);
     float before = 0.f, tot = s_blk[d];
     for (int jj = 1; jj < m.nb; ++jj) {
       if (jj == j) before = tot;
       tot = tot + s_blk[jj * m.dk + d];
     }
     if (m.nb == 1) tot = tot + 0.f;   // cum[c-1] = within + 0, as below
+    // The block's sums first, so that the fn calls (and their expf) of
+    // its 16 tokens are independent.
     const float* x = s_w + j * kScanBase * m.ldk + d;
+    float lw[kScanBase], cum[kScanBase];
     float within = 0.f;
-    for (int q = 0; q < kScanBase && j * kScanBase + q < m.c; ++q) {
-      const float lw = x[q * m.ldk];
-      within = q == 0 ? lw : within + lw;
-      fn(j * kScanBase + q, d, lw, within + before, tot);
+#pragma unroll
+    for (int q = 0; q < kScanBase; ++q) {
+      lw[q] = q < nq ? x[q * m.ldk] : 0.f;
+      within = q == 0 ? lw[q] : within + lw[q];
+      cum[q] = within + before;
     }
+#pragma unroll
+    for (int q = 0; q < kScanBase; ++q)
+      if (q < nq) fn(j * kScanBase + q, d, lw[q], cum[q], tot);
   }
   __syncthreads();
 }
 
 // Launch 1: U_n = kt^T v and tot_n for chunk n of head bh (n < chunks-1).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 chunk_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ logw, float* __restrict__ su,
                    float* __restrict__ stot, int s, int dk, int dv, int c) {
@@ -205,43 +334,52 @@ chunk_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
   const long long tok = (long long)bh * s + (long long)n * c;
   float* tot_out = stot + ((long long)bh * nc + n) * dk;
 
-  load_rows(k + tok * dk, s_kt, dk, m.dkp, m.ldk, m);   // k, then kt
-  load_rows(logw + tok * dk, s_v, dk, m.dkp, m.ldk, m);
+  {
+    RowCopy<T> k_copy(k + tok * dk, m.c, m.cp, dk, m.dkp, m.ldk);
+    RowCopy<T> w_copy(logw + tok * dk, m.c, m.cp, dk, m.dkp, m.ldk);
+    k_copy.fetch();
+    w_copy.fetch();
+    k_copy.store(s_kt);                     // k, then kt
+    w_copy.store(s_v);                      // logw, then v
+  }
+  RowCopy<T> v_copy(v + tok * dv, m.c, m.cp, dv, m.dvp, m.ldv);
+  v_copy.fetch();                           // in flight during the prefix
   chunk_prefix(s_v, s_blk, m,
                [&](int t, int d, float, float cum, float tot) {
                  s_kt[t * m.ldk + d] *= expf(tot - cum);
                  if (t == 0) tot_out[d] = tot;
                });
-  load_rows(v + tok * dv, s_v, dv, m.dvp, m.ldv, m);
+  v_copy.store(s_v);
   __syncthreads();
 
-  // U [dk][dv] = kt^T v. Item: 16 channels x 64 columns; lane (rg, cg)
-  // holds channels rg + 4i, columns cg + 8j.
+  // U [dk][dv] = kt^T v on the tensor cores. Item: 16 channels x 32
+  // columns, 4 accumulator tiles of m16n8; the keys are the k axis, taken
+  // 8 at a time in the permuted order of Frag::a (keys 2q, 2q+1 at lane
+  // q of a quad).
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = lane / 8, cg = lane % 8;
-  const int n_pan = (m.dvp + kPanel - 1) / kPanel;
+  const int g = lane / 4, tq = lane % 4;
+  const int n_pan = (m.dvp + kPanelU - 1) / kPanelU;
   float* u_out = su + ((long long)bh * nc + n) * dk * dv;
   for (int it = warp; it < (m.dkp / 16) * n_pan; it += kWarps) {
-    const int d0 = (it / n_pan) * 16, e0 = (it % n_pan) * kPanel;
-    float acc[4][8] = {};
-    for (int t = 0; t < m.cp; ++t) {
-      float a[4], b[8];
+    const int d0 = (it / n_pan) * 16, e0 = (it % n_pan) * kPanelU;
+    float acc[kPanelU / 8][4] = {};
+    for (int s0 = 0; s0 < m.cp; s0 += 8) {
+      const float* k0 = s_kt + (s0 + 2 * tq) * m.ldk + d0 + g;
+      const FragA ka = frag_a(k0[0], k0[8], k0[m.ldk], k0[m.ldk + 8]);
+      const float* v0 = s_v + (s0 + 2 * tq) * m.ldv + e0 + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_kt[t * m.ldk + d0 + rg + 4 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = e0 + 8 * j < m.dvp ? s_v[t * m.ldv + e0 + cg + 8 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < kPanelU / 8; ++j)
+        if (e0 + 8 * j < m.dvp)
+          mma3<!kExactInTf32<T>>(
+              acc[j], ka,
+              frag_b<kExactInTf32<T>>(v0[8 * j], v0[m.ldv + 8 * j]));
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kPanelU / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        int d = d0 + rg + 4 * i, e = e0 + cg + 8 * j;
-        if (d < dk && e < dv) u_out[(long long)d * dv + e] = acc[i][j];
+      for (int x = 0; x < 4; ++x) {
+        const int d = d0 + g + (x / 2) * 8, e = e0 + 8 * j + 2 * tq + x % 2;
+        if (d < dk && e < dv) u_out[(long long)d * dv + e] = acc[j][x];
       }
   }
 }
@@ -259,16 +397,16 @@ state_scan_kernel(float* __restrict__ su, const float* __restrict__ stot,
   const float* tot = stot + (long long)bh * nc * dk + d;
   const long long step = (long long)dk * dv;
   float st = 0.f;
-  for (int n0 = 0; n0 < nc; n0 += 8) {     // the loads of 8 chunks first
-    float un[8], wn[8];
+  for (int n0 = 0; n0 < nc; n0 += kScanBatch) {  // the loads first
+    float un[kScanBatch], wn[kScanBatch];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < kScanBatch; ++q) {
       const int n = n0 + q;
       un[q] = n + 1 < nc ? p[n * step] : 0.f;
       wn[q] = n + 1 < nc ? tot[(long long)n * dk] : 0.f;
     }
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < kScanBatch; ++q) {
       const int n = n0 + q;
       if (n < nc) p[n * step] = st;
       if (n + 1 < nc) st = st * expf(wn[q]) + un[q];
@@ -278,7 +416,7 @@ state_scan_kernel(float* __restrict__ su, const float* __restrict__ stot,
 
 // Launch 3: out for chunk n of head bh.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ logw,
                  const float* __restrict__ u, const float* __restrict__ su,
@@ -290,137 +428,149 @@ chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const int bh = blockIdx.x / nc, n = blockIdx.x % nc;
   float* s_qp = smem;                       // [cp][ldk]
   float* s_kp = s_qp + m.cp * m.ldk;        // [cp][ldk]
-  float* s_v = s_kp + m.cp * m.ldk;         // [cp][lvw]: logw, then v
-  float* s_diag = s_v + m.cp * m.lvw;       // [cp]
-  float* s_blk = s_diag + m.cp;             // [nb][dk]
+  float* s_v = s_kp + m.cp * m.ldk;         // logw, S_n, then v (vs floats)
+  float* s_diag = s_v + m.vs;               // [cp]
+  float* s_u = s_diag + m.cp;               // [dkp]
+  float* s_blk = s_u + m.dkp;               // [nb][dk]
   const long long tok = (long long)bh * s + (long long)n * c;
   const float* uh = u + (long long)(bh % h) * dk;
   const float* st = su + ((long long)bh * nc + n) * dk * dv;   // S_n
   float* oc = out + tok * dv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows(r + tok * dk, s_qp, dk, m.dkp, m.ldk, m);   // r, then qp
-  load_rows(k + tok * dk, s_kp, dk, m.dkp, m.ldk, m);   // k, then kp
-  load_rows(logw + tok * dk, s_v, dk, m.dkp, m.ldk, m);
+  {
+    RowCopy<T> r_copy(r + tok * dk, m.c, m.cp, dk, m.dkp, m.ldk);
+    RowCopy<T> k_copy(k + tok * dk, m.c, m.cp, dk, m.dkp, m.ldk);
+    RowCopy<T> w_copy(logw + tok * dk, m.c, m.cp, dk, m.dkp, m.ldk);
+    r_copy.fetch();
+    k_copy.fetch();
+    w_copy.fetch();
+    r_copy.store(s_qp);                     // r, then qp
+    k_copy.store(s_kp);                     // k, then kp
+    w_copy.store(s_v);
+  }
+  RowCopy<float, 4> s_copy(st, dk, m.dkp, dv, m.dvp, m.lds);
+  s_copy.fetch();                           // in flight during the prefix
+  for (int d = threadIdx.x; d < m.dkp; d += kThreads)
+    s_u[d] = d < dk ? uh[d] : 0.f;
   __syncthreads();
-  // diag_t = sum_d (r * k) * u: a warp per token.
-  for (int t = warp; t < m.cp; t += kWarps) {
+  // diag_t = sum_d (r * k) * u: a thread per token.
+  for (int t = threadIdx.x; t < m.cp; t += kThreads) {
     float acc = 0.f;
-    for (int d = lane; d < dk; d += 32)
-      acc = fmaf(s_qp[t * m.ldk + d] * s_kp[t * m.ldk + d], uh[d], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      acc += __shfl_xor_sync(kFull, acc, off);
-    if (lane == 0) s_diag[t] = acc;
+    for (int d = 0; d < m.dkp; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(&s_qp[t * m.ldk + d]);
+      const float4 b = *reinterpret_cast<const float4*>(&s_kp[t * m.ldk + d]);
+      acc = fmaf(a.x * b.x, s_u[d], acc);
+      acc = fmaf(a.y * b.y, s_u[d + 1], acc);
+      acc = fmaf(a.z * b.z, s_u[d + 2], acc);
+      acc = fmaf(a.w * b.w, s_u[d + 3], acc);
+    }
+    s_diag[t] = acc;
   }
   chunk_prefix(s_v, s_blk, m,
                [&](int t, int d, float lw, float cum, float) {
                  s_qp[t * m.ldk + d] *= expf(cum - lw);
                  s_kp[t * m.ldk + d] *= expf(-cum);
                });
-  load_rows(v + tok * dv, s_v, dv, m.dvp, m.ldv, m);
+  s_copy.store(s_v);                        // S_n [dkp][lds] over logw
+  RowCopy<T> v_copy(v + tok * dv, m.c, m.cp, dv, m.dvp, m.ldv);
+  v_copy.fetch();                           // in flight during round 1
   __syncthreads();
 
-  // Item: 16 query rows x 64 output columns; the rows are dealt to the
-  // warps in snake order (0..3, 7..4, ...) so that the long rows, which
-  // see more keys, spread over the warps. Lane (rg, cg) holds rows
-  // t0 + rg + 4i and columns cg + 8j of each 16 x 64 tile.
-  const int rg = lane / 8, cg = lane % 8;
+  // On the tensor cores, in two rounds over the same items. Item: 16
+  // query rows x 64 output columns (8 accumulator tiles of m16n8); the rows
+  // are dealt to the warps in snake order (0..7, 15..8, ...) so that the
+  // long rows, which see more keys, spread over the warps.
+  // Round 1: carry = qp S_n, into out.
+  // Round 2, once v has replaced S_n: out = (att v + diag * v) + carry.
+  // att is formed 64 keys at a time in registers, only in the key tiles
+  // below the rows' end, and feeds att v from there: an accumulator tile of
+  // att is an A fragment in the permuted key order (Frag::a), so v's rows
+  // are read in that order.
+  const int g = lane / 4, tq = lane % 4;
   const int n_rows = m.cp / 16;
-  for (int slot = warp; slot < (n_rows + kWarps - 1) / kWarps * kWarps;
-       slot += kWarps) {
+  const int n_slots = (n_rows + kWarps - 1) / kWarps * kWarps;
+  for (int slot = warp; slot < n_slots; slot += kWarps) {
     const int q = slot / kWarps, pos = slot % kWarps;
     const int rt = q * kWarps + (q % 2 ? kWarps - 1 - pos : pos);
     if (rt >= n_rows) continue;
     const int t0 = rt * 16;
+    const float* q0 = s_qp + (t0 + g) * m.ldk + tq;
     for (int e0 = 0; e0 < m.dvp; e0 += kPanel) {
-    float o[4][8] = {};
-    // intra = att v over panels of 64 keys below the rows' end
-    for (int s0 = 0; s0 < t0 + 16; s0 += kPanel) {
-      float a[4][8] = {};
-      for (int d = 0; d < m.dkp; d += 4) {
-        float4 qv[4], kv[8];
+      float cr[8][4] = {};
+      for (int d0 = 0; d0 < m.dkp; d0 += 8) {
+        const FragA qa = frag_a(q0[d0], q0[8 * m.ldk + d0], q0[d0 + 4],
+                                q0[8 * m.ldk + d0 + 4]);
+        const float* s0 = s_v + (d0 + tq) * m.lds + e0 + g;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(
-              &s_qp[(t0 + rg + 4 * i) * m.ldk + d]);
+        for (int jj = 0; jj < 8; ++jj)
+          if (e0 + 8 * jj < m.dvp)
+            mma3<true>(cr[jj], qa,
+                       frag_b(s0[8 * jj], s0[4 * m.lds + 8 * jj]));
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int t = t0 + g + (x / 2) * 8, e = e0 + 8 * jj + 2 * tq + x % 2;
+          if (t < c && e < dv) oc[(long long)t * dv + e] = cr[jj][x];
+        }
+    }
+  }
+  __syncthreads();                          // S_n is consumed
+  v_copy.store(s_v);
+  __syncthreads();
+  for (int slot = warp; slot < n_slots; slot += kWarps) {
+    const int q = slot / kWarps, pos = slot % kWarps;
+    const int rt = q * kWarps + (q % 2 ? kWarps - 1 - pos : pos);
+    if (rt >= n_rows) continue;
+    const int t0 = rt * 16, t_end = t0 + 16;
+    const float* q0 = s_qp + (t0 + g) * m.ldk + tq;
+    for (int e0 = 0; e0 < m.dvp; e0 += kPanel) {
+      float o[8][4] = {};
+      for (int s0 = 0; s0 < t_end; s0 += kPanel) {
+        float a[8][4] = {};
+        for (int d0 = 0; d0 < m.dkp; d0 += 8) {
+          const FragA qa = frag_a(q0[d0], q0[8 * m.ldk + d0], q0[d0 + 4],
+                                  q0[8 * m.ldk + d0 + 4]);
+          const float* k0 = s_kp + (s0 + g) * m.ldk + d0 + tq;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (s0 + 8 * j < t_end) {
+              const FragB kb = frag_b(k0[8 * j * m.ldk],
+                                      k0[8 * j * m.ldk + 4]);
+              mma3<true>(a[j], qa, kb);
+            }
+        }
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          kv[j] = s0 + 8 * j < m.cp
-                      ? *reinterpret_cast<const float4*>(
-                            &s_kp[(s0 + cg + 8 * j) * m.ldk + d])
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int x = 0; x < 4; ++x)      // strictly lower: s < t
+            if (s0 + 8 * j + 2 * tq + x % 2 >= t0 + g + (x / 2) * 8)
+              a[j][x] = 0.f;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float x = a[i][j];
-            x = fmaf(qv[i].x, kv[j].x, x);
-            x = fmaf(qv[i].y, kv[j].y, x);
-            x = fmaf(qv[i].z, kv[j].z, x);
-            a[i][j] = fmaf(qv[i].w, kv[j].w, x);
+        for (int j = 0; j < 8; ++j)
+          if (s0 + 8 * j < t_end) {
+            const FragA pa = frag_a(a[j][0], a[j][2], a[j][1], a[j][3]);
+            const float* v0 = s_v + (s0 + 8 * j + 2 * tq) * m.ldv + e0 + g;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+              if (e0 + 8 * jj < m.dvp)
+                mma3<!kExactInTf32<T>>(
+                    o[jj], pa,
+                    frag_b<kExactInTf32<T>>(v0[8 * jj], v0[m.ldv + 8 * jj]));
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (s0 + cg + 8 * j >= t0 + rg + 4 * i) a[i][j] = 0.f;  // s >= t
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (s0 + 8 * j >= t0 + 16 || s0 + 8 * j >= m.cp) break;
-        for (int cc = 0; cc < 8; ++cc) {
-          const int sk = s0 + 8 * j + cc;
-          float av[4], vv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            av[i] = __shfl_sync(kFull, a[i][j], rg * 8 + cc);
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            vv[jj] = e0 + 8 * jj < m.dvp
-                         ? s_v[sk * m.ldv + e0 + cg + 8 * jj] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              o[i][jj] = fmaf(av[i], vv[jj], o[i][jj]);
-        }
-      }
-    }
-    // + diag * v, then + qp S_n (S_n from device memory, [dk][dv]).
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + rg + 4 * i;
-#pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        if (e0 + 8 * jj < m.dvp)
-          o[i][jj] += s_diag[t] * s_v[t * m.ldv + e0 + cg + 8 * jj];
-    }
-    float cr[4][8] = {};
-    for (int d = 0; d < dk; ++d) {
-      float qv[4], sv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s_qp[(t0 + rg + 4 * i) * m.ldk + d];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int e = e0 + cg + 8 * jj;
-        sv[jj] = e < dv ? __ldg(&st[(long long)d * dv + e]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          cr[i][jj] = fmaf(qv[i], sv[jj], cr[i][jj]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + rg + 4 * i;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int e = e0 + cg + 8 * jj;
-        if (t < c && e < dv) oc[(long long)t * dv + e] = o[i][jj] + cr[i][jj];
-      }
-    }
+        for (int x = 0; x < 4; ++x) {
+          const int t = t0 + g + (x / 2) * 8, e = e0 + 8 * jj + 2 * tq + x % 2;
+          if (t < c && e < dv) {             // + round 1's, its own
+            float* p = &oc[(long long)t * dv + e];
+            *p = (o[jj][x] + s_diag[t] * s_v[t * m.ldv + e]) + *p;
+          }
+        }
     }
   }
 }

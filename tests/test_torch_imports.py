@@ -6,6 +6,7 @@ and ``chip_faults.py``) imports with
 and prints no result where there is no CUDA device, or when it stands
 alone without the repository.
 """
+import importlib.util
 import pathlib
 import shutil
 import subprocess
@@ -59,3 +60,32 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_refuses_unknown_arguments():
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--only", "nope"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "usage" in out.stderr and '"ok"' not in out.stdout
+
+
+def _planted_faults():
+    spec = importlib.util.spec_from_file_location("chip_faults",
+                                                  ROOT / "chip_faults.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FAULTS
+
+
+FAULTS = _planted_faults()
+
+
+@pytest.mark.parametrize("i", range(len(FAULTS)))
+def test_planted_fault_text_stands_once_in_its_source(i):
+    """Each fault of ``chip_faults.py`` replaces text that stands exactly
+    once in its CUDA source, so that an edit of the kernel that moves the
+    text shows here and not first on the card."""
+    name, kernel, source, text, faulty = FAULTS[i]
+    code = (ROOT / source).read_text()
+    assert code.count(text) == 1, name
+    assert faulty != text and kernel in source, name
