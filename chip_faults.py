@@ -95,9 +95,9 @@ FAULTS = [
      "un[q]);"),
     ("rwkv: the lo hi term of the att product dropped (2xTF32)",
      "rwkv_scan", CSRC + "rwkv_scan.cu",
-     "              mma3<true>(a[j], qa, kb);",
-     "              mma3<true>(a[j], FragA{{qa.hi[0], qa.hi[1], qa.hi[2], "
-     "qa.hi[3]}, {0u, 0u, 0u, 0u}}, kb);"),
+     "      mma3<true>(a[j], qa, kb);",
+     "      mma3<true>(a[j], FragA{{qa.hi[0], qa.hi[1], qa.hi[2], qa.hi[3]}, "
+     "{0u, 0u, 0u, 0u}}, kb);"),
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name.

@@ -149,7 +149,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
 // The padded sizes and strides of one chunk's shared-memory tiles.
 struct Dims {
   int c, dk, dv;      // real sizes
-  int cp, dkp, dvp;   // padded: C % 16, Dk % 16, Dv % 8
+  int cp, dkp, dvp;   // padded: C % 16, Dk % 16, Dv % 64 (kPanel)
   int ldk, ldv;       // row strides (floats): D + 4
   int lvw;            // max(ldk, ldv): the buffer that holds logw, then v
   int lds;            // row stride of S_n [dkp][lds]: Dv + 8
@@ -164,7 +164,7 @@ __host__ __device__ inline Dims make_dims(int c, int dk, int dv) {
   m.dv = dv;
   m.cp = (c + 15) / 16 * 16;
   m.dkp = (dk + 15) / 16 * 16;
-  m.dvp = (dv + 7) / 8 * 8;
+  m.dvp = (dv + kPanel - 1) / kPanel * kPanel;
   m.ldk = m.dkp + 4;
   m.ldv = m.dvp + 4;
   m.lvw = m.ldk > m.ldv ? m.ldk : m.ldv;
@@ -369,10 +369,8 @@ chunk_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
       const float* v0 = s_v + (s0 + 2 * tq) * m.ldv + e0 + g;
 #pragma unroll
       for (int j = 0; j < kPanelU / 8; ++j)
-        if (e0 + 8 * j < m.dvp)
-          mma3<!kExactInTf32<T>>(
-              acc[j], ka,
-              frag_b<kExactInTf32<T>>(v0[8 * j], v0[m.ldv + 8 * j]));
+        mma3<!kExactInTf32<T>>(
+            acc[j], ka, frag_b<kExactInTf32<T>>(v0[8 * j], v0[m.ldv + 8 * j]));
     }
 #pragma unroll
     for (int j = 0; j < kPanelU / 8; ++j)
@@ -411,6 +409,53 @@ state_scan_kernel(float* __restrict__ su, const float* __restrict__ stot,
       if (n < nc) p[n * step] = st;
       if (n + 1 < nc) st = st * expf(wn[q]) + un[q];
     }
+  }
+}
+
+// One warp's att v over one panel of keys of launch 3's second round: the
+// rows t0.. t0 + 15, the keys s0.. s0 + 8 NT - 1 (NT 8-key tiles, all
+// below the rows' end), the output columns e0.. e0 + 63. att = qp kp^T is
+// formed in registers, masked to s < t, and feeds att v from there: an
+// accumulator tile of att is an A fragment in the permuted key order
+// (FragA), so v's rows are read in that order. NT is a template argument
+// so that the tile loops unroll without branches and their HMMAs
+// interleave.
+struct AttTile {
+  const float* q0;     // s_qp + (t0 + g) * ldk + tq
+  const float* s_kp;
+  const float* s_v;
+  int ldk, ldv, dkp, s0, t0, e0, g, tq;
+};
+
+template <int NT, bool kExactV>
+__device__ __forceinline__ void att_panel(float (&o)[8][4],
+                                          const AttTile& p) {
+  float a[NT][4] = {};
+  for (int d0 = 0; d0 < p.dkp; d0 += 8) {
+    const FragA qa = frag_a(p.q0[d0], p.q0[8 * p.ldk + d0], p.q0[d0 + 4],
+                            p.q0[8 * p.ldk + d0 + 4]);
+    const float* k0 = p.s_kp + (p.s0 + p.g) * p.ldk + d0 + p.tq;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const FragB kb = frag_b(k0[8 * j * p.ldk], k0[8 * j * p.ldk + 4]);
+      mma3<true>(a[j], qa, kb);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)            // strictly lower: s < t
+      if (p.s0 + 8 * j + 2 * p.tq + x % 2 >= p.t0 + p.g + (x / 2) * 8)
+        a[j][x] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const FragA pa = frag_a(a[j][0], a[j][2], a[j][1], a[j][3]);
+    const float* v0 =
+        p.s_v + (p.s0 + 8 * j + 2 * p.tq) * p.ldv + p.e0 + p.g;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      mma3<!kExactV>(o[jj], pa,
+                     frag_b<kExactV>(v0[8 * jj], v0[p.ldv + 8 * jj]));
   }
 }
 
@@ -477,23 +522,17 @@ chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
   v_copy.fetch();                           // in flight during round 1
   __syncthreads();
 
-  // On the tensor cores, in two rounds over the same items. Item: 16
-  // query rows x 64 output columns (8 accumulator tiles of m16n8); the rows
-  // are dealt to the warps in snake order (0..7, 15..8, ...) so that the
-  // long rows, which see more keys, spread over the warps.
+  // On the tensor cores, in two rounds over the same items: a warp per 16
+  // query rows x 64 output columns (8 accumulator tiles of m16n8).
   // Round 1: carry = qp S_n, into out.
-  // Round 2, once v has replaced S_n: out = (att v + diag * v) + carry.
-  // att is formed 64 keys at a time in registers, only in the key tiles
-  // below the rows' end, and feeds att v from there: an accumulator tile of
-  // att is an A fragment in the permuted key order (Frag::a), so v's rows
-  // are read in that order.
+  // Round 2, once v has replaced S_n: out = (att v + diag * v) + carry,
+  // att v over panels of up to 64 keys below the rows' end (att_panel).
+  // The rows' work grows with their place in the chunk; the warps of the
+  // SM's other block take up what this block's idle warps leave (a split
+  // of the long rows' key panels over the warps measured slower).
   const int g = lane / 4, tq = lane % 4;
   const int n_rows = m.cp / 16;
-  const int n_slots = (n_rows + kWarps - 1) / kWarps * kWarps;
-  for (int slot = warp; slot < n_slots; slot += kWarps) {
-    const int q = slot / kWarps, pos = slot % kWarps;
-    const int rt = q * kWarps + (q % 2 ? kWarps - 1 - pos : pos);
-    if (rt >= n_rows) continue;
+  for (int rt = warp; rt < n_rows; rt += kWarps) {
     const int t0 = rt * 16;
     const float* q0 = s_qp + (t0 + g) * m.ldk + tq;
     for (int e0 = 0; e0 < m.dvp; e0 += kPanel) {
@@ -504,9 +543,7 @@ chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
         const float* s0 = s_v + (d0 + tq) * m.lds + e0 + g;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj)
-          if (e0 + 8 * jj < m.dvp)
-            mma3<true>(cr[jj], qa,
-                       frag_b(s0[8 * jj], s0[4 * m.lds + 8 * jj]));
+          mma3<true>(cr[jj], qa, frag_b(s0[8 * jj], s0[4 * m.lds + 8 * jj]));
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -520,46 +557,24 @@ chunk_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
   __syncthreads();                          // S_n is consumed
   v_copy.store(s_v);
   __syncthreads();
-  for (int slot = warp; slot < n_slots; slot += kWarps) {
-    const int q = slot / kWarps, pos = slot % kWarps;
-    const int rt = q * kWarps + (q % 2 ? kWarps - 1 - pos : pos);
-    if (rt >= n_rows) continue;
+  for (int rt = warp; rt < n_rows; rt += kWarps) {
     const int t0 = rt * 16, t_end = t0 + 16;
     const float* q0 = s_qp + (t0 + g) * m.ldk + tq;
     for (int e0 = 0; e0 < m.dvp; e0 += kPanel) {
       float o[8][4] = {};
       for (int s0 = 0; s0 < t_end; s0 += kPanel) {
-        float a[8][4] = {};
-        for (int d0 = 0; d0 < m.dkp; d0 += 8) {
-          const FragA qa = frag_a(q0[d0], q0[8 * m.ldk + d0], q0[d0 + 4],
-                                  q0[8 * m.ldk + d0 + 4]);
-          const float* k0 = s_kp + (s0 + g) * m.ldk + d0 + tq;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (s0 + 8 * j < t_end) {
-              const FragB kb = frag_b(k0[8 * j * m.ldk],
-                                      k0[8 * j * m.ldk + 4]);
-              mma3<true>(a[j], qa, kb);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int x = 0; x < 4; ++x)      // strictly lower: s < t
-            if (s0 + 8 * j + 2 * tq + x % 2 >= t0 + g + (x / 2) * 8)
-              a[j][x] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (s0 + 8 * j < t_end) {
-            const FragA pa = frag_a(a[j][0], a[j][2], a[j][1], a[j][3]);
-            const float* v0 = s_v + (s0 + 8 * j + 2 * tq) * m.ldv + e0 + g;
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              if (e0 + 8 * jj < m.dvp)
-                mma3<!kExactInTf32<T>>(
-                    o[jj], pa,
-                    frag_b<kExactInTf32<T>>(v0[8 * jj], v0[m.ldv + 8 * jj]));
-          }
+        // 8-key tiles below the rows' end in this panel: 2, 4, 6 or 8
+        const int nt = min(kPanel, t_end - s0) / 8;
+        const AttTile at{q0, s_kp, s_v, m.ldk, m.ldv, m.dkp, s0, t0, e0, g,
+                         tq};
+        if (nt == 8)
+          att_panel<8, kExactInTf32<T>>(o, at);
+        else if (nt == 6)
+          att_panel<6, kExactInTf32<T>>(o, at);
+        else if (nt == 4)
+          att_panel<4, kExactInTf32<T>>(o, at);
+        else
+          att_panel<2, kExactInTf32<T>>(o, at);
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)

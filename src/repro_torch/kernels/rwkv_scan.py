@@ -38,10 +38,10 @@ def smem_bytes(c: int, dk: int, dv: int) -> int:
     in ``csrc/rwkv_scan.cu``, the larger of the two chunk launches): qp
     and kp [C, Dk + 4]; logw, then the state [Dk, Dv + 8], then v
     [C, Dv + 4] in one buffer; diag [C], u [Dk] and the prefix sum's block
-    totals [C / 16, Dk]; C and Dk padded to 16, Dv to 8. At rwkv6 width
+    totals [C / 16, Dk]; C and Dk padded to 16, Dv to 64. At rwkv6 width
     (64) chunk 256 fits the H100's 227 KB; at width 128 a chunk past 128
     tokens does not."""
-    cp, dkp, dvp = _up(c, 16), _up(dk, 16), _up(dv, 8)
+    cp, dkp, dvp = _up(c, 16), _up(dk, 16), _up(dv, 64)
     return 4 * (2 * cp * (dkp + 4) + max(cp * (max(dkp, dvp) + 4),
                                          dkp * (dvp + 8))
                 + cp + dkp + cp // 16 * dk)
