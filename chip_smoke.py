@@ -80,7 +80,7 @@ from typing import Callable, NamedTuple
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, NVIDIA's data sheet
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, and fp32
-# outside them (TF32 would break the float32 tolerances).
+# outside them (one TF32 product misses the float32 tolerances).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # A float32 product can also run exactly enough on the TF32 tensor cores
 # (495 TFLOP/s dense) as three TF32 products (3xTF32): 165e12 float32
@@ -123,6 +123,19 @@ def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
     return device_and_wall_ms(torch, fn, iters, name)[0]
 
 
+def trace_us(prof, match) -> float:
+    """Device microseconds in a ``torch.profiler`` trace spent in the
+    kernels whose names ``match`` accepts."""
+    total = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t and match(ev.key):
+            total += t
+    return total
+
+
 def device_and_wall_ms(torch, fn, iters: int, name: str | None = None
                        ) -> tuple[float, float]:
     """(device, host-clock) milliseconds per call of ``fn``, both from the
@@ -140,13 +153,7 @@ def device_and_wall_ms(torch, fn, iters: int, name: str | None = None
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    total_us = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t and (name is None or name in ev.key):
-            total_us += t
+    total_us = trace_us(prof, lambda key: name is None or name in key)
     if total_us > 0:
         return total_us / 1e3 / iters, wall
     print(f"  (no device time in the trace for {name or 'the call'}: "
@@ -174,15 +181,8 @@ def device_ms_by_kernel(torch, fn, iters: int, names) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        for n in names:
-            if n in ev.key:
-                out[n] += t / 1e3 / iters
-    return out
+    return {n: trace_us(prof, lambda key, n=n: n in key) / 1e3 / iters
+            for n in names}
 
 
 def kernel_resources(log: str) -> list[tuple[str, int, int]]:

@@ -92,15 +92,18 @@ def test_decode_attention_kernel_equals_plain(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rwkv_kernel_equals_plain(cuda_device, dtype):
     """Chunks 8, 16, 32 and 128 (padded to 16 rows where they are not a
-    multiple), widths 16, 24, 32 and 64, and 32 chunks of 128 at B 2 with
-    rwkv6-7b's decay on its slowest- and fastest-decaying heads."""
-    for b, chunk, s, d, decay in ((1, 8, 64, 16, "normal"),
-                                  (1, 128, 512, 64, "normal"),
-                                  (1, 32, 96, 32, "normal"),
-                                  (1, 16, 48, 24, "normal"),
-                                  (2, 128, 4096, 64, "model")):
+    multiple), widths 16, 24, 32 and 64, key and value widths apart (32 and
+    64), and 32 chunks of 128 at B 2 with rwkv6-7b's decay on its slowest-
+    and fastest-decaying heads."""
+    for b, chunk, s, d, dv, decay in ((1, 8, 64, 16, 16, "normal"),
+                                      (1, 128, 512, 64, 64, "normal"),
+                                      (1, 32, 96, 32, 32, "normal"),
+                                      (1, 16, 48, 24, 24, "normal"),
+                                      (1, 32, 96, 32, 64, "normal"),
+                                      (2, 128, 4096, 64, 64, "model")):
         rng = np.random.default_rng(10)
-        r, k, v = _normal(11, cuda_device, DTYPES[dtype], *[(b, 4, s, d)] * 3)
+        r, k, v = _normal(11, cuda_device, DTYPES[dtype], (b, 4, s, d),
+                          (b, 4, s, d), (b, 4, s, dv))
         if decay == "model":     # -exp(linspace(-6, -1) + N(0, 0.5^2))
             base = np.linspace(-6.0, -1.0, 64 * d).reshape(64, 1, d)
             lw = -np.exp(base[[0, 1, 62, 63]][None]
