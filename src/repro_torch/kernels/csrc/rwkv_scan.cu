@@ -54,8 +54,11 @@
 // tokens in bf16, ~335 MB in fp32, against ~8.6 GFLOP of products, which
 // 3xTF32 runs in ~0.05 ms at the tensor cores' peak). The design's own
 // traffic adds the scratch (U_n written and read, S_n written and read: 4
-// x Dk x Dv x 4 bytes per chunk and head, ~134 MB at rwkv6-7b) and a
-// second read of k, v and logw.
+// x Dk x Dv x 4 bytes per chunk and head, ~134 MB at rwkv6-7b), a
+// second read of k, v and logw, and a round trip of out: round 1 writes
+// qp S_n into it and round 2 reads that back and writes the sum, two
+// more passes over the fp32 output (~134 MB at rwkv6-7b) unless the
+// block's own 32 KB tile is still in L2 when round 2 reads it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -93,13 +93,17 @@ def test_decode_attention_kernel_equals_plain(cuda_device, dtype):
 def test_rwkv_kernel_equals_plain(cuda_device, dtype):
     """Chunks 8, 16, 32 and 128 (padded to 16 rows where they are not a
     multiple), widths 16, 24, 32 and 64, key and value widths apart (32 and
-    64), and 32 chunks of 128 at B 2 with rwkv6-7b's decay on its slowest-
-    and fastest-decaying heads."""
+    64), one chunk alone (S 64 and 24 under chunks 128 and 32: no chunk
+    state launch, the state scan writes S_0 = 0 only), and 32 chunks of
+    128 at B 2 with rwkv6-7b's decay on its slowest- and fastest-decaying
+    heads."""
     for b, chunk, s, d, dv, decay in ((1, 8, 64, 16, 16, "normal"),
                                       (1, 128, 512, 64, 64, "normal"),
                                       (1, 32, 96, 32, 32, "normal"),
                                       (1, 16, 48, 24, 24, "normal"),
                                       (1, 32, 96, 32, 64, "normal"),
+                                      (1, 128, 64, 64, 64, "normal"),
+                                      (1, 32, 24, 16, 16, "normal"),
                                       (2, 128, 4096, 64, 64, "model")):
         rng = np.random.default_rng(10)
         r, k, v = _normal(11, cuda_device, DTYPES[dtype], (b, 4, s, d),

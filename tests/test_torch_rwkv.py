@@ -195,6 +195,19 @@ def test_rwkv_three_pass_decomposition_matches_reference(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_rwkv_three_pass_one_chunk_matches_reference(dtype):
+    """A sequence shorter than the chunk is one chunk of S tokens (64
+    under chunk 128): no chunk state term, the state entering it 0; the
+    three launches still give the jnp reference's output within 1e-6 of
+    its largest magnitude."""
+    js, ts = _both(_model_inputs(22, (0, 63), s=64), dtype)
+    want = torch.from_numpy(np.array(j_ref_scan(*js, 128)[0], np.float32))
+    got = _three_pass(*ts, 64)
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_rwkv_three_pass_3xtf32_within_card_allowance(dtype):
     """The four chunk products taken as 3xTF32 (the kernel's tensor-core
     products) stay within the card's allowance of the reference
