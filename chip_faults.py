@@ -13,10 +13,11 @@ next chunk, one chunk's fold of a float counter skipped, a chunk's sums
 added in float32, which only a chunk summing past 2^24 shows, one
 cluster CTA's share of the decay pass skipped) runs phase 4
 (``chip_smoke.check_chunk_step``), which must stop at a mismatch. A fault
-in a model kernel (a skipped kv tile in either flash path, a split
-dropped by the decode combine, a mask edge moved by one key, one chunk's
-state term skipped in the RWKV state scan, the a_lo b_hi term of the RWKV
-att product dropped) runs the phase-6 cases of its kernel at full width,
+in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
+term of the mma path's P V product dropped, a split dropped by the decode
+combine, a mask edge moved by one key, one chunk's state term skipped in
+the RWKV state scan, the a_lo b_hi term of the RWKV att product dropped)
+runs the phase-6 cases of its kernel at full width,
 each result held to its plain version by ``chip_smoke.case_error``
 (``ref.kernel_error``'s allowance). One JSON line per case gives whether
 it was caught (for a model kernel, the error's share of the allowance
@@ -71,16 +72,23 @@ FAULTS = [
      "      const int k0 = t * BK;\n"
      "      if (t == (tr.first + tr.last) / 2)\n"
      "        for (int j = 0; j < BK / 2; ++j) s[j] = -INFINITY;\n"),
-    ("flash wgmma: window edge one key wide", "flash_attention",
+    ("flash (both paths): window edge one key wide", "flash_attention",
      CSRC + "flash_attention.cu",
-     "              ok_a = ok_a && (qi_a - ki < window);\n"
-     "              ok_b = ok_b && (qi_b - ki < window);",
-     "              ok_a = ok_a && (qi_a - ki <= window);\n"
-     "              ok_b = ok_b && (qi_b - ki <= window);"),
-    ("flash fma: middle kv tile skipped", "flash_attention",
+     "          ok_a = ok_a && (r.qi_a - ki < window);\n"
+     "          ok_b = ok_b && (r.qi_b - ki < window);",
+     "          ok_a = ok_a && (r.qi_a - ki <= window);\n"
+     "          ok_b = ok_b && (r.qi_b - ki <= window);"),
+    ("flash mma: middle kv tile skipped", "flash_attention",
      CSRC + "flash_attention.cu",
-     "    if (!needed) continue;                  // uniform over the block",
-     "    if (!needed || t == n_tiles / 2) continue;"),
+     "    const int kv0 = t * BK;\n",
+     "    const int kv0 = t * BK;\n"
+     "    if (t == (tr.first + tr.last) / 2)\n"
+     "      for (int x = 0; x < BK / 2; ++x) s[x] = -INFINITY;\n"),
+    ("flash mma: the lo hi term of the P V product dropped (2xTF32)",
+     "flash_attention", CSRC + "flash_attention.cu",
+     "        mma3<!kExact>(o + 4 * jj, pa,\n",
+     "        mma3<!kExact>(o + 4 * jj, FragA{{pa.hi[0], pa.hi[1], pa.hi[2], "
+     "pa.hi[3]}, {0u, 0u, 0u, 0u}},\n"),
     ("decode: middle split dropped in the combine", "decode_attention",
      CSRC + "decode_attention.cu",
      "      const float w = expf(ml[2 * s] - mx);",

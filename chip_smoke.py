@@ -44,10 +44,11 @@ Phases, each printing its lines in order:
    ``ops.rwkv_chunk`` driven once per case at the widths of the repo's
    configurations (minitron-8b, gemma3-4b, phi3-mini, rwkv6-7b; inputs
    from fixed seeds on the card), each launch counted, and the flash
-   kernel's path per call ("wgmma" for every bf16 case, "fma" for fp32);
-   the count of ``HGMMA`` and ``UTMALDG`` instructions in the flash
-   library's SASS and of TF32 ``HMMA`` (``mma.sync``) in the RWKV
-   library's where ``cuobjdump`` is found; then each case against
+   kernel's path per call ("wgmma" for every bf16 case, whose head dims
+   are multiples of 8, "mma" for every fp32 one); the count of ``HGMMA``,
+   ``UTMALDG`` and TF32 ``HMMA`` (``mma.sync``) instructions in the flash
+   library's SASS and of TF32 ``HMMA`` in the RWKV library's where
+   ``cuobjdump`` is found; then each case against
    its plain version on the same inputs (max abs error and its share of
    ``repro_torch.kernels.ref.kernel_error``'s allowance), the kernel's
    device time, the plain version's, a library yardstick's where one
@@ -81,9 +82,10 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, NVIDIA's data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # A float32 product can also run exactly enough on the TF32 tensor cores
 # (495 TFLOP/s dense) as three TF32 products (3xTF32): 165e12 float32
-# FLOP/s, the least time of the RWKV kernel's float32 products.
+# FLOP/s, the least time of the float32 products of the RWKV kernel and of
+# the flash kernel's "mma" path.
 FP32_3XTF32_FLOPS = 495e12 / 3
-RWKV_MMA = "HMMA.1688.F32.TF32"   # mma.sync m16n8k8 TF32 in the SASS
+TF32_MMA = "HMMA.1688.F32.TF32"   # mma.sync m16n8k8 TF32 in the SASS
 POLICIES = ("static", "hotness", "write_bias", "stream", "hotness_global",
             "wear_level")
 
@@ -784,6 +786,7 @@ class Case(NamedTuple):
     flops: float
     byts: float
     rate: float | None = None     # FLOP/s of the bound, if not the peak
+    path: str | None = None       # the flash path the call must take
 
 
 def randn(torch, dev, seed, shape, dtype):
@@ -813,11 +816,13 @@ def flash_case(torch, dev, ops, fa, label, config, seed, b, hq, hkv, sq, skv,
             q, k, v, attn_mask=mask, enable_gqa=True)
     flops = 4 * b * hq * d * attention_pairs(sq, skv, True, window)
     byts = nbytes(q, k, v, q)
+    fp32 = dtype == "float32"
     return Case("flash_attention", label, config, dtype,
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: fa.flash_attention_cuda(q, k, v, **kw),
                 lambda: fa.flash_attention_plain(q, k, v, **kw),
-                lib, flops, byts)
+                lib, flops, byts, FP32_3XTF32_FLOPS if fp32 else None,
+                "mma" if fp32 or d % 8 else "wgmma")
 
 
 def flash_grad_case(torch, dev, ops, fa, seed):
@@ -837,7 +842,7 @@ def flash_grad_case(torch, dev, ops, fa, seed):
                 lambda: through(ops.flash_attention),
                 lambda: through(ops.flash_attention),
                 lambda: through(fa.flash_attention_plain), None, 3 * flops,
-                3 * nbytes(q, k, v, q))
+                3 * nbytes(q, k, v, q), FP32_3XTF32_FLOPS, "mma")
 
 
 def decode_case(torch, dev, ops, da, label, config, seed, b, hq, hkv, smax,
@@ -912,6 +917,8 @@ def model_cases(torch, dev, ops, fa, da, rw) -> list:
                    "bfloat16"),
         flash_case(torch, dev, ops, fa, "prefill, fp32", "phi3-mini", 130,
                    1, 32, 32, 2048, 2048, 96, "float32"),
+        flash_case(torch, dev, ops, fa, "prefill, bf16", "phi3-mini", 135,
+                   1, 32, 32, 4096, 4096, 96, "bfloat16"),
         flash_grad_case(torch, dev, ops, fa, 140),
         decode_case(torch, dev, ops, da, "decode_32k, B=8", "minitron-8b",
                     200, 8, 32, 8, 32768, 128),
@@ -955,30 +962,32 @@ def check_model_kernels(torch, ref, fa, da, rw, cases) -> dict:
     counts = {name: k.launches for name, k in kernels.items()}
     want = {name: sum(c.kernel == name for c in cases) for name in kernels}
     variants = dict(fa.KERNEL.variant_launches)
-    bf16 = sum(c.kernel == "flash_attention" and c.dtype == "bfloat16"
-               for c in cases)
+    paths = {v: sum(c.path == v for c in cases) for v in fa.KERNEL.variants}
     print(f"  the path: {len(cases)} calls through ops.*, launches {counts}; "
           f"flash variants {variants}")
     if counts != want:
         raise Mismatch(f"phase 6 launched {counts}, expected {want}")
-    if variants["wgmma"] != bf16:
-        raise Mismatch(f"{variants['wgmma']} of the {bf16} bf16 flash cases "
-                       "took the wgmma path")
-    sass = sass_counts(fa.KERNEL.library) if bf16 else None
-    if bf16 and sass is None:
-        print("  flash SASS: not checked (no cuobjdump found)")
-    elif bf16:
-        print(f"  flash SASS: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} "
-              "UTMALDG instructions")
-        if sass["HGMMA"] == 0:
-            raise Mismatch("the flash library holds no HGMMA instruction")
+    if variants != paths:
+        raise Mismatch(f"the flash cases took the paths {variants}, "
+                       f"expected {paths} (bf16 at D % 8 == 0 on wgmma, "
+                       "fp32 on mma)")
+    if counts["flash_attention"]:
+        sass = sass_counts(fa.KERNEL.library, ("HGMMA", "UTMALDG", TF32_MMA))
+        if sass is None:
+            print("  flash SASS: not checked (no cuobjdump found)")
+        else:
+            print(f"  flash SASS: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} "
+                  f"UTMALDG, {sass[TF32_MMA]} {TF32_MMA} instructions")
+            for op in ("HGMMA", TF32_MMA):
+                if sass[op] == 0:
+                    raise Mismatch(f"the flash library holds no {op}")
     if any(c.kernel == "rwkv_scan" for c in cases):
-        tf32 = sass_counts(rw.KERNEL.library, (RWKV_MMA,))
+        tf32 = sass_counts(rw.KERNEL.library, (TF32_MMA,))
         if tf32 is None:
             print("  rwkv SASS: not checked (no cuobjdump found)")
         else:
-            print(f"  rwkv SASS: {tf32[RWKV_MMA]} {RWKV_MMA} instructions")
-            if tf32[RWKV_MMA] == 0:
+            print(f"  rwkv SASS: {tf32[TF32_MMA]} {TF32_MMA} instructions")
+            if tf32[TF32_MMA] == 0:
                 raise Mismatch("the rwkv library holds no TF32 mma.sync")
     results = []
     for case, got in zip(cases, outs):

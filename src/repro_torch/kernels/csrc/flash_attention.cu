@@ -1,6 +1,6 @@
-// Blocked GQA flash attention (forward) for Hopper (sm_90a): a tensor-core
-// path for bf16 at head dims 64, 128 and 256, and a CUDA-core kernel for
-// every other case.
+// Blocked GQA flash attention (forward) for Hopper (sm_90a): a TMA + wgmma
+// path for bf16 at head dims that are a multiple of 8, and an mma.sync
+// path on the TF32 tensor cores for fp32 (and bf16 at other head dims).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (its pallas_call at line 111, body _kernel at line 30), whose grid ran
@@ -18,250 +18,414 @@
 // paths skip the kv tiles that are entirely masked for the whole q tile,
 // by the TPU kernel's rule at their own tile sizes (causal: first key <=
 // last q position; window: last key >= first q position - window + 1).
+// Both keep the online softmax in registers: a warp's accumulator rows
+// are spread over the four lanes of a quad, whose row max and sum are
+// quad shuffles; exp is expf.
 //
 // What bounds it on the H100: operations. A causal 4096-token layer at
 // 32 heads x 128 does ~137 GFLOP against ~84 MB of traffic, far above the
-// card's ridge point; the bound is the tensor cores' 989 TFLOP/s in bf16.
+// card's ridge point; the bound is the tensor cores' 989 TFLOP/s in bf16,
+// and 495 / 3 TFLOP/s in fp32 taken as 3xTF32.
 //
 // The entry point dispatches by dtype and head dim, never by failure:
 //
-// * "wgmma" (bf16, D in {64, 128, 256}): one block of three warpgroups per
-//   (128-row q tile, b * Hq). Warpgroup 0 is the producer: it gives up
+// * "wgmma" (bf16, D % 8 == 0): one block of three warpgroups per
+//   (128-row q tile, b * Hq), built for Dp = 64, 128 or 256, the least of
+//   them >= D. Warpgroup 0 is the producer: it gives up
 //   registers (setmaxnreg 40) and one thread issues TMA loads, Q once and
 //   then the K and V tiles of a 2-stage ring in shared memory, each stage
-//   guarded by full (K, V) and empty mbarriers. A D-wide tile lands as D/64
+//   guarded by full (K, V) and empty mbarriers. A Dp-wide tile lands as Dp/64
 //   slabs of 64 columns in the 128-byte swizzle (a TMA box row is at most
-//   128 bytes); the tensor maps span [B*H, S, D], so a ragged tile reads
-//   zeros, never the next head's rows. Warpgroups 1 and 2 (setmaxnreg 232)
+//   128 bytes); the tensor maps span the true [B*H, S, D], so a ragged tile
+//   reads zeros, never the next head's rows, and at D < Dp the columns past
+//   D read as zeros too (the padded slab adds exactly 0 to Q K^T; its
+//   output columns are not stored). Warpgroups 1 and 2 (setmaxnreg 232)
 //   each own 64 q rows: S = Q K^T by wgmma m64nBKk16 with Q and K from
 //   shared memory, the scale, mask and sentinel applied on the accumulator
-//   registers, the online softmax in registers (row max and sum by quad
-//   shuffles, fp32 expf), then O += P V by wgmma with A = P from registers
+//   registers, the online softmax in registers, then O += P V by wgmma
+//   with A = P from registers
 //   and B = V read MN-major through the transpose bit (no transpose pass).
 //   P is split into hi = bf16(P) and lo = bf16(P - hi) and both products
 //   are issued: P rounded to bf16 alone lands over ten times outside the
 //   allowance the port holds this kernel to (one bf16 step of the fp32-P
 //   result), at outputs near zero where the averaged values cancel; hi +
 //   lo keeps P to ~16 bits and matches fp32 P. That is 1.5x the tensor work of a kernel
-//   with bf16 P. BK = 128 kv rows at D <= 128 and 64 at D 256, where the O
+//   with bf16 P. BK = 128 kv rows at Dp <= 128 and 64 at Dp 256, where the O
 //   accumulator alone is 128 registers a thread. Producer and consumers
 //   take the tiles to visit from one helper (kv_tiles); causal q tiles run
 //   longest first. The output is acc / l (l = 0 gives 0), rounded once to
 //   bf16, rows >= Sq not stored.
-// * "fma" (fp32 at any D, bf16 at other D): one 256-thread block per
-//   (64-row q tile, b * Hq), products as fp32 FMAs out of shared memory
-//   (fp32 must not use TF32, which keeps about three digits). Q, K and V
-//   tiles sit in shared memory as fp32 with a row stride of D + 1; each
-//   thread keeps 4 rows x ceil(D/16) columns of the accumulator in
-//   registers. Every sum fp32, exp is expf.
+// * "mma" (fp32 at any D, bf16 at D % 8 != 0): FlashAttention-2 on
+//   mma.sync.m16n8k8 TF32 with fp32 accumulators, every product 3xTF32
+//   (tf32x3.cuh): one TF32 product keeps about three digits, far outside
+//   the fp32 allowance. One block of 8 warps per (128-row q tile,
+//   b * Hq), built for Dp = 16, 32, 64, 96, 128, 192 or 256, the least of
+//   them >= D. Q, then the K and V tiles of a 2-stage ring, are staged in
+//   shared memory as fp32 rows of stride Dp + 4 (fragment loads meet no
+//   bank conflict) by cp.async, 16 bytes a copy where rows allow (bf16 is
+//   converted as it is staged), columns D..Dp zeroed once, which adds
+//   exactly 0 to Q K^T. Each warp owns 16 q rows: S = Q K^T as m16n8
+//   accumulator tiles, scale, masks and sentinel on the accumulator, the
+//   online softmax in registers, then O += P V with P straight from the S
+//   accumulator: an accumulator tile is the next product's A fragment
+//   once V's rows are read in the order (2q, 2q + 1). BK = 64 kv rows at
+//   Dp <= 64 and 128, 32 at 96 and 192, 16 at 256, so that two blocks
+//   fit an SM at Dp <= 96 and the tiles fit 227 KB above it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
-
-size_t smem_bytes(int d) {
-  size_t ld = d + 1;
-  return ((kBQ + 2 * kBK) * ld + kBQ * (kBK + 1) + 3 * kBQ) * sizeof(float);
-}
-
-// NJ = columns of the accumulator per thread (16 * NJ >= D).
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int hq, int hkv, int sq, int skv, int d, int causal,
-                       int has_window, int window, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* s_q = smem;                     // [kBQ][ld]
-  float* s_k = s_q + kBQ * ld;           // [kBK][ld]
-  float* s_v = s_k + kBK * ld;           // [kBK][ld]
-  float* s_s = s_v + kBK * ld;           // [kBQ][kBK + 1] logits, then p
-  float* s_m = s_s + kBQ * (kBK + 1);    // [kBQ] running max
-  float* s_l = s_m + kBQ;                // [kBQ] running sum
-  float* s_a = s_l + kBQ;                // [kBQ] this tile's alpha
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.y;
-  const int b = bh / hq, h = bh % hq;
-  const int kvh = h / (hq / hkv);
-  const int q0 = blockIdx.x * kBQ;
+// The kv tiles [first, last] that the q tile of bq rows at q0 visits: the
+// TPU kernel's skip rule at tile size bk. In the wgmma path producer and
+// consumers both call this; if they disagreed on one tile the block would
+// hang.
+struct TileRange {
+  int first, last;
+};
+__device__ __forceinline__ TileRange kv_tiles(int q0, int bq, int sq,
+                                              int skv, int causal,
+                                              int has_window, int window,
+                                              int bk) {
   const int q_off = skv - sq;
+  const int q_lo = q0 + q_off;                       // first q position
+  const int q_hi = min(q0 + bq, sq) - 1 + q_off;     // last q position
+  TileRange r{0, (skv + bk - 1) / bk - 1};
+  if (causal) r.last = min(r.last, q_hi / bk);
+  if (has_window) r.first = max(0, q_lo - window + 1) / bk;
+  return r;
+}
 
-  const T* qb = q + ((long long)bh * sq) * d;
-  const T* kb = k + ((long long)(b * hkv + kvh) * skv) * d;
-  const T* vb = v + ((long long)(b * hkv + kvh) * skv) * d;
+// A warp's 16 rows of a tile in the layout that mma.sync's m16n8
+// accumulator tiles and wgmma's m64 accumulator share: element 4j + e
+// (e = 0, 1) is row a, column 8j + col0 + e (col0 = 2 (lane % 4)), and
+// 4j + 2 + e the same column of row b = a + 8; the four lanes of a quad
+// hold a row's columns.
+struct Rows {
+  int qi_a, qi_b;        // the q positions of rows a and b
+  int qi_min, qi_max;    // of the warp's 16 rows
+  int col0;
+};
 
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    int r = i / d, c = i % d;
-    s_q[r * ld + c] = (q0 + r < sq) ? to_f(qb[(long long)(q0 + r) * d + c])
-                                    : 0.f;
-  }
-  if (tid < kBQ) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
-  }
-  float acc[4][NJ];
+// Scale the logits of NT key tiles of 8 from key kv0, then mask them: the
+// sentinel kNegInf where causal or the window excludes the key, -inf for
+// keys past skv. Only a tile that reaches past the rows' diagonal, the
+// window or skv is masked key by key.
+template <int NT>
+__device__ __forceinline__ void scale_and_mask(float (&s)[4 * NT],
+                                               const Rows& r, int kv0,
+                                               float scale, int skv,
+                                               int causal, int has_window,
+                                               int window) {
+  const bool edge = kv0 + 8 * NT > skv ||
+                    (causal && kv0 + 8 * NT - 1 > r.qi_min) ||
+                    (has_window && r.qi_max - kv0 >= window);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  const int q_lo = q0 + q_off;              // first q position of the tile
-  const int q_hi = q0 + kBQ - 1 + q_off;    // last q position of the tile
-  const int n_tiles = (skv + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int lo = t * kBK;
-    bool needed = true;
-    if (causal) needed = lo <= q_hi;
-    if (has_window) needed = needed && (lo + kBK - 1 >= q_lo - window + 1);
-    if (!needed) continue;                  // uniform over the block
-
-    __syncthreads();                        // the last tile is consumed
-    for (int i = tid; i < kBK * d; i += kThreads) {
-      int r = i / d, c = i % d;
-      bool in = lo + r < skv;
-      long long off = (long long)(lo + r) * d + c;
-      s_k[r * ld + c] = in ? to_f(kb[off]) : 0.f;
-      s_v[r * ld + c] = in ? to_f(vb[off]) : 0.f;
-    }
-    __syncthreads();
-
-    // Logits: s = (q . k) * scale, masked.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s_q[(ty + 16 * i) * ld + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = s_k[(tx + 16 * j) * ld + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qi = q0 + r + q_off;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cc = tx + 16 * j;
-        const int ki = lo + cc;
-        bool ok = true;
-        if (causal) ok = ki <= qi;
-        if (has_window) ok = ok && (qi - ki < window);
-        float val = ok ? s[i][j] * scale : kNegInf;
-        s_s[r * (kBK + 1) + cc] = ki < skv ? val : -INFINITY;
+    for (int e = 0; e < 2; ++e) {
+      float va = s[4 * j + e] * scale, vb = s[4 * j + 2 + e] * scale;
+      if (edge) {
+        const int ki = kv0 + 8 * j + r.col0 + e;
+        bool ok_a = true, ok_b = true;
+        if (causal) {
+          ok_a = ki <= r.qi_a;
+          ok_b = ki <= r.qi_b;
+        }
+        if (has_window) {
+          ok_a = ok_a && (r.qi_a - ki < window);
+          ok_b = ok_b && (r.qi_b - ki < window);
+        }
+        va = ok_a ? va : kNegInf;
+        vb = ok_b ? vb : kNegInf;
+        if (ki >= skv) va = vb = -INFINITY;
       }
-    }
-    __syncthreads();
-
-    // Online softmax: warp w updates rows 8w .. 8w + 7.
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
-      float* row = s_s + r * (kBK + 1);
-      float x0 = row[lane], x1 = row[lane + 32];
-      float m_prev = s_m[r];
-      float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        float alpha = expf(m_prev - m_new);
-        s_l[r] = s_l[r] * alpha + sum;
-        s_m[r] = m_new;
-        s_a[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float* p = s_s + r * (kBK + 1);
-      float pv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) pv[j] = 0.f;
-      for (int jk = 0; jk < kBK; ++jk) {
-        const float pj = p[jk];
-        const float* vr = s_v + jk * ld + tx;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          if (tx + 16 * j < d) pv[j] = fmaf(pj, vr[16 * j], pv[j]);
-      }
-      const float a = s_a[r];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = acc[i][j] * a + pv[j];
-    }
-  }
-  __syncthreads();
-
-  T* ob = out + ((long long)bh * sq) * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= sq) continue;
-    float l = s_l[r];
-    l = (l == 0.f) ? 1.f : l;               // fully masked rows -> 0
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) ob[(long long)(q0 + r) * d + c] = from_f<T>(acc[i][j] / l);
+      s[4 * j + e] = va;
+      s[4 * j + 2 + e] = vb;
     }
   }
 }
 
-template <typename T, int NJ>
+// One step of the online softmax over NT key tiles: the rows' running max
+// m, this lane's share of their sums l (the quad's shares add up at the
+// end), O's NO column tiles rescaled by alpha = exp(m_old - m_new); the
+// logits s become p.
+template <int NT, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[4 * NT],
+                                             float (&o)[4 * NO], float& m_a,
+                                             float& m_b, float& l_a,
+                                             float& l_b) {
+  float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(~0u, mx_a, x));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(~0u, mx_b, x));
+  }
+  const float al_a = expf(m_a - mx_a), al_b = expf(m_b - mx_b);
+  m_a = mx_a;
+  m_b = mx_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = expf(s[4 * j + e] - mx_a);
+      s[4 * j + 2 + e] = expf(s[4 * j + 2 + e] - mx_b);
+      sum_a += s[4 * j + e];
+      sum_b += s[4 * j + 2 + e];
+    }
+  }
+  l_a = l_a * al_a + sum_a;
+  l_b = l_b * al_b + sum_b;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    o[4 * j] *= al_a;
+    o[4 * j + 1] *= al_a;
+    o[4 * j + 2] *= al_b;
+    o[4 * j + 3] *= al_b;
+  }
+}
+
+// 1 / a row's sum from this lane's share; a row that saw no key (l = 0)
+// gives 1, so that its output is 0.
+__device__ __forceinline__ float inv_row_sum(float l) {
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) l += __shfl_xor_sync(~0u, l, x);
+  return 1.f / (l == 0.f ? 1.f : l);
+}
+
+}  // namespace
+
+// ------------------------------------------------------------ "mma" path
+namespace mm {
+
+using namespace tf32x3;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;     // q rows per block: 16 a warp
+constexpr int kStages = 2;           // K/V ring depth
+
+template <int DP> struct Tile {
+  static constexpr int BK = DP == 96 || DP == 192 ? 32 : DP == 256 ? 16 : 64;
+  static constexpr int kMinBlocks = DP <= 96 ? 2 : 1;   // blocks an SM
+  static constexpr int LD = DP + 4;                     // row stride, floats
+  // Q [kBQ][LD], then K[stage] and V[stage], each [BK][LD].
+  static constexpr size_t kBytes =
+      (size_t)(kBQ + 2 * kStages * BK) * LD * sizeof(float);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one head's rows [n][d] into dst [ROWS][LD]
+// as fp32, columns < d; rows >= n read as zeros (cp.async's zero fill).
+// vec: d % 4 == 0 and 16-byte aligned rows, copied 16 bytes at a time.
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n, int d, int vec) {
+  constexpr int LD = DP + 4;
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * (DP / 4); i += kThreads) {
+      const int r = i / (DP / 4), c = 4 * (i % (DP / 4));
+      const bool ok = row0 + r < n;
+      if (c < d)
+        cp_async16(dst + r * LD + c, src + (long long)(ok ? row0 + r : 0) * d
+                   + c, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      const bool ok = row0 + r < n;
+      if (c < d)
+        cp_async4(dst + r * LD + c, src + (long long)(ok ? row0 + r : 0) * d
+                  + c, ok);
+    }
+  }
+}
+// bf16 (reached only at D % 8 != 0): converted as it is stored.
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n, int d, int) {
+  constexpr int LD = DP + 4;
+  for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+    const int r = i / DP, c = i % DP;
+    if (c < d)
+      dst[r * LD + c] = row0 + r < n
+          ? __bfloat162float(src[(long long)(row0 + r) * d + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, Tile<DP>::kMinBlocks)
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out, int hq,
+                 int hkv, int sq, int skv, int d, int causal, int has_window,
+                 int window, float scale, int vec) {
+  using L = Tile<DP>;
+  constexpr int BK = L::BK, LD = L::LD;
+  constexpr bool kExact = kExactInTf32<T>;   // bf16 operands: lo = 0
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                         // [kBQ][LD]
+  float* s_k = s_q + kBQ * LD;               // [kStages][BK][LD]
+  float* s_v = s_k + kStages * BK * LD;      // [kStages][BK][LD]
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBQ;
+  const int b = bh / hq, h = bh % hq;
+  const long long bkv = (long long)b * hkv + h / (hq / hkv);
+  const T* kb = k + bkv * skv * d;
+  const T* vb = v + bkv * skv * d;
+  const TileRange tr = kv_tiles(q0, kBQ, sq, skv, causal, has_window,
+                                window, BK);
+
+  // Columns d..DP of every row stay 0; the copies write columns < d.
+  if (d < DP)
+    for (int i = threadIdx.x; i < (kBQ + 2 * kStages * BK) * DP;
+         i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      if (c >= d) smem[r * LD + c] = 0.f;
+    }
+  load_rows<kBQ, DP>(s_q, q + (long long)bh * sq * d, q0, sq, d, vec);
+  if (tr.first <= tr.last) {
+    load_rows<BK, DP>(s_k, kb, tr.first * BK, skv, d, vec);
+    load_rows<BK, DP>(s_v, vb, tr.first * BK, skv, d, vec);
+  }
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int row_a = warp * 16 + g;                    // and row_a + 8
+  const int qi_min = q0 + warp * 16 + skv - sq;       // the warp's rows
+  const Rows rows{qi_min + g, qi_min + g + 8, qi_min, qi_min + 15, 2 * tq};
+  const float* qw = s_q + row_a * LD + tq;
+
+  float o[DP / 2];                                    // DP/8 m16n8 tiles
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int t = tr.first, i = 0; t <= tr.last; ++t, ++i) {
+    // The next tile into the other stage (consumed one iteration ago).
+    if (t < tr.last) {
+      const int nx = (i + 1) % kStages;
+      load_rows<BK, DP>(s_k + nx * BK * LD, kb, (t + 1) * BK, skv, d, vec);
+      load_rows<BK, DP>(s_v + nx * BK * LD, vb, (t + 1) * BK, skv, d, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = s_k + (i % kStages) * BK * LD;
+    const float* sv = s_v + (i % kStages) * BK * LD;
+
+    // S = Q K^T: DP/8 steps of k8 over BK/8 key tiles. K's row is the B
+    // fragment's column: b0 = K[key g][tq], b1 = K[key g][tq + 4].
+    float s[BK / 2];                                  // BK/8 m16n8 tiles
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) s[x] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const FragA qa = frag_a(qw[8 * kk], qw[8 * LD + 8 * kk],
+                              qw[8 * kk + 4], qw[8 * LD + 8 * kk + 4]);
+      const float* kr = sk + g * LD + 8 * kk + tq;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mma3<!kExact>(s + 4 * j, qa,
+                      frag_b<kExact>(kr[8 * j * LD], kr[8 * j * LD + 4]));
+    }
+
+    const int kv0 = t * BK;
+    scale_and_mask<BK / 8>(s, rows, kv0, scale, skv, causal, has_window,
+                           window);
+    softmax_step<BK / 8, DP / 8>(s, o, m_a, m_b, l_a, l_b);
+
+    // O += P V: key tile j of S is the A fragment (c0, c2, c1, c3) with
+    // keys 2tq, 2tq + 1 at lane tq, so V's rows are read in that order:
+    // b0 = V[key 2tq][col g], b1 = V[key 2tq + 1][col g].
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const FragA pa = frag_a(s[4 * j], s[4 * j + 2], s[4 * j + 1],
+                              s[4 * j + 3]);
+      const float* v0 = sv + (8 * j + 2 * tq) * LD + g;
+#pragma unroll
+      for (int jj = 0; jj < DP / 8; ++jj)
+        mma3<!kExact>(o + 4 * jj, pa,
+                      frag_b<kExact>(v0[8 * jj], v0[LD + 8 * jj]));
+    }
+    __syncthreads();                   // this stage is consumed
+  }
+  cp_async_wait<0>();
+
+  const float inv_a = inv_row_sum(l_a), inv_b = inv_row_sum(l_b);
+  const int r_a = q0 + row_a, r_b = r_a + 8;
+  T* ob = out + (long long)bh * sq * d;
+#pragma unroll
+  for (int jj = 0; jj < DP / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jj + 2 * tq + e;
+      if (c < d && r_a < sq) store(ob + (long long)r_a * d + c,
+                                   o[4 * jj + e] * inv_a);
+      if (c < d && r_b < sq) store(ob + (long long)r_b * d + c,
+                                   o[4 * jj + 2 + e] * inv_b);
+    }
+  }
+}
+
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int hq, int hkv, int sq, int skv, int d, int causal,
            int has_window, int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, NJ>;
-  size_t smem = smem_bytes(d);
+  using L = Tile<DP>;
+  auto kernel = flash_mma_kernel<T, DP>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const int vec = sizeof(T) == 4 && d % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv, d,
-      causal, has_window, window, scale);
+      causal, has_window, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -269,17 +433,17 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int b,
              int hq, int hkv, int sq, int skv, int d, int causal,
              int has_window, int window, float scale, cudaStream_t stream) {
-  int nj = (d + 15) / 16;
-#define FA_CASE(N)                                                        \
-  if (nj <= N)                                                            \
-    return launch<T, N>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,     \
-                        has_window, window, scale, stream);
-  FA_CASE(1) FA_CASE(2) FA_CASE(4) FA_CASE(6) FA_CASE(8) FA_CASE(16)
+#define FA_CASE(DP)                                                       \
+  if (d <= DP)                                                            \
+    return launch<T, DP>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,    \
+                         has_window, window, scale, stream);
+  FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(96) FA_CASE(128) FA_CASE(192)
+  FA_CASE(256)
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace mm
 
 // ------------------------------------------------------------ "wgmma" path
 namespace wg {
@@ -290,7 +454,6 @@ constexpr int kBQ = 128;             // q rows per block (2 x 64)
 constexpr int kStages = 2;           // K/V ring depth
 constexpr int kThreads = 384;        // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
-constexpr float kNegInf = -1e30f;
 
 template <int D> struct Tile {
   static constexpr int BK = D == 256 ? 64 : 128;   // kv rows per tile
@@ -305,24 +468,6 @@ template <int D> struct Tile {
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// The kv tiles [first, last] that the q tile at q0 visits: the TPU
-// kernel's skip rule at tile size bk. Producer and consumers both call
-// this; if they disagreed on one tile the block would hang.
-struct TileRange {
-  int first, last;
-};
-__device__ __forceinline__ TileRange kv_tiles(int q0, int sq, int skv,
-                                              int causal, int has_window,
-                                              int window, int bk) {
-  const int q_off = skv - sq;
-  const int q_lo = q0 + q_off;                       // first q position
-  const int q_hi = min(q0 + kBQ, sq) - 1 + q_off;    // last q position
-  TileRange r{0, (skv + bk - 1) / bk - 1};
-  if (causal) r.last = min(r.last, q_hi / bk);
-  if (has_window) r.first = max(0, q_lo - window + 1) / bk;
-  return r;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -334,7 +479,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, int hq, int hkv, int sq,
-                   int skv, int causal, int has_window, int window,
+                   int skv, int d, int causal, int has_window, int window,
                    float scale) {
   using L = Tile<D>;
   constexpr int BK = L::BK;
@@ -351,7 +496,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * kBQ;
   const int b = bh / hq, h = bh % hq;
   const int bkv = b * hkv + h / (hq / hkv);
-  const TileRange tr = kv_tiles(q0, sq, skv, causal, has_window, window, BK);
+  const TileRange tr = kv_tiles(q0, kBQ, sq, skv, causal, has_window,
+                                window, BK);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -395,10 +541,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = tid / 32, lane = tid % 32;
     const int q_off = skv - sq;
     const int row_a = cw * 64 + warp * 16 + lane / 4;    // and row_a + 8
-    const int qi_a = q0 + row_a + q_off, qi_b = qi_a + 8;
     const int qi_min = q0 + cw * 64 + warp * 16 + q_off; // the warp's rows
-    const int qi_max = qi_min + 15;
     const int col0 = 2 * (lane % 4);
+    const Rows rows{qi_min + lane / 4, qi_min + lane / 4 + 8, qi_min,
+                    qi_min + 15, col0};
 
     float o[D / 2];
 #pragma unroll
@@ -430,71 +576,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs<BK / 2>(s);
 
-      // Scale, then the mask: element 4j + e is (row_a, key 8j + col0 + e),
-      // 4j + 2 + e the same key for row_a + 8.
       const int k0 = t * BK;
-      const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > qi_min) ||
-                        (has_window && qi_max - k0 >= window);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float va = s[4 * j + e] * scale, vb = s[4 * j + 2 + e] * scale;
-          if (edge) {
-            const int ki = k0 + 8 * j + col0 + e;
-            bool ok_a = true, ok_b = true;
-            if (causal) {
-              ok_a = ki <= qi_a;
-              ok_b = ki <= qi_b;
-            }
-            if (has_window) {
-              ok_a = ok_a && (qi_a - ki < window);
-              ok_b = ok_b && (qi_b - ki < window);
-            }
-            va = ok_a ? va : kNegInf;
-            vb = ok_b ? vb : kNegInf;
-            if (ki >= skv) va = vb = -INFINITY;
-          }
-          s[4 * j + e] = va;
-          s[4 * j + 2 + e] = vb;
-        }
-      }
-
-      // Online softmax; the four lanes of a quad hold a row's columns.
-      float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-#pragma unroll
-      for (int x = 1; x < 4; x <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(~0u, mx_a, x));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(~0u, mx_b, x));
-      }
-      const float al_a = expf(m_a - mx_a), al_b = expf(m_b - mx_b);
-      m_a = mx_a;
-      m_b = mx_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[4 * j + e] = expf(s[4 * j + e] - mx_a);
-          s[4 * j + 2 + e] = expf(s[4 * j + 2 + e] - mx_b);
-          sum_a += s[4 * j + e];
-          sum_b += s[4 * j + 2 + e];
-        }
-      }
-      l_a = l_a * al_a + sum_a;          // this lane's columns; the quad's
-      l_b = l_b * al_b + sum_b;          // partial sums add up at the end
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= al_a;
-        o[4 * j + 1] *= al_a;
-        o[4 * j + 2] *= al_b;
-        o[4 * j + 3] *= al_b;
-      }
+      scale_and_mask<BK / 8>(s, rows, k0, scale, skv, causal, has_window,
+                             window);
+      softmax_step<BK / 8, D / 8>(s, o, m_a, m_b, l_a, l_b);
 
       // P as the A fragments of BK/16 k16 steps, hi and lo: the
       // accumulator layout of m64nBK is the A layout of m64k16.
@@ -529,23 +614,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bar_e + 8 * st);
     }
 
-#pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      l_a += __shfl_xor_sync(~0u, l_a, x);
-      l_b += __shfl_xor_sync(~0u, l_b, x);
-    }
-    const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);   // no key -> 0
-    const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+    const float inv_a = inv_row_sum(l_a), inv_b = inv_row_sum(l_b);
+    // Rows of d columns (d % 8 == 0: column c < d iff 8j < d); the
+    // padded columns d..D are not stored.
     const int r_a = q0 + row_a, r_b = r_a + 8;
-    __nv_bfloat16* ob = out + (long long)bh * sq * D;
+    __nv_bfloat16* ob = out + (long long)bh * sq * d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + col0;
+      if (8 * j >= d) break;
       if (r_a < sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_a * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_a * d + c) =
             __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
       if (r_b < sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_b * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_b * d + c) =
             __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
     }
   }
@@ -577,8 +659,8 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A map over [n, rows, D] bf16 whose box is `box_rows` x 64 columns,
-// 128-byte swizzle; out-of-range rows read as zeros.
+// A map over [n, rows, d] bf16 whose box is `box_rows` x 64 columns,
+// 128-byte swizzle; out-of-range rows and columns read as zeros.
 bool encode(CUtensorMap* map, const void* ptr, int n, int rows, int d,
             int box_rows) {
   EncodeTiled fn = encode_fn();
@@ -593,18 +675,22 @@ bool encode(CUtensorMap* map, const void* ptr, int n, int rows, int d,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// D: the tile width the kernel is built for (64, 128 or 256), d <= D the
+// true head dim, a multiple of 8 (TMA strides are multiples of 16 bytes).
+// The box bytes that mbar_expect_tx waits for are D-wide, the columns past
+// d included: TMA counts the zeros it fills.
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int skv, int causal, int has_window,
-           int window, float scale, cudaStream_t stream) {
+           int hq, int hkv, int sq, int skv, int d, int causal,
+           int has_window, int window, float scale, cudaStream_t stream) {
   using L = Tile<D>;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;      // TMA needs 16-byte bases
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode(&tm_q, q, b * hq, sq, D, kBQ) ||
-      !encode(&tm_k, k, b * hkv, skv, D, L::BK) ||
-      !encode(&tm_v, v, b * hkv, skv, D, L::BK))
+  if (!encode(&tm_q, q, b * hq, sq, d, kBQ) ||
+      !encode(&tm_k, k, b * hkv, skv, d, L::BK) ||
+      !encode(&tm_v, v, b * hkv, skv, d, L::BK))
     return (int)cudaErrorInvalidValue;
   auto kernel = flash_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -613,39 +699,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   dim3 grid(b * hq, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv,
-      causal, has_window, window, scale);
+      d, causal, has_window, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-// dtype: 0 = fp32, 1 = bf16. window is read only when has_window != 0.
-// *variant is set to the path taken: 1 = "wgmma", 0 = "fma".
+// dtype: 0 = fp32, 1 = bf16. window is read only when has_window != 0;
+// scale is the caller's (d^-0.5 by default), whatever tile width D runs.
+// *variant is set to the path taken: 1 = "wgmma" (bf16, D % 8 == 0), 0 =
+// "mma" (every other case).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int b, int hq, int hkv, int sq, int skv, int d, int causal,
     int has_window, int window, float scale, int* variant,
     cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
-      skv <= 0 || d <= 0 || d > 256)
+      skv <= 0 || d <= 0 || d > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  *variant = dtype == 1 && (d == 64 || d == 128 || d == 256);
+  *variant = dtype == 1 && d % 8 == 0;
   if (*variant) {
-    if (d == 64)
-      return wg::launch<64>(q, k, v, out, b, hq, hkv, sq, skv, causal,
+    if (d <= 64)
+      return wg::launch<64>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,
                             has_window, window, scale, stream);
-    if (d == 128)
-      return wg::launch<128>(q, k, v, out, b, hq, hkv, sq, skv, causal,
+    if (d <= 128)
+      return wg::launch<128>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,
                              has_window, window, scale, stream);
-    return wg::launch<256>(q, k, v, out, b, hq, hkv, sq, skv, causal,
+    return wg::launch<256>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,
                            has_window, window, scale, stream);
   }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,
-                           has_window, window, scale, stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, d,
-                                   causal, has_window, window, scale,
-                                   stream);
-  return (int)cudaErrorInvalidValue;
+    return mm::dispatch<float>(q, k, v, out, b, hq, hkv, sq, skv, d, causal,
+                               has_window, window, scale, stream);
+  return mm::dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, d,
+                                     causal, has_window, window, scale,
+                                     stream);
 }

@@ -5,9 +5,11 @@ flash_attention`` (its ``pallas_call`` at line 111). Causal and
 sliding-window masks, a query that is the tail of the kv sequence, fp32
 online softmax, output in ``q.dtype``; see ``csrc/flash_attention.cu``.
 Its entry point takes one of two paths by dtype and head dim and reports
-which: ``"wgmma"`` (bf16 at D 64, 128 or 256: TMA, wgmma, warp
-specialisation) or ``"fma"`` (every other case: fp32 FMAs on the CUDA
-cores); ``KERNEL.variant_launches`` counts each.
+which: ``"wgmma"`` (bf16 at D % 8 == 0, built for D 64, 128 or 256 with
+the columns past D read as zeros: TMA, wgmma, warp specialisation) or
+``"mma"`` (fp32 at any D, bf16 at D % 8 != 0: ``mma.sync`` on the TF32
+tensor cores, every product 3xTF32); ``KERNEL.variant_launches`` counts
+each.
 The plain version is :func:`flash_attention_plain` (``ref.attention``);
 ``ops.flash_attention`` chooses between the two by the tensors' device.
 """
@@ -22,7 +24,7 @@ __all__ = ["KERNEL", "flash_attention_cuda", "flash_attention_plain"]
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
                     (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
-                     INT, INT, INT, FLOAT), variants=("fma", "wgmma"))
+                     INT, INT, INT, FLOAT), variants=("mma", "wgmma"))
 
 BLOCK = 128        # the TPU kernel's default q and kv block
 MAX_HEAD_DIM = 256

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ops as j_ops, ref as j_ref
 from repro.kernels.decode_attention import decode_attention as j_decode
@@ -23,6 +24,7 @@ from repro_torch.kernels import decode_attention as t_da
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
+from test_torch_rwkv import _mm_3xtf32, _tf32
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -47,10 +49,10 @@ def _close(got_t, want_j, tol, what):
 
 
 def _flash_case(seed, dtype, shape_q, shape_kv, *, causal=True, window=None,
-                bq=64, bk=64):
+                bq=64, bk=64, fn=t_ops.flash_attention):
     q, k, v = _arrays(seed, shape_q, shape_kv, shape_kv)
     (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
-    got = t_ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    got = fn(tq, tk, tv, causal=causal, window=window)
     assert got.dtype == DTYPES[dtype][1]
     kern = j_flash(jq, jk, jv, causal=causal, window=window, block_q=bq,
                    block_k=bk, interpret=True)
@@ -344,3 +346,145 @@ def test_kernel_debug_build_traps_instead_of_hanging(monkeypatch):
         assert k.library != plain[k.name]
         assert '#include "hopper.cuh"' in k.source.read_text()
     assert "__trap()" in (build.CSRC / "hopper.cuh").read_text()
+
+
+# ------------------------------------------------------------ flash paths
+# The CUDA flash kernel's two paths in plain PyTorch. "mma" (fp32, and
+# bf16 at D % 8 != 0): 128-row q tiles, the kv tiles of Tile<Dp>::BK rows
+# that the TPU skip rule visits, every product 3xTF32. "wgmma" (bf16 at
+# D % 8 == 0): built for D 64, 128 or 256, the columns past D zeros.
+MMA_BK = {16: 64, 32: 64, 64: 64, 96: 32, 128: 64, 192: 32, 256: 16}
+
+
+def _mm_tf32(a, b):
+    """a @ b as one TF32 product (the kernel's ``tf32()`` rounding)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _mma_mirror(q, k, v, *, causal=True, window=None, scale=None,
+                mm_qk=_mm_3xtf32(), mm_pv=_mm_3xtf32()):
+    """The "mma" path's arithmetic: q, k, v in float32, zero-padded to
+    Dp columns; per 128-row q tile the kv tiles [first, last] of the TPU
+    rule at BK rows; S = Q K^T * scale and O += P V, each product 3xTF32
+    (``test_torch_rwkv._mm_3xtf32``, the kernel's ``tf32()`` rounding
+    bit for bit) unless ``mm_qk`` / ``mm_pv`` say otherwise; masked
+    logits -1e30 (keys past Skv do not exist); the online softmax; out =
+    O * (1 / l), l = 0 giving 0, in q's type."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dp = next(p for p in MMA_BK if d <= p)
+    bk = MMA_BK[dp]
+    scale = d ** -0.5 if scale is None else scale
+    qf, kf, vf = (F.pad(x.float(), (0, dp - d)) for x in (q, k, v))
+    kf, vf = (x.repeat_interleave(hq // hkv, dim=1) for x in (kf, vf))
+    out = torch.zeros(b, hq, sq, dp)
+    q_off = skv - sq
+    for q0 in range(0, sq, 128):
+        rows = min(128, sq - q0)
+        qi = torch.arange(q0, q0 + rows)[:, None] + q_off
+        first, last = 0, (skv + bk - 1) // bk - 1
+        if causal:
+            last = min(last, (q0 + rows - 1 + q_off) // bk)
+        if window is not None:
+            first = max(0, q0 + q_off - window + 1) // bk
+        m = torch.full((b, hq, rows), t_ref.NEG_INF)
+        l = torch.zeros(b, hq, rows)
+        o = torch.zeros(b, hq, rows, dp)
+        for t in range(first, last + 1):
+            kt = kf[:, :, t * bk:(t + 1) * bk]
+            vt = vf[:, :, t * bk:(t + 1) * bk]
+            s = mm_qk(qf[:, :, q0:q0 + rows], kt.transpose(-1, -2)) * scale
+            ki = torch.arange(t * bk, t * bk + kt.shape[2])[None, :]
+            keep = torch.ones(rows, kt.shape[2], dtype=torch.bool)
+            if causal:
+                keep &= ki <= qi
+            if window is not None:
+                keep &= qi - ki < window
+            s = torch.where(keep, s, t_ref.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + mm_pv(p, vt)
+            m = mx
+        out[:, :, q0:q0 + rows] = o * (1.0 / torch.where(l == 0, 1.0, l))[
+            ..., None]
+    return out[..., :d].to(q.dtype)
+
+
+def _wgmma_padded(q, k, v, *, causal=True, window=None, scale=None):
+    """The "wgmma" path's function at D % 8 == 0: q, k and v zero-padded
+    to the least of 64, 128 and 256 >= D, the caller's scale (D^-0.5 of
+    the true D), the padded output columns dropped."""
+    d = q.shape[-1]
+    dp = next(p for p in (64, 128, 256) if d <= p)
+    pq, pk, pv = (F.pad(x, (0, dp - d)) for x in (q, k, v))
+    out = t_ref.attention(pq, pk, pv, causal=causal, window=window,
+                          scale=d ** -0.5 if scale is None else scale)
+    return out[..., :d]
+
+
+def _phi3_inputs(seed, heads, s=2048, d=96):
+    """phi3-mini width (head dim 96) on ``heads`` heads, N(0, 1)."""
+    q, k, v = (torch.from_numpy(x) for x in _arrays(
+        seed, *[(1, heads, s, d)] * 3))
+    return q, k, v
+
+
+def test_flash_mma_3xtf32_within_card_allowance():
+    """The mma path's arithmetic (every product 3xTF32, TF32 rounding
+    emulated bit for bit) at phi3-mini width, causal over 2,048 tokens,
+    stays within ``ref.kernel_error``'s float32 allowance (2e-5) of the
+    plain float32 attention."""
+    q, k, v = _phi3_inputs(30, 2)
+    want = t_ref.attention(q, k, v)
+    err, share = t_ref.kernel_error("attention", _mma_mirror(q, k, v), want)
+    assert share <= 1.0, (err, share)
+
+
+@pytest.mark.parametrize("plain", ["qk", "pv"])
+def test_flash_mma_one_tf32_product_misses_the_allowance(plain):
+    """Why every product is split: with either one (Q K^T or P V) taken
+    as a single TF32 product, the same attention leaves the float32
+    allowance."""
+    q, k, v = _phi3_inputs(30, 2)
+    want = t_ref.attention(q, k, v)
+    kw = {"mm_qk" if plain == "qk" else "mm_pv": _mm_tf32}
+    err, share = t_ref.kernel_error("attention",
+                                    _mma_mirror(q, k, v, **kw), want)
+    assert share > 1.0, (err, share)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape_q,shape_kv,window", [
+    ((1, 2, 128, 96), (1, 2, 128, 96), None),     # phi3-mini's head dim
+    ((1, 4, 256, 20), (1, 2, 256, 20), 100),      # D % 8 != 0, GQA, window
+    ((1, 4, 64, 32), (1, 2, 192, 32), 80),        # continuation
+])
+def test_flash_mma_mirror_matches_jax(dtype, shape_q, shape_kv, window):
+    """The mma path's arithmetic against the interpreted Pallas kernel and
+    the jnp reference."""
+    _flash_case(31, dtype, shape_q, shape_kv, window=window, fn=_mma_mirror)
+
+
+def test_flash_mma_mirror_noncausal_matches_jax():
+    _flash_case(32, "float32", (2, 2, 128, 8), (2, 1, 128, 8),
+                causal=False, fn=_mma_mirror)
+
+
+def test_flash_bf16_zero_padded_head_dim_equals_unpadded():
+    """bf16 attention at D 96 with q, k and v zero-padded to 128 columns
+    and the scale kept at 96^-0.5 (the wgmma path built for 128) equals
+    the unpadded plain result: the zero columns add exactly 0 to Q K^T."""
+    q, k, v = (x.bfloat16() for x in _phi3_inputs(33, 2, s=256))
+    got = _wgmma_padded(q, k, v)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, t_ref.attention(q, k, v))
+
+
+@pytest.mark.parametrize("d", [32, 80, 96])
+def test_flash_wgmma_padded_matches_jax(d):
+    """The wgmma path's function at head dims below its tile width, in
+    bf16, against the interpreted Pallas kernel and the jnp reference."""
+    _flash_case(34, "bfloat16", (1, 4, 128, d), (1, 2, 128, d), window=96,
+                fn=_wgmma_padded)

@@ -135,25 +135,51 @@ def test_rwkv_chunk_past_shared_memory_raises(cuda_device):
     assert t_rw.KERNEL.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_attention_bf16_takes_the_wgmma_path(cuda_device, d):
-    """bf16 at the wgmma head dims: causal prefill, a continuation (Sq <
-    Skv) with and without a window, a window over several kv tiles, a
-    ragged 32-row sequence, and non-causal; every call reports the
-    "wgmma" path."""
-    for b, hq, hkv, sq, skv, causal, window in (
-            (2, 4, 2, 256, 256, True, None), (1, 4, 1, 128, 384, True, None),
-            (2, 4, 2, 128, 512, True, 200), (1, 2, 2, 512, 512, True, 96),
-            (2, 2, 1, 32, 32, True, None), (1, 2, 1, 256, 256, False, 64)):
-        q, k, v = _normal(12, cuda_device, torch.bfloat16, (b, hq, sq, d),
-                          (b, hkv, skv, d), (b, hkv, skv, d))
-        before = t_fa.KERNEL.variant_launches["wgmma"]
+# Causal prefill, a continuation (Sq < Skv) with and without a window, a
+# window over several kv tiles, a ragged 32-row sequence, and non-causal
+# (b, hq, hkv, sq, skv, causal, window); GQA 2:1 and 4:1 among them.
+FLASH_SHAPES = ((2, 4, 2, 256, 256, True, None),
+                (1, 4, 1, 128, 384, True, None),
+                (2, 4, 2, 128, 512, True, 200),
+                (1, 2, 2, 512, 512, True, 96),
+                (2, 2, 1, 32, 32, True, None),
+                (1, 2, 1, 256, 256, False, 64))
+
+
+def _flash_path(dev, dtype, d, variant):
+    """Every FLASH_SHAPES call at head dim d reports ``variant`` and stays
+    within the allowance."""
+    for b, hq, hkv, sq, skv, causal, window in FLASH_SHAPES:
+        q, k, v = _normal(12, dev, dtype, (b, hq, sq, d), (b, hkv, skv, d),
+                          (b, hkv, skv, d))
+        before = t_fa.KERNEL.variant_launches[variant]
         got = _once(t_fa.KERNEL, lambda: t_ops.flash_attention(
             q, k, v, causal=causal, window=window))
-        assert t_fa.KERNEL.variant_launches["wgmma"] == before + 1
+        assert t_fa.KERNEL.variant_launches[variant] == before + 1
         _within("attention", got, t_fa.flash_attention_plain(
             q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256, 32, 80, 96])
+def test_flash_attention_bf16_takes_the_wgmma_path(cuda_device, d):
+    """bf16 at head dims that are a multiple of 8, on the wgmma path built
+    for 64, 128 or 256 (at 32, 80 and 96 the columns past D read as
+    zeros): every call of FLASH_SHAPES reports "wgmma"."""
+    _flash_path(cuda_device, torch.bfloat16, d, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 8), ("float32", 20),
+                                     ("float32", 64), ("float32", 96),
+                                     ("float32", 128), ("float32", 256),
+                                     ("bfloat16", 20), ("bfloat16", 100)])
+def test_flash_attention_takes_the_mma_path(cuda_device, dtype, d):
+    """fp32 at any head dim, and bf16 at one that is not a multiple of 8,
+    on the mma path (3xTF32 on the TF32 tensor cores; D 20 and 100 pad
+    to 32 and 128, D 20 in fp32 copies 4 bytes at a time): every call of
+    FLASH_SHAPES reports "mma"."""
+    _flash_path(cuda_device, DTYPES[dtype], d, "mma")
 
 
 @pytest.mark.cuda
