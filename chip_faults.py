@@ -12,7 +12,10 @@ dropped in the block scan, a bank lane's register not carried to the
 next chunk, one chunk's fold of a float counter skipped, a chunk's sums
 added in float32, which only a chunk summing past 2^24 shows, one
 cluster CTA's share of the decay pass skipped) runs phase 4
-(``chip_smoke.check_chunk_step``), which must stop at a mismatch. A fault
+(``chip_smoke.check_chunk_step``), which must stop at a mismatch; the two
+that only a sweep shows (the registry map skipped, the last design point
+reading point 0's int parameters) run phase 7's checks
+(``chip_smoke.check_sweep``) instead. A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -36,6 +39,24 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
+
+# Chunk-step faults that only a sweep shows (phase 4 runs the full
+# registry, where the map is the identity): they run phase 7's checks
+# (``chip_smoke.check_sweep``), which must stop at a mismatch.
+SWEEP_FAULTS = [
+    ("chunk step (sweep): the registry map skipped, the clamped raw "
+     "policy_id taken as the built-in policy", "chunk_step",
+     CSRC + "chunk_step.cu",
+     "  const int pol = a.reg_map[clampi(I[POLICY_ID], 0, a.n_reg - 1)];",
+     "  const int pol = clampi(I[POLICY_ID], 0, a.n_reg - 1);"),
+    ("chunk step (sweep): the last design point reads point 0's int "
+     "parameters", "chunk_step", CSRC + "chunk_step.cu",
+     "  if (tid < N_INTS) I[tid] = a.ints[bi * N_INTS + tid];",
+     "  const int last_point = (int)gridDim.x / n_cta - 1;\n"
+     "  if (tid < N_INTS)\n"
+     "    I[tid] = a.ints[(tid >= N_STATE && bi == last_point ? 0 : bi)\n"
+     "                    * N_INTS + tid];"),
+]
 
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
@@ -66,6 +87,7 @@ FAULTS = [
      "      for (int r0 = row_lo + tid; r0 < row_hi && rank != 1;\n"
      "           r0 += UNROLL * nth) {\n"
      "        int4 head[UNROLL];\n#pragma unroll"),
+    *SWEEP_FAULTS,
     ("flash wgmma: middle kv tile skipped", "flash_attention",
      CSRC + "flash_attention.cu",
      "      const int k0 = t * BK;\n",
@@ -108,7 +130,8 @@ FAULTS = [
      "{0u, 0u, 0u, 0u}}, kb);"),
 ]
 
-# Runs in the faulty copy: argv = fault name, kernel name.
+# Runs in the faulty copy: argv = fault name, kernel name, and for a
+# chunk-step fault the phase whose checks run ("phase 4" or "phase 7").
 CHILD = r'''
 import json, sys
 import torch
@@ -124,10 +147,16 @@ fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
 if kernel == "chunk_step":
     import repro_torch as rt
-    from repro_torch.kernels import chunk_step
-    row = {"fault": fault, "case": "phase 4"}
+    from repro_torch.kernels import chunk_step, hmmu_lookup
+    row = {"fault": fault, "case": sys.argv[3]}
     try:
-        cs.check_chunk_step(torch, dev, rt, chunk_step)
+        if sys.argv[3] == "phase 7":
+            base, spec = cs.sweep_grid(rt)
+            trace = cs.sweep_trace(torch, dev, rt)
+            cs.check_sweep(torch, dev, rt, hmmu_lookup, chunk_step, base,
+                           spec, trace)
+        else:
+            cs.check_chunk_step(torch, dev, rt, chunk_step)
         row["caught"] = False
     except cs.Mismatch as e:
         row.update(caught=True, why=str(e))
@@ -167,9 +196,10 @@ def main() -> int:
                               f"{source} exactly once")
                 continue
             path.write_text(code.replace(text, faulty))
-            run = subprocess.run([sys.executable, "-c", CHILD, name, kernel],
-                                 cwd=copy, capture_output=True, text=True,
-                                 timeout=900)
+            phase = "phase 7" if FAULTS[i] in SWEEP_FAULTS else "phase 4"
+            run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
+                                  phase], cwd=copy, capture_output=True,
+                                 text=True, timeout=900)
             print(run.stdout, end="", flush=True)
             rows = [json.loads(ln) for ln in run.stdout.splitlines()
                     if ln.startswith("{")]

@@ -14,8 +14,9 @@ Phases, each printing its lines in order:
    phase stamps (one process per library, started together).
 3. **Kernel A** (``hmmu_lookup``) against its plain version at the
    paper's geometry (294,912 x 8 table), B in {1, 4}, m in {512, 514},
-   with negative and past-the-end pages: ``torch.equal``; its time, the
-   plain version's, and one advanced-indexing call's (``library_ms``).
+   and B = 16 at m = 514, with negative and past-the-end pages:
+   ``torch.equal``; its time, the plain version's, and one
+   advanced-indexing call's (``library_ms``).
 4. **Kernel B** (``chunk_step``) against its plain version (the loop of
    ``step_ref(seq=True)`` and ``counters.update``): each of the six
    policies, on ``small_platform``, on the paper geometry and on the
@@ -57,7 +58,24 @@ Phases, each printing its lines in order:
    case also each of its three device kernels' time per launch (CUPTI),
    whose sum must come within 5% of the launch's events time. A case whose
    bytes fit in the 50 MB L2 is timed with the L2 flushed before each call.
-7. One JSON line of per-kernel numbers, the card line again, and the last
+7. **The design-point sweep at full size** — ``Engine.sweep`` over the
+   repo's 16-point Fig 8 grid (3D XPoint and STT-RAM, 1/9 and 2/9 of the
+   pages fast, ``hotness`` and ``static``, link latencies 600 and 1200;
+   ``benchmarks/bench_sweep.py``'s grid) at ``paper_platform().with_(
+   chunk=512, hot_threshold=4, decay_every=32, write_weight=4)`` on the
+   ``505.mcf`` trace at scale 1e-5 (970,662 requests over 154,112 pages,
+   past both fast tiers): ONE launch of kernel B and none of kernel A;
+   every point reaches its slow tier, and every ``hotness`` point
+   migrates; every point bitwise equal to its own ``Engine.run``;
+   ``continue_sweep`` over the second half equal to the whole sweep; the
+   ``"off"`` route over the first 64 chunks equal to ``"auto"``; over 40
+   chunks, the 16 points and one with a ``policy_id`` past the end of a
+   registry subset (``hotness``, ``static``, ``write_bias``), in one
+   launch, each equal to its plain run at its own parameters. Then the
+   sweep's wall, us per point-request, kernel B's device time and share of
+   the wall, peak device memory, and kernel B's device time at B = 1, 16
+   and 64.
+8. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
@@ -238,10 +256,12 @@ def check_lookup(torch, dev, hl) -> dict:
     g = torch.Generator().manual_seed(0)
     err = 0
     timing = {}
-    for b in (1, 4):
+    # B = 16 x 514 rows: the rows a 16-point sweep's scan path would gather
+    # in one launch.
+    for b, ms in ((1, (512, 514)), (4, (512, 514)), (16, (514,))):
         table = torch.randint(-2 ** 20, 2 ** 20, (b, n_pages, 8), generator=g,
                               dtype=torch.int32).to(dev)
-        for m in (512, 514):
+        for m in ms:
             pages = torch.randint(0, n_pages, (b, m), generator=g,
                                   dtype=torch.int32)
             pages[:, :4] = torch.tensor([-1, -n_pages - 3, n_pages, 2 ** 30],
@@ -674,6 +694,193 @@ def kernel_a_main_ms(torch, rt, hl, main, n_chunks=256) -> float:
           f"{ms * 1e3:.2f} us/launch (device; {traced} of {n_chunks} "
           "launches traced)")
     return ms
+
+
+# --------------------------------------------------------------- phase 7
+def sweep_grid(rt):
+    """The paper's platform (Table II, nothing cut) and the repo's 16-point
+    Fig 8 grid (``benchmarks/bench_sweep.py``): technologies x fast-tier
+    shares x policies x link latencies."""
+    from repro_torch.sweep import SweepSpec
+    base = rt.paper_platform().with_(chunk=512, hot_threshold=4,
+                                     decay_every=32, write_weight=4)
+    return base, SweepSpec(base, technologies=("3dxpoint", "stt-ram"),
+                           fast_fractions=(1 / 9, 2 / 9),
+                           policies=("hotness", "static"),
+                           link_lats=(600, 1200))
+
+
+def sweep_trace(torch, dev, rt):
+    """Phase 7's trace: ``505.mcf`` (Table III: 602 MB, 154,112 pages of
+    4 KiB, past both of the grid's fast tiers, 32,768 and 65,536 pages, and
+    inside the 294,912-row table) at scale 1e-5, 970,662 requests. Phase
+    5's ``520.omnetpp`` touches 61,696 pages, all of them DRAM at 2/9."""
+    from repro_torch.trace import workload_trace
+    trace, _, n = workload_trace("505.mcf", scale=1e-5, device=dev)
+    print(f"  trace 505.mcf scale 1e-5: {n} requests, footprint "
+          f"{int(trace.page.max()) + 1} pages", flush=True)
+    return trace
+
+
+def same_runs(torch, where, got, want) -> None:
+    """Hold two (state, outs) pairs bitwise equal; raise at the first
+    field that differs."""
+    (gs, go), (ws, wo) = got, want
+    for name, a, b in [*leaves(gs, ws),
+                       *(("outs." + k, go[k], wo[k]) for k in wo)]:
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise Mismatch(f"sweep: {where}: {name} differs")
+
+
+def check_sweep(torch, dev, rt, hl, cs, base, spec, trace, off_chunks=64,
+                plain_chunks=40) -> dict:
+    """Every check of phase 7 (see the module docstring); returns the
+    first sweep's wall, launches and peak device memory."""
+    import dataclasses
+    from repro_torch.sweep import build_points
+    from repro_torch.engine import stack_params
+    point_of = rt.core.emulator._index
+    points = build_points(spec)
+    n, chunk = len(trace), base.chunk
+    eng = rt.Engine(base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    hl.KERNEL.launches = 0
+    cs.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = eng.sweep(spec, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"hmmu_lookup": hl.KERNEL.launches,
+              "chunk_step": cs.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated() - before
+    n_pad = res.outs["returns"].shape[1]
+    print(f"  Engine.sweep of {len(points)} points over {n} requests "
+          f"({n_pad // chunk} chunks): launches {counts}; wall {wall:.3f} s "
+          f"(first call); registry {res.registry.names}; tables "
+          f"{res.states.table.numel() * 4} B, trace copied a point "
+          f"{5 * 4 * n_pad * len(points)} B; peak device memory {peak} B "
+          "above what was allocated before the call",
+          flush=True)
+    if counts != {"hmmu_lookup": 0, "chunk_step": 1}:
+        raise Mismatch(f"sweep: launches {counts}, not one of kernel B")
+    for i, p in enumerate(points):
+        want = eng.run(trace, params=p.params(dev))
+        same_runs(torch, f"point {i} ({p.label}) against its Engine.run",
+                  (point_of(res.states, i),
+                   {k: v[i, :n] for k, v in res.outs.items()}), want)
+        check_outputs(torch, rt, p.cfg, want, n)
+    for p, row in zip(points, res.rows()):
+        print(f"    {row['label']}: AMAT {row['amat_cyc']:.3f} cycles, fast "
+              f"hits {row['fast_hit_rate']:.4f}, swaps {row['swaps']}, "
+              f"NVM peak wear {row['nvm_peak_wear']}, energy "
+              f"{row['energy_mJ']:.4f} mJ")
+        if row["fast_hit_rate"] >= 1 or (p.cfg.policy == "hotness"
+                                         and row["swaps"] == 0):
+            raise Mismatch(f"sweep: {row['label']} never reaches its slow "
+                           "tier or never migrates: the trace does not "
+                           "exercise its parameters")
+    print(f"  each of the {len(points)} points bitwise equal to its own "
+          "Engine.run (state, counters, outputs)", flush=True)
+    # The continuation: the first half, then the rest from its states.
+    half = (n // chunk // 2) * chunk
+    first = eng.sweep(spec, rt.core.Trace(*(x[:half] for x in trace)))
+    cont = eng.continue_sweep(first, rt.core.Trace(*(x[half:]
+                                                     for x in trace)))
+    same_runs(torch, "continue_sweep against the whole sweep",
+              (cont.states, {k: torch.cat([first.outs[k], cont.outs[k]],
+                                          dim=1) for k in res.outs}),
+              (res.states, res.outs))
+    print(f"  continue_sweep over requests {half}..{n} after a sweep of the "
+          "first half: equal to the one sweep", flush=True)
+    del res, first, cont
+    # The "off" route (kernel A a chunk, a point at a time) at reduced
+    # depth, against "auto" on the same chunks.
+    m = off_chunks * chunk
+    sub = rt.core.Trace(*(x[:m] for x in trace))
+    off = base.with_(chunk_step_kernel="off")
+    off_spec = dataclasses.replace(spec, base=off)
+    hl.KERNEL.launches = 0
+    cs.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    got = rt.Engine(off).sweep(off_spec, sub)
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t0
+    off_counts = {"hmmu_lookup": hl.KERNEL.launches,
+                  "chunk_step": cs.KERNEL.launches}
+    if off_counts != {"hmmu_lookup": len(points) * off_chunks,
+                      "chunk_step": 0}:
+        raise Mismatch(f"sweep on 'off': launches {off_counts}")
+    want = eng.sweep(spec, sub)
+    same_runs(torch, f"'off' against 'auto' over {off_chunks} chunks",
+              (got.states, got.outs), (want.states, want.outs))
+    print(f"  route 'off' over the first {off_chunks} chunks: launches "
+          f"{off_counts}, wall {off_wall:.3f} s; equal to 'auto'",
+          flush=True)
+    # Every grid point, over a registry subset (the grid's, hotness before
+    # static, then write_bias), and one more point with a policy_id past
+    # the subset's end (the clamped policy, write_bias, without its write
+    # weighting): one launch, each point against the plain loop at its own
+    # parameters.
+    names = ("hotness", "static", "write_bias")
+    sub_eng = rt.Engine(base, registry=names)
+    picks = [*points, points[0]]
+    ids = [names.index(p.cfg.policy) for p in points] + [7]
+    params = stack_params(picks, dev)._replace(policy_id=torch.tensor(
+        ids, dtype=torch.int32, device=dev))
+    m = plain_chunks * chunk
+    sub = rt.core.Trace(*(x[:m] for x in trace))
+    cs.KERNEL.launches = 0
+    got = sub_eng.sweep(params, sub)
+    torch.cuda.synchronize()
+    if cs.KERNEL.launches != 1:
+        raise Mismatch(f"registry subset: {cs.KERNEL.launches} launches")
+    emu = rt.core.emulator
+    ones = torch.ones(m, dtype=torch.bool, device=dev)
+    for i, p in enumerate(picks):
+        pp = point_of(params, i)
+        want = emu._emulate_impl(base, sub_eng.registry, sub, ones,
+                                 rt.core.init_state(base, pp), pp, seq=True)
+        same_runs(torch, f"point {i} ({p.label}), registry {names}, "
+                  f"policy_id {int(pp.policy_id)}, against its plain run",
+                  (point_of(got.states, i),
+                   {k: v[i] for k, v in got.outs.items()}), want)
+    print(f"  registry {names}: the {len(points)} grid points (policy_ids "
+          f"{ids[:-1]}) and policy_id 7 past its end, in one launch over "
+          f"{plain_chunks} chunks: each equal to its plain run "
+          "(step_ref(seq=True))", flush=True)
+    return {"wall": wall, "counts": counts, "peak": peak, "n_pad": n_pad}
+
+
+def sweep_numbers(torch, rt, base, spec, trace, card: str) -> dict:
+    """Kernel B's device time for one ``Engine.sweep`` (CUPTI) and the wall
+    of the same call: three traced calls at B = 16, one at B = 1 and B = 64
+    (64: ``extra_axes`` of four ``hot_threshold`` values)."""
+    import dataclasses
+    from repro_torch.sweep import build_points
+    eng = rt.Engine(base)
+    n = len(trace)
+    n_chunks = -(-n // base.chunk)
+    spec64 = dataclasses.replace(
+        spec, extra_axes=(("hot_threshold", (2, 4, 8, 16)),))
+    out = {}
+    for b, grid in ((1, build_points(spec)[:1]), (16, spec), (64, spec64)):
+        runs = [device_and_wall_ms(torch, lambda: eng.sweep(grid, trace), 1,
+                                   "chunk_step_kernel")
+                for _ in range(3 if b == 16 else 1)]
+        k_ms, w_ms = sorted(runs)[len(runs) // 2]
+        out[b] = (k_ms, w_ms)
+        print(f"  B={b}: kernel B {k_ms:.3f} ms for the launch "
+              f"({k_ms / n_chunks * 1e3:.3f} us/chunk), "
+              f"{k_ms * 1e3 / (b * n):.5f} us per point-request (device); "
+              f"Engine.sweep wall {w_ms / 1e3:.4f} s, "
+              f"{w_ms * 1e3 / (b * n):.5f} us per point-request, device "
+              f"share {k_ms / w_ms:.3f}" + (
+                  "; calls: " + ", ".join(f"{d:.3f} of {w:.3f} ms"
+                                         for d, w in runs)
+                  if len(runs) > 1 else "") + f" [{card}]", flush=True)
+    return out
 
 
 # --------------------------------------------------------------- phase 6
@@ -1136,6 +1343,14 @@ def main() -> int:
         print("[6] model kernels at full width", flush=True)
         m6 = check_model_kernels(torch, ref, fa, da, rw,
                                  model_cases(torch, dev, ops, fa, da, rw))
+
+        print(f"[7] the design-point sweep at full size ({card})",
+              flush=True)
+        base, spec = sweep_grid(rt)
+        trace = sweep_trace(torch, dev, rt)
+        check_sweep(torch, dev, rt, hl, cs, base, spec, trace)
+        sweep_numbers(torch, rt, base, spec, trace, card)
+        del trace
 
         k_ms, p_ms, lib_ms, a_bound = a["timing"][(1, 514)]
         kernels = [

@@ -4,8 +4,10 @@ Inputs are dicts of numpy arrays keyed by field name (nested dicts for
 ``dma`` and ``counters``), the shape ``state_to_numpy`` returns and the
 shape a test builds from the JAX package's ``RuntimeParams`` /
 ``EmulatorState`` / ``FaultPlan``. Dtypes are kept (int32, float32), so a
-state crosses over bit for bit. This plays the part weights play for a
-model: both sides start from the same, possibly adversarial, state.
+state crosses over bit for bit, and so do shapes: every field may carry a
+leading design-point axis (a sweep's stacked params, states and plans).
+This plays the part weights play for a model: both sides start from the
+same, possibly adversarial, state.
 """
 from __future__ import annotations
 
@@ -50,12 +52,20 @@ def faults_from_numpy(d: dict, device=None) -> FaultPlan:
                      deaths=_t(d["deaths"], device, np.int32))
 
 
+def _to_numpy(x) -> dict:
+    """A NamedTuple of tensors (nested for ``dma`` / ``counters``) ->
+    dicts of numpy arrays."""
+    return {k: _to_numpy(v) if isinstance(v, tuple)
+            else v.detach().cpu().numpy() for k, v in x._asdict().items()}
+
+
 def state_to_numpy(state: EmulatorState) -> dict:
-    def a(x):
-        return x.detach().cpu().numpy()
-    out = {}
-    for f in EmulatorState._fields:
-        v = getattr(state, f)
-        out[f] = ({k: a(x) for k, x in v._asdict().items()}
-                  if isinstance(v, tuple) else a(v))
-    return out
+    return _to_numpy(state)
+
+
+def params_to_numpy(params: RuntimeParams) -> dict:
+    return _to_numpy(params)
+
+
+def faults_to_numpy(plan: FaultPlan) -> dict:
+    return _to_numpy(plan)

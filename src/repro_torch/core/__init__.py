@@ -3,7 +3,7 @@ from .config import (EmulatorConfig, RuntimeParams, TechnologyParams,
                      TECHNOLOGIES, paper_platform, small_platform, static_key,
                      FAST, SLOW)
 from .emulator import Trace, EmulatorState, pad_trace, init_state
-from .faults import FaultPlan, seeded_plan, pad_plan
+from .faults import FaultPlan, seeded_plan, stack_plans, pad_plan
 from .policies import PolicyRegistry
 from .table import init_table, check_table
 from . import (policies, counters, dma, faults, latency, consistency, table,
@@ -13,7 +13,7 @@ __all__ = [
     "EmulatorConfig", "RuntimeParams", "TechnologyParams", "TECHNOLOGIES",
     "paper_platform", "small_platform", "static_key",
     "FAST", "SLOW", "Trace", "EmulatorState", "pad_trace", "init_state",
-    "FaultPlan", "seeded_plan", "pad_plan",
+    "FaultPlan", "seeded_plan", "stack_plans", "pad_plan",
     "PolicyRegistry", "init_table", "check_table",
     "policies", "counters", "dma", "faults", "latency", "consistency",
     "table", "indexing",

@@ -62,19 +62,30 @@ def init_state(cfg: EmulatorConfig, params: RuntimeParams | None = None,
         device = params.n_fast_pages.device
     nf = None if params is None else params.n_fast_pages
     pin = None if params is None else params.pin_fast_fraction
+    return EmulatorState(table=table_lib.init_table(cfg, nf, pin,
+                                                    device=device),
+                         **_fresh_fields(cfg, device))
+
+
+def _fresh_fields(cfg: EmulatorConfig, device, lead=()) -> dict:
+    """Every field of a fresh state after the table, each with the leading
+    shape ``lead`` and its own storage."""
+    def grow(x):
+        if isinstance(x, tuple):
+            return type(x)(*(grow(y) for y in x))
+        return x.expand((*lead, *x.shape)).clone()
 
     def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=device)
+        return torch.full(lead, v, dtype=torch.int32, device=device)
 
-    return EmulatorState(
-        table=table_lib.init_table(cfg, nf, pin, device=device),
+    return dict(
         clock_ptr=i32(0), chunk_idx=i32(0),
-        dma=dma_lib.DMAState.idle(device),
+        dma=grow(dma_lib.DMAState.idle(device)),
         clock=i32(0),
-        bank_free=torch.zeros(2 * cfg.n_banks, dtype=torch.int32,
+        bank_free=torch.zeros(*lead, 2 * cfg.n_banks, dtype=torch.int32,
                               device=device),
         link_free_rx=i32(0), link_free_tx=i32(0), last_return=i32(0),
-        counters=counters_lib.Counters.zeros(device),
+        counters=grow(counters_lib.Counters.zeros(device)),
         rescue_page=i32(-1), min_wear=i32(0), fault_cursor=i32(0),
     )
 
@@ -157,19 +168,27 @@ def _write_back(state: EmulatorState, new: EmulatorState) -> EmulatorState:
     return state
 
 
-def kernel_counters(out: chunk_step_lib.KernelOut, b: int = 0
+def kernel_counters(out: chunk_step_lib.KernelOut, b=0
                     ) -> counters_lib.Counters:
-    """Design point ``b``'s counters from a chunk-step launch (views)."""
+    """Design point ``b``'s counters from a chunk-step launch (views);
+    ``b=ALL`` gives every point's, stacked."""
     cs = chunk_step_lib
-    vals = dict(zip(cs.COUNTER_INT_FIELDS, out.counters_int[b]))
-    vals.update(zip(cs.COUNTER_FLOAT_FIELDS, out.counters_float[b]))
+    vals = dict(zip(cs.COUNTER_INT_FIELDS, out.counters_int[b].unbind(-1)))
+    vals.update(zip(cs.COUNTER_FLOAT_FIELDS,
+                    out.counters_float[b].unbind(-1)))
     return counters_lib.Counters(**vals)
 
 
+# The ``b`` of :func:`kernel_state` / :func:`kernel_outs` that selects
+# every design point of a launch, stacked along a leading axis.
+ALL = slice(None)
+
+
 def kernel_state(table: torch.Tensor, out: chunk_step_lib.KernelOut,
-                 b: int = 0) -> EmulatorState:
+                 b=0) -> EmulatorState:
     """Design point ``b``'s final state from a chunk-step launch that
-    updated ``table`` (views of ``out``)."""
+    updated ``table`` (views of ``out``); with ``b=ALL``, ``table`` is the
+    launch's [B, n_pages, 8] table and the state is stacked."""
     sc = chunk_step_lib._unpack_out_scalars(out.scalars[b])
     return EmulatorState(
         table=table, clock_ptr=sc.clock_ptr, chunk_idx=sc.chunk_idx,
@@ -181,17 +200,48 @@ def kernel_state(table: torch.Tensor, out: chunk_step_lib.KernelOut,
 
 
 def kernel_outs(cfg: EmulatorConfig, out: chunk_step_lib.KernelOut,
-                valid: torch.Tensor, b: int = 0) -> dict:
+                valid: torch.Tensor, b=0) -> dict:
     """Design point ``b``'s per-request outputs from a chunk-step launch,
-    as :func:`_emulate_impl` returns them (per-chunk values expanded)."""
-    cs = chunk_step_lib
-    per_chunk = out.chunks[b].repeat_interleave(cfg.chunk, dim=0)
+    as :func:`_emulate_impl` returns them (per-chunk values expanded);
+    with ``b=ALL`` every point's, [B, N] each."""
+    def per_request(name):
+        k = chunk_step_lib.CHUNK_OUT.index(name)
+        return out.chunks[b][..., k].repeat_interleave(cfg.chunk, dim=-1)
     return {"returns": out.returns[b],
             "device": torch.where(valid, out.device[b], -1),
             "latency": out.latency[b],
             "faulted": (out.poisoned[b] | out.injected[b]) != 0,
-            "retired_page": per_chunk[:, cs.CHUNK_OUT.index("retired")],
-            "tombstone": per_chunk[:, cs.CHUNK_OUT.index("tombstone")]}
+            "retired_page": per_request("retired"),
+            "tombstone": per_request("tombstone")}
+
+
+def _launch(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
+            valid: torch.Tensor, states: EmulatorState,
+            params: RuntimeParams, faults: FaultPlan
+            ) -> chunk_step_lib.KernelOut:
+    """ONE launch of the chunk-step kernel over every chunk of the trace
+    for the B design points of the stacked ``states`` / ``params`` (each
+    tensor with a leading point axis; the table [B, n_pages, 8] is updated
+    in place). ``trace`` and ``valid`` are [N], shared by every point and
+    copied once a point, or [B, N]; ``faults`` is one shared plan or a
+    stacked one."""
+    cs = chunk_step_lib
+    b = states.table.shape[0]
+    ints, floats = cs._pack_scalars(params, _step_scalars(states))
+    c_int, c_float = cs.pack_counters(states.counters)
+    vec = [x.to(torch.int32).expand(b, -1).contiguous()
+           for x in (*trace, valid)]
+    plan = [x.expand(b, -1, -1).contiguous() for x in faults]
+    return cs.chunk_step_cuda(cfg, registry, states.table, ints, floats,
+                              states.bank_free, *vec, *plan, c_int, c_float)
+
+
+def _index(x, i):
+    """``x[i]`` of every tensor of a (nested) NamedTuple: ``i=None`` adds a
+    point axis of one, an int picks that point of a stacked one (views)."""
+    if isinstance(x, tuple):
+        return type(x)(*(_index(y, i) for y in x))
+    return x[i]
 
 
 def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
@@ -201,16 +251,15 @@ def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
     """Every chunk of the trace in ONE launch of the chunk-step kernel
     (which updates the table in place); returns the final state and the
     outputs."""
-    cs = chunk_step_lib
-    ints, floats = cs._pack_scalars(params, _step_scalars(state))
-    c_int, c_float = cs.pack_counters(state.counters)
-    vec = [x.to(torch.int32).contiguous()[None] for x in
-           (trace.page, trace.offset, trace.is_write, trace.size, valid)]
-    out = cs.chunk_step_cuda(
-        cfg, registry, state.table[None], ints[None], floats[None],
-        state.bank_free[None], *vec, faults.transient[None],
-        faults.deaths[None], c_int[None], c_float[None])
+    out = _launch(cfg, registry, trace, valid, _index(state, None),
+                  _index(params, None), faults)
     return kernel_state(state.table, out), kernel_outs(cfg, out, valid)
+
+
+def _empty_outs(device, shape=(0,)) -> dict:
+    z = torch.zeros(shape, dtype=torch.int32, device=device)
+    return {"returns": z, "device": z, "latency": z, "faulted": z.bool(),
+            "retired_page": z, "tombstone": z}
 
 
 def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
@@ -229,10 +278,7 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
     if n % cfg.chunk:
         raise ValueError("pad the trace to a chunk multiple first")
     if n == 0:
-        z = torch.zeros(0, dtype=torch.int32, device=state.table.device)
-        return state, {"returns": z, "device": z, "latency": z,
-                       "faulted": z.bool(), "retired_page": z,
-                       "tombstone": z}
+        return state, _empty_outs(state.table.device)
     if not seq and chunk_step_lib.use_chunk_step_kernel(cfg, state.table):
         new, outs = _emulate_kernel(cfg, registry, trace, valid, state,
                                     params, faults)
@@ -246,3 +292,55 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
         parts.append(out)
     return _write_back(state, new), {
         k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def init_states(cfg: EmulatorConfig, params: RuntimeParams) -> EmulatorState:
+    """Fresh state of every design point of the stacked ``params`` (1-D
+    tensors of length B), stacked: each point's table from its own
+    ``n_fast_pages`` and ``pin_fast_fraction`` (one call for all B)."""
+    table = table_lib.init_table(cfg, params.n_fast_pages[:, None],
+                                 params.pin_fast_fraction[:, None])
+    return EmulatorState(table=table, **_fresh_fields(
+        cfg, table.device, params.policy_id.shape))
+
+
+def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
+                        trace: Trace, valid: torch.Tensor,
+                        states: EmulatorState, params: RuntimeParams,
+                        faults: FaultPlan | None = None
+                        ) -> tuple[EmulatorState, dict]:
+    """The sweep's computation: :func:`_emulate_impl` over B design
+    points, the JAX package's ``vmap`` written out as a leading point
+    axis. ``states`` and ``params`` are stacked ([B, ...] every tensor);
+    ``trace`` is [N], shared by every point, or [B, N] (a trace a
+    channel); ``valid`` is [N]; ``faults`` is one shared plan or a stacked
+    per-point one (:func:`faults.stack_plans`). The final states are
+    written into ``states``' own tensors (returned with the [B, N]
+    outputs).
+
+    Where :func:`chunk_step.use_chunk_step_kernel` picks the kernel, ONE
+    launch runs every point over every chunk. Otherwise (a CPU tensor, or
+    ``"off"``) the points run one after another through
+    :func:`_emulate_impl`, each writing into its own slice of ``states``:
+    a point axis through ``step_ref``, with one lookup launch gathering
+    every point's rows, is later work."""
+    device = states.table.device
+    if faults is None:
+        faults = FaultPlan.empty(device=device)
+    n, b = len(trace), states.table.shape[0]
+    if n % cfg.chunk:
+        raise ValueError("pad the trace to a chunk multiple first")
+    if n == 0:
+        return states, _empty_outs(device, (b, 0))
+    if chunk_step_lib.use_chunk_step_kernel(cfg, states.table):
+        out = _launch(cfg, registry, trace, valid, states, params, faults)
+        new = kernel_state(states.table, out, ALL)
+        return _write_back(states, new), kernel_outs(cfg, out, valid, ALL)
+    parts = []
+    for i in range(b):
+        point_trace = trace if trace.page.dim() == 1 else _index(trace, i)
+        point_plan = _index(faults, i) if faults.is_batched else faults
+        parts.append(_emulate_impl(
+            cfg, registry, point_trace, valid, _index(states, i),
+            _index(params, i), point_plan)[1])
+    return states, {k: torch.stack([p[k] for p in parts]) for k in parts[0]}

@@ -44,6 +44,16 @@ class FaultPlan(NamedTuple):
     def to(self, device) -> "FaultPlan":
         return FaultPlan(self.transient.to(device), self.deaths.to(device))
 
+    @property
+    def shape_sig(self) -> tuple:
+        """The event tables' shapes (plans stacked together must agree)."""
+        return (tuple(self.transient.shape), tuple(self.deaths.shape))
+
+    @property
+    def is_batched(self) -> bool:
+        """True for a stacked per-design-point plan (:func:`stack_plans`)."""
+        return self.transient.dim() == 3
+
 
 def _rows(events, sentinel_chunk: int, device) -> torch.Tensor:
     rows = np.asarray(list(events), np.int32).reshape(-1, 2)
@@ -91,4 +101,15 @@ def pad_plan(plan: FaultPlan, nt: int, nd: int) -> FaultPlan:
                      deaths=pad(plan.deaths, nd, NEVER))
 
 
-__all__ = ["FaultPlan", "NEVER", "seeded_plan", "pad_plan"]
+def stack_plans(plans: list[FaultPlan]) -> FaultPlan:
+    """Stack same-shape plans into a per-design-point batch for sweeps
+    (leading point axis). All plans must share (nt, nd): see
+    :func:`pad_plan`."""
+    sigs = {p.shape_sig for p in plans}
+    if len(sigs) != 1:
+        raise ValueError(f"plans disagree on event-table shapes: {sigs}")
+    return FaultPlan(torch.stack([p.transient for p in plans]),
+                     torch.stack([p.deaths for p in plans]))
+
+
+__all__ = ["FaultPlan", "NEVER", "seeded_plan", "stack_plans", "pad_plan"]

@@ -180,7 +180,8 @@ def init_table(cfg: EmulatorConfig, n_fast_pages=None,
     ``f``. ``n_fast_pages`` (int32) and ``pin_fast_fraction`` (float32)
     may be 0-dim tensors (``RuntimeParams`` fields); the pinned prefix is
     ``floor(float32(frac) * float32(nf))``, computed in float32 as the
-    JAX package does."""
+    JAX package does. Given as [B, 1] tensors they give B tables,
+    [B, n_pages, 8]."""
     n = cfg.n_pages
     nf = cfg.n_fast_pages if n_fast_pages is None else n_fast_pages
     frac = (cfg.pin_fast_fraction if pin_fast_fraction is None
@@ -194,7 +195,7 @@ def init_table(cfg: EmulatorConfig, n_fast_pages=None,
     frm = torch.where(ar < nf, ar, ar - nf).to(torch.int32)
     n_pin = torch.floor(frac * nf.to(torch.float32)).to(torch.int32)
     flg = torch.where(ar < n_pin, PIN_FAST, 0).to(torch.int32)
-    return pack_rows(dev, frm, owner=ar, flags=flg)
+    return pack_rows(dev, frm, owner=ar.expand_as(dev), flags=flg)
 
 
 def check_table(cfg: EmulatorConfig, table,

@@ -526,28 +526,33 @@ def scalar_tensors(sc: StepScalars) -> list:
 
 
 def _pack_scalars(params: RuntimeParams, sc: StepScalars):
-    """(int32[14 + 15], float32[7]): the state scalars and int params,
-    and the float params."""
+    """(int32[..., 14 + 15], float32[..., 7]): the state scalars and int
+    params, and the float params; ``...`` is the point axis of stacked
+    params and scalars (none for one point)."""
     ints = scalar_tensors(sc) + [getattr(params, f) for f in INT_PARAM_FIELDS]
     floats = [getattr(params, f) for f in FLOAT_PARAM_ORDER]
-    return (torch.stack([v.to(_I32) for v in ints]),
-            torch.stack([v.to(torch.float32) for v in floats]))
+    return (torch.stack([v.to(_I32) for v in ints], dim=-1),
+            torch.stack([v.to(torch.float32) for v in floats], dim=-1))
 
 
 def pack_counters(c: counters_lib.Counters):
-    """(int32[10], float32[6]): the counters in the kernel's order."""
-    return (torch.stack([getattr(c, f) for f in COUNTER_INT_FIELDS]),
-            torch.stack([getattr(c, f) for f in COUNTER_FLOAT_FIELDS]))
+    """(int32[..., 10], float32[..., 6]): the counters in the kernel's
+    order (``...`` as in :func:`_pack_scalars`)."""
+    return (torch.stack([getattr(c, f) for f in COUNTER_INT_FIELDS], dim=-1),
+            torch.stack([getattr(c, f) for f in COUNTER_FLOAT_FIELDS],
+                        dim=-1))
 
 
 def _unpack_out_scalars(scv: torch.Tensor) -> StepScalars:
-    """The kernel's int32[14] state -> StepScalars of 0-dim views."""
+    """The kernel's int32[..., 14] state -> StepScalars of views (0-dim
+    for one point, [B] for a point axis)."""
+    s = scv.unbind(-1)
     return StepScalars(
-        clock=scv[0], clock_ptr=scv[1], chunk_idx=scv[2],
-        dma=dma_lib.DMAState(active=scv[3], page_a=scv[4], page_b=scv[5],
-                             start=scv[6], swaps_done=scv[7]),
-        link_free_rx=scv[8], link_free_tx=scv[9], last_return=scv[10],
-        rescue_page=scv[11], min_wear=scv[12], fault_cursor=scv[13])
+        clock=s[0], clock_ptr=s[1], chunk_idx=s[2],
+        dma=dma_lib.DMAState(active=s[3], page_a=s[4], page_b=s[5],
+                             start=s[6], swaps_done=s[7]),
+        link_free_rx=s[8], link_free_tx=s[9], last_return=s[10],
+        rescue_page=s[11], min_wear=s[12], fault_cursor=s[13])
 
 
 @functools.lru_cache(maxsize=None)

@@ -334,3 +334,70 @@ def test_engine_run_launches_once_and_updates_the_state_in_place(
     ref = cpu.run(trace)
     ref = cpu.run(trace, state=ref.state)
     _assert_equal(tuple(t.cpu() for t in _leaves(res)), tuple(_leaves(ref)))
+
+
+# ------------------------------------------------------------ the sweep
+def _stack(states):
+    """Point states stacked along a leading point axis."""
+    if isinstance(states[0], tuple):
+        return type(states[0])(*(_stack(xs) for xs in zip(*states)))
+    return torch.stack(states)
+
+
+def _point(stacked, i):
+    """Design point ``i`` of a stacked state or of stacked outputs."""
+    if isinstance(stacked, dict):
+        return {k: v[i] for k, v in stacked.items()}
+    return t_emu._index(stacked, i)
+
+
+@pytest.mark.cuda
+def test_sweep_is_one_launch_and_each_point_equals_its_run(cuda_device):
+    """A 24-point grid (policies not in built-in order, two fast-tier
+    splits, two slow tiers, two link latencies) under a shared fault plan
+    with endurance retirement: ONE chunk-step launch, no lookup launch,
+    and every point bitwise equal to its own ``Engine.run``."""
+    from repro_torch.kernels import hmmu_lookup as t_hl
+    from repro_torch.sweep import SweepSpec, build_points
+    cfg, _, _, trace, _, plan = _chunk_scenario(cuda_device, "hotness")
+    spec = SweepSpec(cfg, technologies=("3dxpoint", "stt-ram"),
+                     fast_fractions=(0.125, 0.25),
+                     policies=("wear_level", "hotness", "static"),
+                     link_lats=(40, 600))
+    eng = repro_torch.Engine(cfg)
+    before = (t_cs.KERNEL.launches, t_hl.KERNEL.launches)
+    res = eng.sweep(spec, trace, faults=plan)
+    torch.cuda.synchronize()
+    assert (t_cs.KERNEL.launches, t_hl.KERNEL.launches) == \
+        (before[0] + 1, before[1])
+    for i, p in enumerate(build_points(spec)):
+        want = eng.run(trace, params=p.params(cuda_device), faults=plan)
+        _assert_equal((_point(res.states, i), _point(res.outs, i)),
+                      tuple(want))
+    assert int(res.states.counters.frames_retired.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sweep_registry_subset_and_out_of_range_id_equal_the_plain_run(
+        cuda_device):
+    """A registry subset not in built-in order, and a ``policy_id`` past
+    its end (the clamped policy, ``write_bias``, without its write
+    weighting), in one launch: each point equal to the plain loop
+    (``step_ref(seq=True)``) at the same registry and id."""
+    cfg, params, st, trace, valid, plan = _chunk_scenario(cuda_device,
+                                                          "write_bias")
+    eng = repro_torch.Engine(cfg, registry=("wear_level", "hotness",
+                                            "write_bias"))
+    ids = (0, 1, 2, 7)
+    stacked = tcore.RuntimeParams(*(x.expand(len(ids)).contiguous()
+                                    for x in params))._replace(
+        policy_id=torch.tensor(ids, dtype=torch.int32, device=cuda_device))
+    res = eng.sweep(stacked, trace, faults=plan,
+                    states=_stack([st] * len(ids)))
+    padded = torch.ones_like(valid)   # sweep pads: every request valid
+    for i in range(len(ids)):
+        p = params._replace(policy_id=stacked.policy_id[i])
+        want = t_emu._emulate_impl(cfg, eng.registry, trace, padded,
+                                   t_emu.clone_state(st), p, plan, seq=True)
+        _assert_equal((_point(res.states, i), _point(res.outs, i)), want)
+    assert not torch.equal(res.states.table[2], res.states.table[3])
