@@ -12,10 +12,11 @@ dropped in the block scan, a bank lane's register not carried to the
 next chunk, one chunk's fold of a float counter skipped, a chunk's sums
 added in float32, which only a chunk summing past 2^24 shows, one
 cluster CTA's share of the decay pass skipped) runs phase 4
-(``chip_smoke.check_chunk_step``), which must stop at a mismatch; the two
-that only a sweep shows (the registry map skipped, the last design point
-reading point 0's int parameters) run phase 7's checks
-(``chip_smoke.check_sweep``) instead. A fault
+(``chip_smoke.check_chunk_step``), which must stop at a mismatch; the
+three that only a sweep shows (the registry map skipped, the last design
+point reading point 0's int parameters, and in kernel A's fused entry
+every point's DMA swap pair read from point 0's table) run phase 7's
+checks (``chip_smoke.check_sweep``) instead. A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -40,9 +41,9 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
 
-# Chunk-step faults that only a sweep shows (phase 4 runs the full
-# registry, where the map is the identity): they run phase 7's checks
-# (``chip_smoke.check_sweep``), which must stop at a mismatch.
+# Faults that only a sweep shows (phase 4 runs the full registry, where
+# the map is the identity, and one point at a time): they run phase 7's
+# checks (``chip_smoke.check_sweep``), which must stop at a mismatch.
 SWEEP_FAULTS = [
     ("chunk step (sweep): the registry map skipped, the clamped raw "
      "policy_id taken as the built-in policy", "chunk_step",
@@ -56,6 +57,10 @@ SWEEP_FAULTS = [
      "  if (tid < N_INTS)\n"
      "    I[tid] = a.ints[(tid >= N_STATE && bi == last_point ? 0 : bi)\n"
      "                    * N_INTS + tid];"),
+    ("kernel A (sweep, 'off'): every point's DMA swap pair read from point "
+     "0's table", "hmmu_lookup", CSRC + "hmmu_lookup.cu",
+     "    dst = swap + (b * 2 + (i - m)) * kHalves;\n",
+     "    dst = swap + (b * 2 + (i - m)) * kHalves;\n    point = 0;\n"),
 ]
 
 # (name, kernel, source, text, its faulty replacement)
@@ -131,7 +136,8 @@ FAULTS = [
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
-# chunk-step fault the phase whose checks run ("phase 4" or "phase 7").
+# chunk-step or kernel-A fault the phase whose checks run ("phase 4" or
+# "phase 7").
 CHILD = r'''
 import json, sys
 import torch
@@ -145,7 +151,7 @@ from repro_torch.kernels import rwkv_scan as rw
 torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
-if kernel == "chunk_step":
+if kernel in ("chunk_step", "hmmu_lookup"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}

@@ -14,9 +14,13 @@ Phases, each printing its lines in order:
    phase stamps (one process per library, started together).
 3. **Kernel A** (``hmmu_lookup``) against its plain version at the
    paper's geometry (294,912 x 8 table), B in {1, 4}, m in {512, 514},
-   and B = 16 at m = 514, with negative and past-the-end pages:
-   ``torch.equal``; its time, the plain version's, and one
-   advanced-indexing call's (``library_ms``).
+   and B in {16, 64} at m = 514, with negative and past-the-end pages;
+   then its fused entry (the scan path's stage 2: every point's 512
+   chunk rows and its raw DMA swap pair, -1 idle, negative and past the
+   end, each point from its own table) at B in {1, 16, 64}, and at B = 16
+   with one chunk shared by every point: ``torch.equal``; each one's
+   time, the plain version's, one advanced-indexing call's
+   (``library_ms``) and the byte bound.
 4. **Kernel B** (``chunk_step``) against its plain version (the loop of
    ``step_ref(seq=True)`` and ``counters.update``): each of the six
    policies, on ``small_platform``, on the paper geometry and on the
@@ -33,7 +37,8 @@ Phases, each printing its lines in order:
    ``520.omnetpp`` trace at scale 1e-4 (1,342,177 requests, 2,622
    chunks), once through kernel B (``chunk_step_kernel="auto"``: one
    launch) and once through the scan path whose stage-2 gather is kernel
-   A (``"off"``: one launch per chunk); the two final states, counters
+   A's fused entry (``"off"``: one launch per chunk); the two final
+   states, counters
    and outputs must be bitwise equal. Then kernel B's device time per
    chunk over the whole trace and its share of the wall time of the same
    ``Engine.run`` (three runs), its clock64() phase split from the
@@ -68,7 +73,10 @@ Phases, each printing its lines in order:
    every point reaches its slow tier, and every ``hotness`` point
    migrates; every point bitwise equal to its own ``Engine.run``;
    ``continue_sweep`` over the second half equal to the whole sweep; the
-   ``"off"`` route over the first 64 chunks equal to ``"auto"``; over 40
+   ``"off"`` route over the first 64 chunks, one chunk loop for all 16
+   points with ONE launch of kernel A a chunk (64 in all) and none of
+   kernel B, equal to ``"auto"``, and kernel A's device time per launch
+   there; over 40
    chunks, the 16 points and one with a ``policy_id`` past the end of a
    registry subset (``hotness``, ``static``, ``write_bias``), in one
    launch, each equal to its plain run at its own parameters. Then the
@@ -251,22 +259,59 @@ def max_abs_diff(torch, a, b) -> int:
 
 
 # --------------------------------------------------------------- phase 3
+LOOKUP_PAGES = 294_912       # the paper's table: 32,768 + 262,144 rows
+CHUNK = 512                  # the main path's chunk; fused: + 2 swap rows
+
+
+def lookup_table(torch, dev, b: int):
+    """B random packed tables at the paper's geometry, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    return torch.randint(-2 ** 20, 2 ** 20, (b, LOOKUP_PAGES, 8),
+                         generator=g, dtype=torch.int32, device=dev)
+
+
+def lookup_pages(torch, dev, b: int, m: int, seed: int):
+    """int32[B, m] pages with negative and past-the-end ones up front."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = torch.randint(0, LOOKUP_PAGES, (b, m), generator=g,
+                          dtype=torch.int32, device=dev)
+    pages[:, :4] = torch.tensor([-1, -LOOKUP_PAGES - 3, LOOKUP_PAGES, 2 ** 30],
+                                dtype=torch.int32)
+    return pages
+
+
+def lookup_times(torch, table, rows_idx, kernel, plain, kernel_name: str,
+                 label: str) -> tuple:
+    """(kernel device ms, plain wall ms, advanced indexing device ms, the
+    byte bound in ms) of one gather of ``rows_idx`` [B, r] (clamped row
+    indices) from ``table``: r rows read, r rows written, r indices."""
+    b, r = rows_idx.shape
+    b_idx = torch.arange(b, device=table.device)[:, None].expand(b, r)
+    k_ms = device_ms(torch, kernel, 200, kernel_name)
+    p_ms = wall_ms(torch, plain, 200)
+    lib_ms = device_ms(torch, lambda: table[b_idx, rows_idx], 200)
+    byts = b * r * (32 + 32 + 4)
+    print(f"    {label}: kernel {k_ms * 1e3:.2f} us (device), plain "
+          f"{p_ms * 1e3:.2f} us (wall), advanced indexing "
+          f"{lib_ms * 1e3:.2f} us (device), bound "
+          f"{byts / HBM_BYTES_PER_S * 1e9:.2f} ns ({byts} B)")
+    return k_ms, p_ms, lib_ms, byts / HBM_BYTES_PER_S * 1e3
+
+
 def check_lookup(torch, dev, hl) -> dict:
-    n_pages = 294_912
-    g = torch.Generator().manual_seed(0)
+    """Kernel A's two entries against their plain versions (torch.equal)
+    at the paper's geometry: the unfused gather at B in {1, 4} x m in
+    {512, 514} and B in {16, 64} x 514; the fused entry (the chunk's 512
+    rows and the raw DMA pair, -1 idle, negative and past the end) at
+    B in {1, 16, 64}, and at B = 16 with one chunk shared by every point
+    (an expanded view). Times and bounds of each."""
     err = 0
-    timing = {}
-    # B = 16 x 514 rows: the rows a 16-point sweep's scan path would gather
-    # in one launch.
-    for b, ms in ((1, (512, 514)), (4, (512, 514)), (16, (514,))):
-        table = torch.randint(-2 ** 20, 2 ** 20, (b, n_pages, 8), generator=g,
-                              dtype=torch.int32).to(dev)
+    timing, fused = {}, {}
+    for b, ms in ((1, (512, 514)), (4, (512, 514)), (16, (514,)),
+                  (64, (514,))):
+        table = lookup_table(torch, dev, b)
         for m in ms:
-            pages = torch.randint(0, n_pages, (b, m), generator=g,
-                                  dtype=torch.int32)
-            pages[:, :4] = torch.tensor([-1, -n_pages - 3, n_pages, 2 ** 30],
-                                        dtype=torch.int32)
-            pages = pages.to(dev)
+            pages = lookup_pages(torch, dev, b, m, seed=b * 1000 + m)
             got = hl.hmmu_lookup_cuda(table, pages)
             want = hl.hmmu_lookup_plain(table, pages)
             torch.cuda.synchronize()
@@ -275,21 +320,46 @@ def check_lookup(torch, dev, hl) -> dict:
             print(f"  kernel A  B={b} m={m}: torch.equal={ok}")
             if not ok:
                 raise Mismatch(f"hmmu_lookup differs at B={b} m={m}")
-            b_idx = torch.arange(b, device=dev)[:, None].expand(b, m)
-            idx = pages.to(torch.int64).clamp(0, n_pages - 1)
-            k_ms = device_ms(torch, lambda: hl.hmmu_lookup_cuda(table, pages),
-                             200, "hmmu_lookup_kernel")
-            p_ms = wall_ms(torch, lambda: hl.hmmu_lookup_plain(table, pages),
-                           200)
-            lib_ms = device_ms(torch, lambda: table[b_idx, idx], 200)
-            byts = b * m * (32 + 32 + 4)
-            print(f"    kernel {k_ms * 1e3:.2f} us (device), plain "
-                  f"{p_ms * 1e3:.2f} us (wall), advanced indexing "
-                  f"{lib_ms * 1e3:.2f} us (device), bound "
-                  f"{byts / HBM_BYTES_PER_S * 1e9:.2f} ns ({byts} B)")
-            timing[(b, m)] = (k_ms, p_ms, lib_ms,
-                              byts / HBM_BYTES_PER_S * 1e3)
-    return {"max_abs_err": err, "timing": timing}
+            idx = pages.to(torch.int64).clamp(0, LOOKUP_PAGES - 1)
+            timing[(b, m)] = lookup_times(
+                torch, table, idx, lambda: hl.hmmu_lookup_cuda(table, pages),
+                lambda: hl.hmmu_lookup_plain(table, pages),
+                "hmmu_lookup_kernel", f"B={b} m={m}")
+        if b == 4:
+            continue
+        pages = lookup_pages(torch, dev, b, CHUNK, seed=b)
+        regs = torch.randint(-3, LOOKUP_PAGES + 3, (2, b), dtype=torch.int32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(7), device=dev)
+        regs[:, 0] = torch.tensor([-1, LOOKUP_PAGES], dtype=torch.int32)
+        if b > 1:
+            regs[:, 1] = torch.tensor([-LOOKUP_PAGES - 1, -1],
+                                      dtype=torch.int32)
+        page_a, page_b = regs[0], regs[1]
+        cases = [("", pages)]
+        if b == 16:
+            cases.append((" (one chunk shared, point stride 0)",
+                          pages[:1].expand(b, -1)))
+        for what, pg in cases:
+            got = hl.hmmu_lookup_fused_cuda(table, pg, page_a, page_b)
+            want = hl.hmmu_lookup_fused_plain(table, pg, page_a, page_b)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max([err] + [max_abs_diff(torch, g, w)
+                               for g, w in zip(got, want)])
+            print(f"  kernel A fused  B={b} x ({CHUNK} + 2) rows{what}: "
+                  f"torch.equal={ok}")
+            if not ok:
+                raise Mismatch(f"hmmu_lookup_fused differs at B={b}{what}")
+        idx = torch.cat([pages, regs.T.clamp_min(0)], dim=1).to(
+            torch.int64).clamp(0, LOOKUP_PAGES - 1)
+        fused[b] = lookup_times(
+            torch, table, idx,
+            lambda: hl.hmmu_lookup_fused_cuda(table, pages, page_a, page_b),
+            lambda: hl.hmmu_lookup_fused_plain(table, pages, page_a, page_b),
+            "hmmu_lookup_fused_kernel", f"fused B={b} x {CHUNK + 2} rows")
+        del table
+    return {"max_abs_err": err, "timing": timing, "fused": fused}
 
 
 # --------------------------------------------------------------- phase 4
@@ -684,12 +754,11 @@ def kernel_a_main_ms(torch, rt, hl, main, n_chunks=256) -> float:
     n_chunks = min(n_chunks, len(trace) // cfg.chunk)
     sub = rt.core.Trace(*(x[:n_chunks * cfg.chunk] for x in trace))
     eng = rt.Engine(cfg.with_(chunk_step_kernel="off"))
+    name = "hmmu_lookup_fused_kernel"
     ms, traced = device_ms_by_kernel(torch, lambda: eng.run(sub), 1,
-                                     ("hmmu_lookup_kernel",))[
-        "hmmu_lookup_kernel"]
+                                     (name,))[name]
     if not traced:
-        ms = device_ms(torch, lambda: eng.run(sub), 1,
-                       "hmmu_lookup_kernel") / n_chunks
+        ms = device_ms(torch, lambda: eng.run(sub), 1, name) / n_chunks
     print(f"  kernel A on the first {n_chunks} main-path chunks: "
           f"{ms * 1e3:.2f} us/launch (device; {traced} of {n_chunks} "
           "launches traced)")
@@ -795,8 +864,9 @@ def check_sweep(torch, dev, rt, hl, cs, base, spec, trace, off_chunks=64,
     print(f"  continue_sweep over requests {half}..{n} after a sweep of the "
           "first half: equal to the one sweep", flush=True)
     del res, first, cont
-    # The "off" route (kernel A a chunk, a point at a time) at reduced
-    # depth, against "auto" on the same chunks.
+    # The "off" route (one chunk loop for every point, kernel A's fused
+    # entry once a chunk) at reduced depth, against "auto" on the same
+    # chunks.
     m = off_chunks * chunk
     sub = rt.core.Trace(*(x[:m] for x in trace))
     off = base.with_(chunk_step_kernel="off")
@@ -809,15 +879,21 @@ def check_sweep(torch, dev, rt, hl, cs, base, spec, trace, off_chunks=64,
     off_wall = time.perf_counter() - t0
     off_counts = {"hmmu_lookup": hl.KERNEL.launches,
                   "chunk_step": cs.KERNEL.launches}
-    if off_counts != {"hmmu_lookup": len(points) * off_chunks,
-                      "chunk_step": 0}:
-        raise Mismatch(f"sweep on 'off': launches {off_counts}")
+    if off_counts != {"hmmu_lookup": off_chunks, "chunk_step": 0}:
+        raise Mismatch(f"sweep on 'off': launches {off_counts}, not one of "
+                       f"kernel A a chunk ({off_chunks})")
     want = eng.sweep(spec, sub)
     same_runs(torch, f"'off' against 'auto' over {off_chunks} chunks",
               (got.states, got.outs), (want.states, want.outs))
-    print(f"  route 'off' over the first {off_chunks} chunks: launches "
-          f"{off_counts}, wall {off_wall:.3f} s; equal to 'auto'",
-          flush=True)
+    del got, want
+    a_ms, traced = device_ms_by_kernel(
+        torch, lambda: rt.Engine(off).sweep(off_spec, sub), 1,
+        ("hmmu_lookup_fused_kernel",))["hmmu_lookup_fused_kernel"]
+    print(f"  route 'off' over the first {off_chunks} chunks of "
+          f"{len(points)} points: launches {off_counts}, wall "
+          f"{off_wall:.3f} s; equal to 'auto'; kernel A "
+          f"{a_ms * 1e3:.2f} us/launch (device; {traced} of {off_chunks} "
+          "launches traced)", flush=True)
     # Every grid point, over a registry subset (the grid's, hotness before
     # static, then write_bias), and one more point with a policy_id past
     # the subset's end (the clamped policy, write_bias, without its write
@@ -1352,7 +1428,7 @@ def main() -> int:
         sweep_numbers(torch, rt, base, spec, trace, card)
         del trace
 
-        k_ms, p_ms, lib_ms, a_bound = a["timing"][(1, 514)]
+        k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/hmmu_lookup.cu",
@@ -1370,7 +1446,8 @@ def main() -> int:
              "bound_by": "bytes", "library_ms": None},
             *model_kernel_rows(m6),
         ]
-        print(f"    kernel A alone at B=1 m=514: {k_ms * 1e3:.2f} us")
+        print(f"    kernel A's fused entry alone at B=1 x {CHUNK + 2} rows: "
+              f"{k_ms * 1e3:.2f} us")
         print(json.dumps({"kernels": kernels}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ import torch
 
 def in_order_returns(complete: torch.Tensor,
                      last_return: torch.Tensor) -> torch.Tensor:
-    """Map out-of-order completion times (int32, request order) to
-    in-order return times; ``last_return`` is the previous chunk's last
-    return (the FIFO never reorders across chunks either)."""
-    shifted = torch.maximum(complete, last_return)
+    """Map out-of-order completion times (int32 [..., chunk], request
+    order) to in-order return times; ``last_return`` [...] is the previous
+    chunk's last return (the FIFO never reorders across chunks either)."""
+    shifted = torch.maximum(complete, last_return[..., None])
     return torch.cummax(shifted, dim=-1).values

@@ -60,17 +60,19 @@ def update(p, c: Counters, *, device: torch.Tensor,
            injected: torch.Tensor | None = None) -> Counters:
     """Accumulate one chunk. Request fields are [chunk] tensors; ``p`` is
     a ``RuntimeParams`` (float32 power coefficients); ``poisoned`` and
-    ``injected`` are bool masks, ``retired`` a bool/int count."""
+    ``injected`` are bool masks, ``retired`` a bool/int count. With a
+    leading point axis (request fields [B, chunk], ``p``, ``c``, ``held``
+    and ``retired`` [B]) each point's chunk folds into its own counters."""
     v = valid
     w = is_write & v
     r = (~is_write) & v
     slow = device == SLOW
 
     def cnt(mask):
-        return mask.sum(dtype=torch.int32)
+        return mask.sum(dim=-1, dtype=torch.int32)
 
     def exact_sum(mask, x):
-        return torch.where(mask, x, 0).sum(dtype=torch.int64).to(
+        return torch.where(mask, x, 0).sum(dim=-1, dtype=torch.int64).to(
             torch.float32)
 
     def byt(mask):
@@ -81,7 +83,7 @@ def update(p, c: Counters, *, device: torch.Tensor,
               + 8.0 * byt(r & slow) * p.power_pj_per_bit_slow_read
               + 8.0 * byt(w & slow) * p.power_pj_per_bit_slow_write)
 
-    lat_max = torch.where(v, latency, 0).max()
+    lat_max = torch.where(v, latency, 0).amax(dim=-1)
     return Counters(
         reads_fast=c.reads_fast + cnt(r & ~slow),
         writes_fast=c.writes_fast + cnt(w & ~slow),

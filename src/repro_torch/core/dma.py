@@ -5,6 +5,10 @@ The engine swaps two pages (one per device) in 512 B sub-blocks. A
 request that hits a page mid-swap is redirected by the progress
 indicator: if its sub-block has already been exchanged it goes to the
 counterpart's (pre-swap) location. One swap is in flight at a time.
+
+Every function takes one design point (0-dim state fields, rows [W],
+request vectors [n]) or B of them along a leading point axis (fields
+[B], rows [B, W], vectors [B, n], a table [B, n_pages, W]).
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 
 from . import table as table_lib
 from .config import SLOW, EmulatorConfig, RuntimeParams
-from .indexing import take, take_lane
+from .indexing import take_lane, take_rows
 
 
 class DMAState(NamedTuple):
@@ -43,10 +47,11 @@ def swap_duration(cfg: EmulatorConfig, params: RuntimeParams) -> torch.Tensor:
 
 def progress_subblocks(cfg: EmulatorConfig, dma: DMAState, t: torch.Tensor,
                        params: RuntimeParams) -> torch.Tensor:
-    """Number of fully exchanged sub-blocks at time ``t`` (int32,
-    clamped). ``//`` floors, as in the JAX package."""
-    raw = (t - dma.start) // exchange_cycles_per_subblock(params)
-    raw = torch.where(dma.active == 1, raw, 0)
+    """Number of fully exchanged sub-blocks at the request times ``t``
+    [..., n] (int32, clamped). ``//`` floors, as in the JAX package."""
+    raw = (t - dma.start[..., None]) // \
+        exchange_cycles_per_subblock(params)[..., None]
+    raw = torch.where(dma.active[..., None] == 1, raw, 0)
     return raw.clamp(0, cfg.subblocks_per_page)
 
 
@@ -60,12 +65,13 @@ def redirect(cfg: EmulatorConfig, dma: DMAState,
     ``row_b`` are the pre-swap table rows of the in-flight pair."""
     prog = progress_subblocks(cfg, dma, t, params)
     transferred = (offset // cfg.subblock) < prog
-    hit_a = (dma.active == 1) & (page == dma.page_a) & transferred
-    hit_b = (dma.active == 1) & (page == dma.page_b) & transferred
-    device = torch.where(hit_a, table_lib.device(row_b), device)
-    frame = torch.where(hit_a, table_lib.frame(row_b), frame)
-    device = torch.where(hit_b, table_lib.device(row_a), device)
-    frame = torch.where(hit_b, table_lib.frame(row_a), frame)
+    active = dma.active[..., None] == 1
+    hit_a = active & (page == dma.page_a[..., None]) & transferred
+    hit_b = active & (page == dma.page_b[..., None]) & transferred
+    device = torch.where(hit_a, table_lib.device(row_b)[..., None], device)
+    frame = torch.where(hit_a, table_lib.frame(row_b)[..., None], frame)
+    device = torch.where(hit_b, table_lib.device(row_a)[..., None], device)
+    frame = torch.where(hit_b, table_lib.frame(row_a)[..., None], frame)
     return device, frame
 
 
@@ -75,9 +81,9 @@ class SwapCommit(NamedTuple):
     prefetched pre-chunk rows."""
     dma: DMAState
     done: torch.Tensor       # bool — swap finished this boundary
-    rows: torch.Tensor       # int32[10] target rows (idle entries: row 0)
-    lanes: torch.Tensor      # int32[10] target lanes
-    delta: torch.Tensor      # int32[10] value to add at (row, lane)
+    rows: torch.Tensor       # int32[..., 10] target rows (idle: row 0)
+    lanes: torch.Tensor      # int32[10] target lanes (every point's)
+    delta: torch.Tensor      # int32[..., 10] value to add at (row, lane)
     tombstone: torch.Tensor  # int32 — page parked on a dead frame, else -1
     rescued: torch.Tensor    # int32 — page whose rescue completed, else -1
 
@@ -118,7 +124,7 @@ def plan_commit(cfg: EmulatorConfig, dma: DMAState, now: torch.Tensor,
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     rows = torch.stack([ia, ib, ia, ib, ia, ib,
                         torch.where(chg_a, fb, zero),
-                        torch.where(chg_b, fa, zero), ia, ib])
+                        torch.where(chg_b, fa, zero), ia, ib], dim=-1)
     k = torch.arange(5, dtype=torch.int32, device=dev).repeat_interleave(2)
     lanes = table_lib.swap_commit_lanes(k)
     delta = torch.stack([torch.where(commit_a, db - da, zero),
@@ -130,7 +136,8 @@ def plan_commit(cfg: EmulatorConfig, dma: DMAState, now: torch.Tensor,
                          torch.where(chg_a, charge, zero),
                          torch.where(chg_b, charge, zero),
                          torch.where(commit_a, new_fla - fla, zero),
-                         torch.where(commit_b, new_flb - flb, zero)])
+                         torch.where(commit_b, new_flb - flb, zero)],
+                        dim=-1)
 
     any_dead = (commit_a & dead_a) | (commit_b & dead_b)
     none = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -155,17 +162,19 @@ def maybe_complete(cfg: EmulatorConfig, dma: DMAState, now: torch.Tensor,
     """Standalone commit: gather the swap pair's rows, plan the commit,
     apply its deltas (WEAR saturating at WEAR_CAP) to a copy of
     ``table``. Returns (state, table, done_flag)."""
-    plan = plan_commit(cfg, dma, now, take(table, dma.page_a.clamp_min(0)),
-                       take(table, dma.page_b.clamp_min(0)), params,
+    plan = plan_commit(cfg, dma, now,
+                       take_rows(table, dma.page_a.clamp_min(0)),
+                       take_rows(table, dma.page_b.clamp_min(0)), params,
                        rescue_page)
-    rows, lanes = plan.rows.to(torch.int64), plan.lanes.to(torch.int64)
-    pre = table[rows, lanes]
+    lead = table.shape[:-2]
+    flat = plan.rows.to(torch.int64) * table.shape[-1] + plan.lanes
+    pre = table.reshape(*lead, -1).gather(-1, flat)
     delta = torch.where(
         plan.lanes == table_lib.WEAR,
         torch.minimum(plan.delta, (table_lib.WEAR_CAP - pre).clamp_min(0)),
         plan.delta)
     out = table.clone()
-    out.view(-1).index_add_(0, rows * table.shape[-1] + lanes, delta)
+    out.view(*lead, -1).scatter_add_(-1, flat, delta)
     return plan.dma, out, plan.done
 
 

@@ -6,12 +6,13 @@ return -> TX link) one chunk at a time in ``kernels.chunk_step``. On a
 CUDA tensor with the chunk-step kernel selected, ONE launch runs every
 chunk of the trace and folds the counters (the JAX package's
 ``lax.scan``); otherwise this module loops the step over the chunks and
-folds each chunk's results into the counters. Drive it through
-:class:`repro_torch.Engine`.
+folds each chunk's results into the counters. Either way a sweep's B
+design points run together: on the loop, each chunk is one
+``step_batch`` over all of them (the JAX package's ``vmap``, written out
+as a leading point axis). Drive it through :class:`repro_torch.Engine`.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -19,6 +20,7 @@ import torch
 from . import counters as counters_lib, dma as dma_lib, table as table_lib
 from .config import EmulatorConfig, RuntimeParams
 from .faults import FaultPlan
+from .indexing import index_points as _index
 from .policies import PolicyRegistry
 from ..kernels import chunk_step as chunk_step_lib
 
@@ -121,15 +123,16 @@ def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
                 registry: PolicyRegistry, faults: FaultPlan,
                 state: EmulatorState, trace: Trace, valid: torch.Tensor,
                 seq: bool):
-    """One chunk through the chunk step (``step_ref(seq=True)`` when
-    ``seq``), then the counter update."""
+    """One chunk of B design points (stacked ``state`` and ``params``,
+    request vectors and ``valid`` [B, chunk]) through ``step_batch``
+    (with the sequential recurrences when ``seq``), then the counter
+    update."""
     page, offset, is_write, size = trace
     size = torch.where(valid, size, 0)
-    step = functools.partial(chunk_step_lib.step_ref, seq=True) if seq \
-        else chunk_step_lib.chunk_step
-    table, sc, bank_free, outs = step(
+    table, sc, bank_free, outs = chunk_step_lib.step_batch(
         cfg, registry, state.table, params, _step_scalars(state),
-        state.bank_free, page, offset, is_write, size, valid, faults)
+        state.bank_free, page, offset, is_write, size, valid, faults,
+        seq=seq)
     ctr = counters_lib.update(params, state.counters, device=outs["device"],
                               is_write=is_write, size=size, valid=valid,
                               latency=outs["latency"], held=outs["held"],
@@ -143,14 +146,37 @@ def _chunk_step(cfg: EmulatorConfig, params: RuntimeParams,
         last_return=sc.last_return, counters=ctr,
         rescue_page=sc.rescue_page, min_wear=sc.min_wear,
         fault_cursor=sc.fault_cursor)
-    n = page.shape[0]
+    shape = page.shape
     out = {"returns": outs["returns"],
            "device": torch.where(valid, outs["device"], -1),
            "latency": outs["latency"],
            "faulted": (outs["poisoned"] | outs["injected"]) & valid,
-           "retired_page": outs["retired"].expand(n),
-           "tombstone": outs["tombstone"].expand(n)}
+           "retired_page": outs["retired"][..., None].expand(shape),
+           "tombstone": outs["tombstone"][..., None].expand(shape)}
     return new_state, out
+
+
+def _chunk_loop(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
+                valid: torch.Tensor, states: EmulatorState,
+                params: RuntimeParams, faults: FaultPlan, seq: bool
+                ) -> tuple[EmulatorState, dict]:
+    """The plain chunk loop over B stacked design points: ONE
+    ``step_batch`` a chunk for all of them. ``trace`` is [N], shared by
+    every point and broadcast as an expanded view (never copied a
+    point), or [B, N]; ``valid`` is [N]. Returns the final states (the
+    passed table updated in place) and the [B, N] outputs."""
+    b = states.table.shape[0]
+    trace = Trace(*(x.expand(b, -1) for x in trace))
+    valid = valid.expand(b, -1)
+    new, parts = states, []
+    for lo in range(0, len(trace), cfg.chunk):
+        sl = slice(lo, lo + cfg.chunk)
+        new, out = _chunk_step(cfg, params, registry, faults, new,
+                               Trace(*(x[:, sl] for x in trace)),
+                               valid[:, sl], seq)
+        parts.append(out)
+    return new, {k: torch.cat([p[k] for p in parts], dim=-1)
+                 for k in parts[0]}
 
 
 def _tensors(x) -> list:
@@ -163,7 +189,11 @@ def _write_back(state: EmulatorState, new: EmulatorState) -> EmulatorState:
     routes of :func:`_emulate_impl` end here, so a passed state is
     updated in place wherever the run went."""
     for dst, src in zip(_tensors(state), _tensors(new), strict=True):
-        if dst is not src:
+        # A run at a point axis of one updated a view of ``state``'s own
+        # table in place: that is the same memory, with nothing to copy.
+        same = dst is src or (dst.data_ptr() == src.data_ptr() and
+                              dst.stride() == src.stride())
+        if not same:
             dst.copy_(src)
     return state
 
@@ -236,14 +266,6 @@ def _launch(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
                               states.bank_free, *vec, *plan, c_int, c_float)
 
 
-def _index(x, i):
-    """``x[i]`` of every tensor of a (nested) NamedTuple: ``i=None`` adds a
-    point axis of one, an int picks that point of a stacked one (views)."""
-    if isinstance(x, tuple):
-        return type(x)(*(_index(y, i) for y in x))
-    return x[i]
-
-
 def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
                     trace: Trace, valid: torch.Tensor, state: EmulatorState,
                     params: RuntimeParams, faults: FaultPlan
@@ -269,9 +291,10 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
     """Run the chunk step over a chunk-multiple trace and write the final
     state into ``state``'s own tensors (returned). Where
     :func:`chunk_step.use_chunk_step_kernel` picks the kernel, one launch
-    runs the whole trace; otherwise a loop over the chunks. ``seq=True``
-    is that loop through ``step_ref(seq=True)``: the kernel's plain
-    version."""
+    runs the whole trace; otherwise the chunk loop of
+    :func:`_emulate_batch_impl` at a point axis of one. ``seq=True`` is
+    that loop with the sequential recurrences (``step_ref(seq=True)``):
+    the kernel's plain version."""
     if faults is None:
         faults = FaultPlan.empty(device=state.table.device)
     n = len(trace)
@@ -283,15 +306,10 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
         new, outs = _emulate_kernel(cfg, registry, trace, valid, state,
                                     params, faults)
         return _write_back(state, new), outs
-    new, parts = state, []
-    for lo in range(0, n, cfg.chunk):
-        sl = slice(lo, lo + cfg.chunk)
-        new, out = _chunk_step(cfg, params, registry, faults, new,
-                               Trace(*(x[sl] for x in trace)), valid[sl],
-                               seq)
-        parts.append(out)
-    return _write_back(state, new), {
-        k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    new, outs = _chunk_loop(cfg, registry, trace, valid, _index(state, None),
+                            _index(params, None), faults, seq)
+    return _write_back(state, _index(new, 0)), {k: v[0]
+                                                for k, v in outs.items()}
 
 
 def init_states(cfg: EmulatorConfig, params: RuntimeParams) -> EmulatorState:
@@ -320,10 +338,10 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
 
     Where :func:`chunk_step.use_chunk_step_kernel` picks the kernel, ONE
     launch runs every point over every chunk. Otherwise (a CPU tensor, or
-    ``"off"``) the points run one after another through
-    :func:`_emulate_impl`, each writing into its own slice of ``states``:
-    a point axis through ``step_ref``, with one lookup launch gathering
-    every point's rows, is later work."""
+    ``"off"``) one chunk loop runs every point: each chunk is ONE
+    ``step_batch`` over the B points, whose stage-2 gather is one call of
+    ``ops.hmmu_lookup_fused`` (one launch of kernel A on a CUDA device)
+    for all of them."""
     device = states.table.device
     if faults is None:
         faults = FaultPlan.empty(device=device)
@@ -336,11 +354,6 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
         out = _launch(cfg, registry, trace, valid, states, params, faults)
         new = kernel_state(states.table, out, ALL)
         return _write_back(states, new), kernel_outs(cfg, out, valid, ALL)
-    parts = []
-    for i in range(b):
-        point_trace = trace if trace.page.dim() == 1 else _index(trace, i)
-        point_plan = _index(faults, i) if faults.is_batched else faults
-        parts.append(_emulate_impl(
-            cfg, registry, point_trace, valid, _index(states, i),
-            _index(params, i), point_plan)[1])
-    return states, {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    new, outs = _chunk_loop(cfg, registry, trace, valid, states, params,
+                            faults, seq=False)
+    return _write_back(states, new), outs

@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .indexing import take
+
 NEVER = 2 ** 30
 
 
@@ -53,6 +55,26 @@ class FaultPlan(NamedTuple):
     def is_batched(self) -> bool:
         """True for a stacked per-design-point plan (:func:`stack_plans`)."""
         return self.transient.dim() == 3
+
+
+def injected(plan: FaultPlan, page: torch.Tensor,
+             chunk_idx: torch.Tensor) -> torch.Tensor:
+    """bool[..., n]: the chunk's requests that a transient event marks
+    (its page, in this chunk). ``page`` [n] with a 0-dim ``chunk_idx``
+    for one point, or [B, n] with [B] for B points; the plan is shared
+    by every point or stacked ([B, nt, 2])."""
+    tc, tp = plan.transient[..., 0], plan.transient[..., 1]
+    return ((page[..., :, None] == tp[..., None, :]) &
+            (tc[..., None, :] == chunk_idx[..., None, None])).any(dim=-1)
+
+
+def next_death(plan: FaultPlan, cursor: torch.Tensor) -> torch.Tensor:
+    """int32[..., 2]: the (chunk, page) death event at each point's cursor
+    (clamped to the last row; the caller checks ``cursor < nd``), from a
+    shared plan or, per point, from a stacked one."""
+    nd = plan.deaths.shape[-2]
+    return take(plan.deaths, cursor.clamp_max(nd - 1),
+                plan.deaths.dim() - 2)
 
 
 def _rows(events, sentinel_chunk: int, device) -> torch.Tensor:
@@ -112,4 +134,5 @@ def stack_plans(plans: list[FaultPlan]) -> FaultPlan:
                      torch.stack([p.deaths for p in plans]))
 
 
-__all__ = ["FaultPlan", "NEVER", "seeded_plan", "stack_plans", "pad_plan"]
+__all__ = ["FaultPlan", "NEVER", "seeded_plan", "stack_plans", "pad_plan",
+           "injected", "next_death"]

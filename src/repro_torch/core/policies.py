@@ -7,6 +7,11 @@ proposes at most one page swap for the single DMA engine::
     propose(cfg, params, table, ptr, pages, is_write, valid)
         -> (want: bool, slow_page: int32, fast_victim: int32, new_ptr)
 
+for one design point, or for B of them along a leading point axis (the
+table [B, n_pages, 8], ``params`` and ``ptr`` [B], the chunk [B, n]; the
+proposal [B]), each point on its own table. An arg-max or arg-min keeps
+the first index on a tie, as JAX's does.
+
 Victims come from a CLOCK pointer over DRAM frames (the OWNER lane);
 ``hotness_global`` is the idealised whole-table reference. ``new_ptr``
 commits only when a wanted swap starts, or unconditionally when nothing
@@ -26,7 +31,7 @@ import torch
 
 from . import table as table_lib
 from .config import FAST, SLOW
-from .indexing import take, take_lane
+from .indexing import take_lane, take_rows
 
 POLICIES: dict[str, Callable] = {}
 
@@ -102,23 +107,29 @@ class PolicyRegistry:
 
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True of a 1-D bool mask, 0 when there is none
-    (JAX's ``argmax`` over a bool vector)."""
-    return torch.argmax(mask.to(torch.int32))
+    """Index of the first True along the last axis of a bool mask, 0 when
+    there is none (JAX's ``argmax`` over a bool vector)."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
+
+
+def pick(x: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """``x[..., j]``: each point's element ``j`` (int64, as an arg-max
+    gives it) of its last axis."""
+    return x.gather(-1, j[..., None])[..., 0]
 
 
 def _chunk_candidate(table, pages, valid, extra_mask=None):
     """Hottest slow-resident page among this chunk's accesses; pinned
     pages and retirement tombstones are never candidates. Ties go to the
     first request."""
-    rows = take(table, pages)
+    rows = take_rows(table, pages)
     ok = valid & (table_lib.device(rows) == SLOW) & \
         ~table_lib.is_pinned(rows) & ~table_lib.is_retired(rows)
     if extra_mask is not None:
         ok = ok & extra_mask
     heat = torch.where(ok, table_lib.hotness(rows), -1)
-    j = torch.argmax(heat)
-    return pages[j], heat[j]
+    j = torch.argmax(heat, dim=-1)
+    return pick(pages, j), pick(heat, j)
 
 
 # CLOCK pin-skip lookahead: frames examined per chunk from the pointer.
@@ -130,13 +141,13 @@ def _clock_victim(table, ptr, nf):
     pointer (pinned owners and tombstones are stepped over). Returns
     ``(victim_page, found, skip)``."""
     offs = torch.arange(CLOCK_WINDOW, dtype=torch.int32, device=table.device)
-    frames = (ptr + offs) % nf
-    owners = take(table_lib.owner(table), frames)
-    rows = take(table, owners)
+    frames = (ptr[..., None] + offs) % nf[..., None]
+    owners = take_lane(table, frames, table_lib.OWNER)
+    rows = take_rows(table, owners)
     pinned = table_lib.is_pinned(rows) | table_lib.is_retired(rows)
-    first = torch.argmin(pinned.to(torch.int32))   # first False, else 0
-    found = ~pinned[first]
-    victim = owners[first]
+    first = torch.argmin(pinned.to(torch.int32), dim=-1)  # first False, else 0
+    found = ~pick(pinned, first)
+    victim = pick(owners, first)
     skip = torch.where(found, first.to(torch.int32), CLOCK_WINDOW)
     return victim, found, skip
 
@@ -144,8 +155,9 @@ def _clock_victim(table, ptr, nf):
 @_register("static")
 def static_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Placement fixed at initialization; never migrate."""
-    z = torch.zeros((), dtype=torch.int32, device=table.device)
-    return torch.zeros((), dtype=torch.bool, device=table.device), z, z, ptr
+    z = torch.zeros(ptr.shape, dtype=torch.int32, device=table.device)
+    return torch.zeros(ptr.shape, dtype=torch.bool, device=table.device), \
+        z, z, ptr
 
 
 @_register("hotness")
@@ -172,21 +184,23 @@ def write_bias_policy(cfg, params, table, ptr, pages, is_write, valid):
 def stream_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Detect a dominant small stride in the chunk's page stream and
     pre-promote the stream's next page; else the hotness rule."""
-    deltas = torch.where(valid[1:] & valid[:-1], pages[1:] - pages[:-1], 0)
+    deltas = torch.where(valid[..., 1:] & valid[..., :-1],
+                         pages[..., 1:] - pages[..., :-1], 0)
     span = 4  # recognise strides in [-span, span] \ {0}
     in_range = (deltas.abs() <= span) & (deltas != 0)
-    hist = torch.zeros(2 * span + 1, dtype=torch.int32, device=table.device)
-    hist.index_add_(0, (deltas + span).clamp(0, 2 * span).to(torch.int64),
-                    in_range.to(torch.int32))
-    stride = torch.argmax(hist).to(torch.int32) - span
-    strength = hist.max()
-    streaming = strength > (pages.shape[0] // 4)
+    hist = torch.zeros(*ptr.shape, 2 * span + 1, dtype=torch.int32,
+                       device=table.device)
+    hist.scatter_add_(-1, (deltas + span).clamp(0, 2 * span).to(torch.int64),
+                      in_range.to(torch.int32))
+    stride = torch.argmax(hist, dim=-1).to(torch.int32) - span
+    strength = hist.amax(dim=-1)
+    streaming = strength > (pages.shape[-1] // 4)
 
-    n = pages.shape[0]
+    n = pages.shape[-1]
     order = torch.arange(n, dtype=torch.int32, device=table.device)
-    last = pages[torch.argmax(torch.where(valid, order, -1))]
-    target = (last + stride).clamp(0, table.shape[0] - 1)
-    target_row = take(table, target)
+    last = pick(pages, torch.argmax(torch.where(valid, order, -1), dim=-1))
+    target = (last + stride).clamp(0, table.shape[-2] - 1)
+    target_row = take_rows(table, target)
     target_is_slow = (table_lib.device(target_row) == SLOW) & \
         ~table_lib.is_pinned(target_row) & ~table_lib.is_retired(target_row)
 
@@ -207,11 +221,11 @@ def hotness_global_policy(cfg, params, table, ptr, pages, is_write, valid):
     hot = table_lib.hotness(table)
     pinned = table_lib.is_pinned(table) | table_lib.is_retired(table)
     heat_all = torch.where((dev == SLOW) & ~pinned, hot, -1)
-    cand = torch.argmax(heat_all)
-    heat = heat_all[cand]
+    cand = torch.argmax(heat_all, dim=-1)
+    heat = pick(heat_all, cand)
     cold = torch.where((dev == FAST) & ~pinned, hot, 2 ** 30)
-    victim = torch.argmin(cold)
-    want = (heat >= params.hot_threshold) & (heat > hot[victim])
+    victim = torch.argmin(cold, dim=-1)
+    want = (heat >= params.hot_threshold) & (heat > pick(hot, victim))
     return want, cand.to(torch.int32), victim.to(torch.int32), ptr
 
 
@@ -222,15 +236,15 @@ def wear_level_policy(cfg, params, table, ptr, pages, is_write, valid,
     candidates whose slow frame has absorbed more than ``wear_slack``
     writes beyond ``min_wear`` (the emulator's global min-wear register;
     None falls back to the chunk-local floor)."""
-    rows = take(table, pages)
+    rows = take_rows(table, pages)
     slow = valid & (table_lib.device(rows) == SLOW)
     frm = table_lib.frame(rows)
     frame_wear = take_lane(table, torch.where(slow, frm, 0), table_lib.WEAR)
     if min_wear is None:
-        wmin = torch.where(slow, frame_wear, 2 ** 30).min()
+        wmin = torch.where(slow, frame_wear, 2 ** 30).amin(dim=-1)
     else:
         wmin = min_wear
-    fresh = frame_wear <= wmin + params.wear_slack
+    fresh = frame_wear <= (wmin + params.wear_slack)[..., None]
     cand, cheat = _chunk_candidate(table, pages, valid, extra_mask=fresh)
     victim, vfound, skip = _clock_victim(table, ptr, params.n_fast_pages)
     want = vfound & (cheat >= params.hot_threshold) & \

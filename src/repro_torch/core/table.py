@@ -20,7 +20,9 @@ The layout, the flag bits and the saturation caps are those of the JAX
 package; the CUDA kernels (``kernels/csrc``) hard-code the same numbers.
 Functions that the JAX package wrote as pure updates (``decay_hotness``,
 ``set_flags``, ``clear_flags``) return a new tensor here too; only the
-chunk step updates a table in place.
+chunk step updates a table in place. The lane readers and updates take a
+table [n_pages, ROW_W] or a stacked one [B, n_pages, ROW_W] (a leading
+design-point axis, the JAX package's ``vmap``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from .config import EmulatorConfig, FAST, SLOW
-from .indexing import gather_index
+from .indexing import put_lane_, take_lane
 
 ROW_W = 8
 DEVICE, FRAME, HOTNESS, WEAR, OWNER, EPOCH, FLAGS = range(7)
@@ -108,22 +110,25 @@ def saturating_weights(targets: torch.Tensor, weights: torch.Tensor,
     """Clip scatter-add ``weights`` so the lane at each target saturates
     at ``cap`` instead of wrapping: element ``i`` adds at most what is
     left of ``cap`` after the pre-value ``pre[i]`` and every *earlier*
-    element aimed at the same slot. O(n^2) in the chunk width."""
+    element aimed at the same slot. O(n^2) in the chunk width; along the
+    last axis, per point of a leading point axis."""
     w = weights.to(torch.int32)
-    n = w.shape[0]
+    n = w.shape[-1]
     i = torch.arange(n, dtype=torch.int32, device=w.device)
-    same_earlier = (targets[None, :] == targets[:, None]) & \
+    same_earlier = (targets[..., None, :] == targets[..., :, None]) & \
         (i[None, :] < i[:, None])
-    psum = torch.where(same_earlier, w[None, :], 0).sum(
-        dim=1, dtype=torch.int32)
+    psum = torch.where(same_earlier, w[..., None, :], 0).sum(
+        dim=-1, dtype=torch.int32)
     allow = cap - pre - psum
     return torch.minimum(allow.clamp_min(0), w)
 
 
 def decay_hotness(table: torch.Tensor, shift) -> torch.Tensor:
-    """The aging tick: arithmetic-shift every page's HOTNESS lane."""
+    """The aging tick: arithmetic-shift every page's HOTNESS lane (``shift``
+    an int, or one per point of a stacked table)."""
+    shift = torch.as_tensor(shift, dtype=torch.int32, device=table.device)
     out = table.clone()
-    out[:, HOTNESS] = table[:, HOTNESS] >> shift
+    out[..., HOTNESS] = table[..., HOTNESS] >> shift[..., None]
     return out
 
 
@@ -136,22 +141,19 @@ def swap_commit_lanes(k: torch.Tensor) -> torch.Tensor:
 
 
 def set_flags(table: torch.Tensor, pages, bits: int) -> torch.Tensor:
-    """OR ``bits`` into the FLAGS lane of ``pages`` (scenario side)."""
-    idx = gather_index(torch.as_tensor(pages, dtype=torch.int32,
-                                       device=table.device), table.shape[0])
-    out = table.clone()
-    out[idx, FLAGS] = table[idx, FLAGS] | bits
-    return out
+    """OR ``bits`` into the FLAGS lane of ``pages`` (scenario side; for a
+    stacked table, ``pages`` [B, k] per point)."""
+    pages = torch.as_tensor(pages, dtype=torch.int32, device=table.device)
+    return put_lane_(table.clone(), pages, FLAGS,
+                     take_lane(table, pages, FLAGS) | bits)
 
 
 def clear_flags(table: torch.Tensor, pages,
                 bits: int = KNOWN_FLAGS) -> torch.Tensor:
     """Clear ``bits`` (default: all known bits) on ``pages``."""
-    idx = gather_index(torch.as_tensor(pages, dtype=torch.int32,
-                                       device=table.device), table.shape[0])
-    out = table.clone()
-    out[idx, FLAGS] = table[idx, FLAGS] & ~bits
-    return out
+    pages = torch.as_tensor(pages, dtype=torch.int32, device=table.device)
+    return put_lane_(table.clone(), pages, FLAGS,
+                     take_lane(table, pages, FLAGS) & ~bits)
 
 
 def pack_rows(device, frame, hotness=None, wear=None, owner=None,

@@ -16,8 +16,9 @@ CUDA device and no explicit CPU it raises — it never moves to the CPU
 quietly. On a CUDA device the chunk step is the hand-written CUDA kernel
 (or, with ``chunk_step_kernel="off"``, the scan path whose stage-2 gather
 is the CUDA lookup kernel). A sweep runs every design point in ONE
-launch of the chunk-step kernel; the multi-card sweep (``mesh=``) is not
-ported yet and raises.
+launch of the chunk-step kernel; on ``"off"`` or the CPU, in one chunk
+loop over the point axis with ONE lookup launch a chunk for all points.
+The multi-card sweep (``mesh=``) is not ported yet and raises.
 
 States passed to :meth:`Engine.run` are **updated in place by default**
 (the JAX package donates them): the packed table moves forward without a
@@ -185,7 +186,8 @@ class Engine:
         N a chunk multiple); ``params`` and the optional shared ``faults``
         plan apply to every channel, each from a fresh state. Returns
         ``(states, outs)`` with the channel axis leading; on a CUDA device
-        the channels are the points of ONE chunk-step launch."""
+        the channels are the points of ONE chunk-step launch (on ``"off"``
+        or the CPU, of one chunk loop over the point axis)."""
         params = self.params if params is None else params
         self._check_device("params", params.policy_id)
         traces = traces.to(self.device)
@@ -239,7 +241,9 @@ class Engine:
               donate: bool | None = None,
               faults: FaultPlan | None = None) -> SweepResult:
         """Evaluate every design point of ``spec`` on ``trace``; on a CUDA
-        device in ONE launch of the chunk-step kernel.
+        device in ONE launch of the chunk-step kernel (on ``"off"`` or the
+        CPU, one chunk loop over the point axis: each chunk one step for
+        every point, with one lookup launch).
 
         ``spec``: a :class:`SweepSpec` grid, a ``DesignPoint`` list, or a
         pre-stacked ``RuntimeParams`` batch (1-D tensors, ``policy_id``

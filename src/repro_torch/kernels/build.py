@@ -43,6 +43,7 @@ def nvcc_flags() -> tuple[str, ...]:
 # ctypes argument kinds of the C entry points.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 # The ``dtype`` argument of the attention and RWKV entry points.
@@ -92,21 +93,26 @@ class CudaKernel:
     stream, and :meth:`launch` counts that too, in ``variant_launches``.
     ``defines`` are extra ``nvcc`` options (``-D...``) of this build: one
     source built twice is two kernels, each with its library and count.
+    ``entries`` maps further C entry points of the same library to their
+    argument kinds; ``launch(..., symbol=...)`` launches one of them, and
+    its launches count in the same ``launches``.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: tuple,
                  variants: tuple[str, ...] = (),
-                 defines: tuple[str, ...] = ()):
+                 defines: tuple[str, ...] = (),
+                 entries: dict[str, tuple] | None = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.variants = variants
         self.defines = defines
+        self.entries = {symbol: argtypes, **(entries or {})}
         self.source = CSRC / f"{name}.cu"
         self.launches = 0
         self.variant_launches = dict.fromkeys(variants, 0)
         self.build_log = ""
-        self._fn = None
+        self._fns = {}
 
     def reset(self) -> None:
         self.launches = 0
@@ -150,22 +156,24 @@ class CudaKernel:
     def build(self) -> None:
         self.finish_build(self.start_build())
 
-    def _load(self):
-        if self._fn is None:
+    def _load(self, symbol: str):
+        if symbol not in self._fns:
             self.build()
             lib = ctypes.CDLL(str(self.library))
-            fn = getattr(lib, self.symbol)
+            fn = getattr(lib, symbol)
             extra = [ctypes.POINTER(ctypes.c_int)] if self.variants else []
-            fn.argtypes = list(self.argtypes) + extra + [PTR]  # + stream
+            fn.argtypes = list(self.entries[symbol]) + extra + [PTR]  # stream
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return self._fns[symbol]
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args,
+               symbol: str | None = None) -> None:
         """Launch on ``device``'s current PyTorch stream; raise if the
         launch was refused. ``args`` are ints for the C entry point
-        (pointers as ``tensor.data_ptr()``)."""
-        fn = self._load()
+        ``symbol`` (the kernel's own by default; pointers as
+        ``tensor.data_ptr()``)."""
+        fn = self._load(symbol or self.symbol)
         stream = torch.cuda.current_stream(device).cuda_stream
         which = ctypes.c_int(-1)
         extra = (ctypes.byref(which),) if self.variants else ()

@@ -63,6 +63,18 @@ def fused_gather(lookup, table: torch.Tensor, pages: torch.Tensor,
     return rows[..., :n, :], rows[..., n:, :]
 
 
+def hmmu_lookup_fused(table: torch.Tensor, pages: torch.Tensor,
+                      page_a: torch.Tensor, page_b: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused gather (kernel A's fused entry): the chunk's rows and the
+    rows of the DMA swap pair from the raw registers ``page_a`` and
+    ``page_b`` (int32[*batch]; -1 when idle reads row 0, as
+    ``clamp_min(0)`` then the clamp to ``[0, n_pages)`` does) ->
+    (int32[*batch, m, W], int32[*batch, 2, W])."""
+    return fused_gather(hmmu_lookup, table, pages,
+                        torch.stack([page_a, page_b], dim=-1))
+
+
 def _gqa_expand(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
     """[B, Hkv, S, D] -> [B, Hq, S, D] by repeating each kv head."""
     group = n_q_heads // k.shape[1]

@@ -61,6 +61,33 @@ def _once(kernel, fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+def test_fused_lookup_kernel_equals_plain_at_16_points(cuda_device, shared):
+    """Kernel A's fused entry over 16 points x (512 + 2) rows, each point
+    from its own table, with negative and past-the-end pages and raw DMA
+    registers (-1 idle, negative, past the end), in ONE launch, against
+    its plain version bit for bit; ``shared`` gives every point one chunk
+    as an expanded view (point stride 0)."""
+    from repro_torch.kernels import hmmu_lookup as t_hl
+    rng = np.random.default_rng(16)
+    b, n_pages, m = 16, 4099, 512
+    table = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, (b, n_pages, 8))
+                             .astype(np.int32)).to(cuda_device)
+    pages = rng.integers(-5, n_pages + 5, (1 if shared else b, m))
+    pages[:, :3] = [-1, n_pages, 2 ** 30]
+    pages = torch.from_numpy(pages.astype(np.int32)).to(cuda_device)
+    pages = pages.expand(b, -1)
+    regs = torch.from_numpy(rng.integers(-3, n_pages + 3, (2, b))
+                            .astype(np.int32)).to(cuda_device)
+    regs[:, 0] = torch.tensor([-1, n_pages], dtype=torch.int32)
+    page_a, page_b = regs[0], regs[1]
+    got = _once(t_hl.KERNEL, lambda: t_ops.hmmu_lookup_fused(
+        table, pages, page_a, page_b))
+    want = t_ref.hmmu_lookup_fused(table, pages, page_a, page_b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel_equals_plain(cuda_device, dtype):
     for sq, skv, d, window in ((128, 128, 64, None), (64, 256, 96, 80),

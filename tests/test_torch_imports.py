@@ -1,7 +1,8 @@
 """Import hygiene of the port, and no silent fallback.
 
 Every module of ``repro_torch`` (and the card scripts ``chip_smoke.py``,
-``chip_faults.py`` and ``chip_sweep_clusters.py``) imports with
+``chip_faults.py``, ``chip_sweep_clusters.py`` and ``chip_compare_off.py``)
+imports with
 ``jax`` and ``repro`` made unimportable; ``chip_smoke.py`` exits nonzero
 and prints no result where there is no CUDA device, or when it stands
 alone without the repository.
@@ -27,7 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke", "chip_faults", "chip_sweep_clusters"):
+for script in ("chip_smoke", "chip_faults", "chip_sweep_clusters",
+               "chip_compare_off"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))

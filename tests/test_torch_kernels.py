@@ -56,7 +56,8 @@ def test_hmmu_lookup_plain_matches_jax(seed):
     want_f = j_ref.hmmu_lookup_fused(jnp.asarray(table), jnp.asarray(pages),
                                      jnp.asarray(extra))
     assert_same(want_f, t_ops.hmmu_lookup_fused(T(table), T(pages),
-                                                T(extra)), "fused")
+                                                *T(extra).unbind(-1)),
+                "fused")
 
 
 def test_hmmu_lookup_matches_interpreted_pallas_kernel():
@@ -66,7 +67,8 @@ def test_hmmu_lookup_matches_interpreted_pallas_kernel():
     assert_same(want, t_hl.hmmu_lookup(T(table), T(pages)), "kernel")
     want_f = j_hl.hmmu_lookup_fused(jnp.asarray(table), jnp.asarray(pages),
                                     jnp.asarray(extra), interpret=True)
-    assert_same(want_f, t_hl.hmmu_lookup_fused(T(table), T(pages), T(extra)),
+    assert_same(want_f, t_hl.hmmu_lookup_fused(T(table), T(pages),
+                                               *T(extra).unbind(-1)),
                 "fused kernel")
 
 
