@@ -5,18 +5,25 @@ Run from the root of a checkout, with one CUDA device visible:
 
     python3 chip_faults.py
 
-Each planted fault is one edit to one CUDA source, made in a temporary
-copy of ``src/`` and ``chip_smoke.py``, never in the checkout, and run in
-a process of its own. A fault in the chunk-step kernel (a warp's carry
-dropped in the block scan, a bank lane's register not carried to the
-next chunk, one chunk's fold of a float counter skipped, a chunk's sums
-added in float32, which only a chunk summing past 2^24 shows, one
-cluster CTA's share of the decay pass skipped) runs phase 4
+Each planted fault is one edit to one source (a CUDA kernel, or the
+port's serving code), made in a temporary copy of ``src/``,
+``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
+run in a process of its own. Nineteen faults are planted. A fault in
+the chunk-step kernel (a warp's carry dropped in the block scan, a bank
+lane's register not carried to the next chunk, one chunk's fold of a
+float counter skipped, a chunk's sums added in float32, which only a
+chunk summing past 2^24 shows, one cluster CTA's share of the decay pass
+skipped) runs phase 4
 (``chip_smoke.check_chunk_step``), which must stop at a mismatch; the
 three that only a sweep shows (the registry map skipped, the last design
 point reading point 0's int parameters, and in kernel A's fused entry
 every point's DMA swap pair read from point 0's table) run phase 7's
-checks (``chip_smoke.check_sweep``) instead. A fault
+checks (``chip_smoke.check_sweep``) instead; the three that only the
+serving path shows (the chunk step's carried fault cursor written back
+in 8 bits, which only a plan of more than 127 deaths over many
+dispatches reaches; the pin stamp's swap-aware tier flip dropped; the
+drain dispatch's valid mask one lane short) run phase 8's checks
+(``chip_smoke.check_serve`` without the ``full`` profile). A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -61,6 +68,32 @@ SWEEP_FAULTS = [
      "0's table", "hmmu_lookup", CSRC + "hmmu_lookup.cu",
      "    dst = swap + (b * 2 + (i - m)) * kHalves;\n",
      "    dst = swap + (b * 2 + (i - m)) * kHalves;\n    point = 0;\n"),
+]
+
+# Faults that only the serving path shows: the chunk-step kernel's carried
+# fault cursor written back in 8 bits (phase 4's plans hold two deaths and
+# phases 5 and 7 none, so only a plan of more than 127 deaths, spanning
+# many dispatches, passes it), and in the port's serving code the
+# contracts' swap-aware tier flip dropped, and the drain dispatch's valid
+# mask one lane short. They run phase 8's checks (``chip_smoke.
+# check_serve`` without the ``full`` profile), which must stop at a
+# mismatch.
+SERVE_FAULTS = [
+    ("chunk step (serve): the carried fault cursor written back in 8 bits, "
+     "so a long plan's deaths misfire from the next dispatch on",
+     "chunk_step", CSRC + "chunk_step.cu",
+     "  if (tid < N_STATE) a.sc_out[bi * N_STATE + tid] = I[tid];",
+     "  if (tid < N_STATE)\n"
+     "    a.sc_out[bi * N_STATE + tid] =\n"
+     "        tid == FAULT_CURSOR ? (int)(signed char)I[tid] : I[tid];"),
+    ("serve: the pin stamp's swap-aware tier flip dropped", "serve",
+     "src/repro_torch/serve/contracts.py",
+     "    dev = torch.where(in_swap_a, FAST, torch.where(in_swap_b, SLOW, "
+     "dev))\n", ""),
+    ("serve: the drain dispatch's valid mask one lane short", "serve",
+     "src/repro_torch/serve/scheduler.py",
+     "            torch.arange(size, device=dev) < n_valid",
+     "            torch.arange(size, device=dev) < n_valid - 1"),
 ]
 
 # (name, kernel, source, text, its faulty replacement)
@@ -133,11 +166,12 @@ FAULTS = [
      "      mma3<true>(a[j], qa, kb);",
      "      mma3<true>(a[j], FragA{{qa.hi[0], qa.hi[1], qa.hi[2], qa.hi[3]}, "
      "{0u, 0u, 0u, 0u}}, kb);"),
+    *SERVE_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
-# chunk-step or kernel-A fault the phase whose checks run ("phase 4" or
-# "phase 7").
+# chunk-step, kernel-A or serving fault the phase whose checks run
+# ("phase 4", "phase 7" or "phase 8").
 CHILD = r'''
 import json, sys
 import torch
@@ -151,12 +185,15 @@ from repro_torch.kernels import rwkv_scan as rw
 torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
-if kernel in ("chunk_step", "hmmu_lookup"):
+if kernel in ("chunk_step", "hmmu_lookup", "serve"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
     try:
-        if sys.argv[3] == "phase 7":
+        if sys.argv[3] == "phase 8":
+            cs.check_serve(torch, dev, rt, hmmu_lookup, chunk_step, "",
+                           full=False)
+        elif sys.argv[3] == "phase 7":
             base, spec = cs.sweep_grid(rt)
             trace = cs.sweep_trace(torch, dev, rt)
             cs.check_sweep(torch, dev, rt, hmmu_lookup, chunk_step, base,
@@ -195,6 +232,7 @@ def main() -> int:
             shutil.copytree(ROOT / "src", copy / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", copy)
+            shutil.copy(ROOT / "BENCH_serve.json", copy)
             path = copy / source
             code = path.read_text()
             if code.count(text) != 1:
@@ -202,7 +240,8 @@ def main() -> int:
                               f"{source} exactly once")
                 continue
             path.write_text(code.replace(text, faulty))
-            phase = "phase 7" if FAULTS[i] in SWEEP_FAULTS else "phase 4"
+            phase = ("phase 7" if FAULTS[i] in SWEEP_FAULTS else
+                     "phase 8" if FAULTS[i] in SERVE_FAULTS else "phase 4")
             run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
                                   phase], cwd=copy, capture_output=True,
                                  text=True, timeout=900)

@@ -83,7 +83,29 @@ Phases, each printing its lines in order:
    sweep's wall, us per point-request, kernel B's device time and share of
    the wall, peak device memory, and kernel B's device time at B = 1, 16
    and 64.
-8. One JSON line of per-kernel numbers, the card line again, and the last
+8. **Serving at full size** — the port's continuous-batching scheduler
+   (``repro_torch.serve``) over ``Engine`` at the three profiles of
+   ``benchmarks/bench_serve.py:55-87`` with its workload (``:93-99``),
+   as ``BENCH_serve.json`` records them. ``full`` (294,912 table rows,
+   110,000 sequences, 100,000 live) on ``"auto"``: ``warmup``, then
+   ``submit`` and ``run`` traced; every emulated field of the file's
+   ``metrics`` and of its per-bucket ``cases`` equal to the port's
+   report (floats exactly), kernel B launched once a dispatch (274),
+   no new dispatch key after warmup; the wall, emulated requests per
+   second, kernel B's device time and share of the wall, the host
+   synchronisations PyTorch's sync debug mode sees in the run, the same
+   run at ``max_live_batches=1`` (results and final state equal), and a
+   third run's split of the host's time (``Engine.run``, copies,
+   harvest, contracts, the scheduler's numpy work).
+   ``quick`` and ``degraded`` (a seeded plan killing 5% of the fast
+   tier's frames) on ``"auto"`` and ``"off"``: each equal to its
+   metrics in the file, the two routes bitwise equal (outs and trace
+   logs, final state). ``quick`` without pins against
+   ``Engine.run_stream`` over its trace log at prefetch 0 and 2. Pin
+   contracts stamped and released on the card, at the full geometry,
+   over a padded batch holding the DMA's in-flight pair, a POISONED and
+   a RETIRED page: equal to the CPU and to a plain loop.
+9. One JSON line of per-kernel numbers, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
@@ -959,6 +981,455 @@ def sweep_numbers(torch, rt, base, spec, trace, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 8
+# The three serving profiles of ``benchmarks/bench_serve.py:55-87``
+# (``PROFILES``), as ``BENCH_serve.json``'s ``config`` records them, and
+# the workload of ``_workload`` (``benchmarks/bench_serve.py:93-99``):
+# ``default_rng(0)``, prompts of 1-4 pages at p = 0.6 / 0.2 / 0.1 / 0.1,
+# decode lengths in [decode_lo, decode_hi).
+_QUICK_SERVE = dict(
+    sorted_batch_sizes=(1024, 2048, 4096), max_live_seqs=5_000,
+    max_live_batches=2, max_admit_per_step=512, pin_pages_per_seq=1,
+    max_pages_per_seq=6, positions_per_page=16, window_pages=2,
+    prefill_writes_per_page=2, free_low_frac=0.28, free_high_frac=0.32,
+    slo_latency_us=5_000.0, pinned_slo=0.90)
+SERVE_PROFILES = {
+    "full": dict(
+        geometry=dict(n_fast_pages=131072, n_slow_pages=163840, chunk=512),
+        serve=dict(sorted_batch_sizes=(8192, 16384, 32768),
+                   max_live_seqs=100_000, max_live_batches=2,
+                   max_admit_per_step=4096, pin_pages_per_seq=1,
+                   max_pages_per_seq=6, positions_per_page=64,
+                   window_pages=2, prefill_writes_per_page=2,
+                   free_low_frac=0.15, free_high_frac=0.18,
+                   slo_latency_us=120_000.0, pinned_slo=0.90),
+        n_seqs=110_000, decode_lo=8, decode_hi=41, min_live=100_000,
+        metrics="metrics"),
+    "quick": dict(
+        geometry=dict(n_fast_pages=8192, n_slow_pages=10240, chunk=256),
+        serve=_QUICK_SERVE, n_seqs=6_000, decode_lo=8, decode_hi=25,
+        min_live=5_000, metrics="quick_metrics"),
+    # quick, plus a seeded fault plan killing 5% of the fast tier's frames
+    # over 1,100 chunks.
+    "degraded": dict(
+        geometry=dict(n_fast_pages=8192, n_slow_pages=10240, chunk=256),
+        serve=_QUICK_SERVE, n_seqs=6_000, decode_lo=8, decode_hi=25,
+        min_live=5_000, metrics="degraded_metrics",
+        faults=dict(seed=20, fast_frac=0.05, n_chunks=1100)),
+}
+# The fields of a profile's metrics that are not emulated (host clock).
+SERVE_WALL_FIELDS = ("warmup_s", "wall_s", "req_per_s")
+
+
+def serve_bench() -> dict:
+    return json.loads((ROOT / "BENCH_serve.json").read_text())
+
+
+def serve_workload(n_seqs: int, lo: int, hi: int, seed: int = 0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompt = rng.choice([1, 2, 3, 4], size=n_seqs, p=[0.6, 0.2, 0.1, 0.1])
+    decode = rng.integers(lo, hi, size=n_seqs)
+    return prompt.astype(np.int32), decode.astype(np.int32)
+
+
+def serve_run(torch, dev, rt, hl, cs, name: str, route: str = "auto",
+              trace_kernel: bool = False, on_start=None, **overrides
+              ) -> dict:
+    """One profile through the port's entry points: ``Engine`` on
+    ``paper_platform().with_(**geometry)``, ``warmup``, then (launch counts
+    and dispatch keys taken just before) ``submit`` and ``run``.
+    ``trace_kernel`` traces the run (CUPTI) for kernel B's device time and
+    counts the host synchronisations that PyTorch's sync debug mode sees
+    in it. ``on_start`` is called just before ``submit``."""
+    import numpy as np
+    from repro_torch.serve import ContinuousBatchingScheduler, ServeConfig
+    prof = SERVE_PROFILES[name]
+    cfg = rt.paper_platform().with_(chunk_step_kernel=route,
+                                    **prof["geometry"])
+    kw = dict(prof["serve"], **overrides)
+    if prof.get("faults"):
+        f, nf = prof["faults"], cfg.n_fast_pages
+        kw["faults"] = rt.core.seeded_plan(
+            f["seed"], pages=np.arange(nf), n_chunks=f["n_chunks"],
+            n_deaths=int(f["fast_frac"] * nf))
+    eng = rt.Engine(cfg, device=dev)
+    sched = ContinuousBatchingScheduler(eng, ServeConfig(**kw))
+    t0 = time.perf_counter()
+    sched.warmup()
+    warm = time.perf_counter() - t0
+    prompt, decode = serve_workload(prof["n_seqs"], prof["decode_lo"],
+                                    prof["decode_hi"])
+    keys0 = eng.compile_count
+    torch.cuda.synchronize()
+    hl.KERNEL.launches = 0
+    cs.KERNEL.launches = 0
+    prof_ctx = None
+    if trace_kernel:
+        import warnings
+        from torch.profiler import ProfilerActivity, profile
+        prof_ctx = profile(activities=[ProfilerActivity.CUDA])
+        prof_ctx.__enter__()
+        syncs = warnings.catch_warnings(record=True)
+        seen = syncs.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+    if on_start is not None:
+        on_start()
+    try:
+        t0 = time.perf_counter()
+        sched.submit(prompt, decode)
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if prof_ctx is not None:
+            torch.cuda.set_sync_debug_mode(0)
+            syncs.__exit__(None, None, None)
+            prof_ctx.__exit__(None, None, None)
+    out = {"sched": sched, "cfg": cfg, "report": sched.report(),
+           "warmup_s": warm, "wall_s": wall,
+           "recompiles": eng.compile_count - keys0,
+           "launches": {"hmmu_lookup": hl.KERNEL.launches,
+                        "chunk_step": cs.KERNEL.launches}}
+    if prof_ctx is not None:
+        out["kernel_b_us"] = trace_us(prof_ctx,
+                                      lambda k: "chunk_step_kernel" in k)
+        out["syncs"] = sum("synchronizing" in str(w.message) for w in seen)
+    return out
+
+
+def serve_host_split(torch, dev, rt, hl, cs, name: str = "full") -> dict:
+    """Where the host's wall goes in one run of the profile (a separate,
+    unchecked run): seconds inside ``Engine.run``, the trace's copy to the
+    card, the outputs' copy enqueue, harvest (waiting on a dispatch's copy
+    and unpacking it), the pin contracts, and the rest (the scheduler's
+    numpy work), by wrapping those calls with a host clock."""
+    from repro_torch.serve import contracts, scheduler, staging
+    acc = dict.fromkeys(("Engine.run", "trace copy", "output copy enqueue",
+                         "harvest wait + unpack", "contracts"), 0.0)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapper
+    saved = {(scheduler, n): getattr(scheduler, n) for n in
+             ("to_device", "stamp_pin_pages", "release_pin_pages")}
+    saved[(staging.Fetch, "__init__")] = staging.Fetch.__init__
+    saved[(staging.Fetch, "get")] = staging.Fetch.get
+    run_fn = rt.Engine.run
+    try:
+        scheduler.to_device = timed(saved[(scheduler, "to_device")],
+                                    "trace copy")
+        for n in ("stamp_pin_pages", "release_pin_pages"):
+            setattr(scheduler, n, timed(getattr(contracts, n), "contracts"))
+        staging.Fetch.__init__ = timed(saved[(staging.Fetch, "__init__")],
+                                       "output copy enqueue")
+        staging.Fetch.get = timed(saved[(staging.Fetch, "get")],
+                                  "harvest wait + unpack")
+        rt.Engine.run = timed(run_fn, "Engine.run")
+        run = serve_run(torch, dev, rt, hl, cs, name, on_start=lambda: (
+            acc.update(dict.fromkeys(acc, 0.0))))
+    finally:
+        rt.Engine.run = run_fn
+        for (obj, n), fn in saved.items():
+            setattr(obj, n, fn)
+    acc["the rest (numpy scheduling)"] = run["wall_s"] - sum(acc.values())
+    return {"wall_s": run["wall_s"], "split": acc}
+
+
+def serve_metrics(run: dict) -> dict:
+    """The profile's metrics as ``benchmarks/bench_serve.py`` builds them
+    (without its wall-clock fields)."""
+    rep = run["report"]
+    m = {f: getattr(rep, f) for f in (
+        "n_sequences", "n_mem_requests", "n_dispatches",
+        "live_seqs_high_water", "inflight_high_water", "p50_latency_us",
+        "p99_latency_us", "mean_latency_us", "slo_latency_us",
+        "slo_attainment", "pinned_accesses", "pinned_fast_hit_rate",
+        "evictions", "refetches", "frames_retired", "fault_refetches",
+        "renegotiations")}
+    m["recompiles_after_warmup"] = run["recompiles"]
+    return m
+
+
+def check_serve_metrics(name: str, route: str, run: dict, bench: dict,
+                        cases: bool = False) -> None:
+    """Every emulated field of ``BENCH_serve.json``'s metrics of the
+    profile (and, with ``cases``, every row of its per-bucket ``cases``)
+    equal to the port's report: floats exactly."""
+    want = {k: v for k, v in bench[SERVE_PROFILES[name]["metrics"]].items()
+            if k not in SERVE_WALL_FIELDS}
+    got = serve_metrics(run)
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if set(got) != set(want):
+        bad["fields"] = (sorted(got), sorted(want))
+    if cases:
+        per = run["report"].per_bucket
+        rows = {r["size"]: {k: v for k, v in r.items() if k != "size"}
+                for r in bench["cases"]}
+        if set(per) != set(rows):
+            bad["buckets"] = (sorted(per), sorted(rows))
+        for size, row in rows.items():
+            for k, v in row.items():
+                if per.get(size, {}).get(k) != v:
+                    bad[f"cases[{size}].{k}"] = (per.get(size, {}).get(k), v)
+    if bad:
+        raise Mismatch(f"serve {name} on {route!r} differs from "
+                       f"BENCH_serve.json: {bad}")
+    if run["report"].live_seqs_high_water < SERVE_PROFILES[name]["min_live"]:
+        raise Mismatch(f"serve {name}: only "
+                       f"{run['report'].live_seqs_high_water} live sequences")
+
+
+def same_serve(torch, where: str, a, b) -> None:
+    """Two schedulers' outs_log, trace_log and final carry bitwise equal."""
+    import numpy as np
+    if a.dispatch_log != b.dispatch_log:
+        raise Mismatch(f"serve {where}: dispatch logs differ")
+    for i, (x, y) in enumerate(zip(a.trace_log, b.trace_log, strict=True)):
+        for name, u, v in leaves(x, y, f"trace_log[{i}]"):
+            if not torch.equal(u, v):
+                raise Mismatch(f"serve {where}: {name} differs")
+    for i, (x, y) in enumerate(zip(a.outs_log, b.outs_log, strict=True)):
+        for k in y:
+            if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
+                raise Mismatch(f"serve {where}: outs_log[{i}][{k}] differs")
+    for name, u, v in leaves(a.carry, b.carry, "carry"):
+        if u.dtype != v.dtype or not torch.equal(u, v.to(u.device)):
+            raise Mismatch(f"serve {where}: {name} differs")
+
+
+def serve_launch_check(name: str, route: str, run: dict) -> None:
+    rep = run["report"]
+    n_chunks = sum(s for s, _ in run["sched"].dispatch_log) // \
+        run["cfg"].chunk
+    want = ({"hmmu_lookup": 0, "chunk_step": rep.n_dispatches}
+            if route == "auto" else
+            {"hmmu_lookup": n_chunks, "chunk_step": 0})
+    if run["launches"] != want:
+        raise Mismatch(f"serve {name} on {route!r}: launches "
+                       f"{run['launches']}, not {want}")
+    if run["recompiles"]:
+        raise Mismatch(f"serve {name} on {route!r}: {run['recompiles']} new "
+                       "dispatch keys after warmup")
+
+
+def check_serve_full(torch, dev, rt, hl, cs, bench: dict, card: str) -> dict:
+    """The ``full`` profile on ``"auto"`` (traced), held to
+    ``BENCH_serve.json``'s metrics and cases; then the same run at
+    ``max_live_batches=1``, whose results must be equal."""
+    run = serve_run(torch, dev, rt, hl, cs, "full", trace_kernel=True)
+    rep = run["report"]
+    check_serve_metrics("full", "auto", run, bench, cases=True)
+    serve_launch_check("full", "auto", run)
+    k_us, k_n = run["kernel_b_us"]
+    wall = run["wall_s"]
+    print(f"  full profile on 'auto': {rep.n_sequences} sequences (peak "
+          f"{rep.live_seqs_high_water} live), {rep.n_mem_requests} requests "
+          f"in {rep.n_dispatches} dispatches ({rep.n_steps} steps): every "
+          f"emulated field of BENCH_serve.json's metrics and of its "
+          f"{len(bench['cases'])} per-bucket cases equal; launches "
+          f"{run['launches']}; dispatch keys after warmup "
+          f"{run['recompiles']}; compile_count {rep.compile_count}",
+          flush=True)
+    print(f"  full profile wall {wall:.3f} s (warmup {run['warmup_s']:.3f} "
+          f"s), {rep.n_mem_requests / wall:,.0f} emulated requests per "
+          f"second of wall; kernel B {k_us / 1e3:.3f} ms device over "
+          f"{k_n} launches traced ({k_us / max(k_n, 1):.1f} us a launch), "
+          f"a device share of {k_us / 1e6 / wall:.4f}; in-flight high water "
+          f"{rep.inflight_high_water}; host synchronisations seen in the "
+          f"run {run['syncs']}; p50 / p99 {rep.p50_latency_us} / "
+          f"{rep.p99_latency_us} emulated us [{card}]", flush=True)
+    one = serve_run(torch, dev, rt, hl, cs, "full", trace_kernel=True,
+                    max_live_batches=1)
+    a = dict(serve_metrics(run), per_bucket=rep.per_bucket)
+    b = dict(serve_metrics(one), per_bucket=one["report"].per_bucket)
+    a.pop("inflight_high_water"), b.pop("inflight_high_water")
+    if a != b or one["report"].inflight_high_water != 1:
+        raise Mismatch("serve full at max_live_batches=1 differs")
+    same_serve(torch, "full, max_live_batches 2 against 1", run["sched"],
+               one["sched"])
+    k1 = one["kernel_b_us"][0]
+    print(f"  full profile at max_live_batches=1: wall "
+          f"{one['wall_s']:.3f} s (warmup {one['warmup_s']:.3f} s), "
+          f"{one['report'].n_mem_requests / one['wall_s']:,.0f} requests/s, "
+          f"kernel B device share {k1 / 1e6 / one['wall_s']:.4f}; results "
+          f"and final state equal to max_live_batches=2 [{card}]",
+          flush=True)
+    host = serve_host_split(torch, dev, rt, hl, cs)
+    print(f"  full profile, a third (unchecked) run: wall "
+          f"{host['wall_s']:.3f} s, of it on the host: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in host["split"].items()) +
+          f" [{card}]", flush=True)
+    return {"launches": run["launches"]["chunk_step"], "wall_s": wall,
+            "kernel_b_ms": k_us / 1e3}
+
+
+def check_serve_routes(torch, dev, rt, hl, cs, bench: dict) -> dict:
+    """``quick`` and ``degraded`` on ``"auto"`` and ``"off"``: each equal
+    to its metrics in ``BENCH_serve.json``, the two routes bitwise equal
+    on the outs and trace logs and the final state; ``degraded`` retires
+    frames and refetches across its dispatches."""
+    a_launches = 0
+    for name in ("quick", "degraded"):
+        runs = {}
+        for route in ("auto", "off"):
+            run = serve_run(torch, dev, rt, hl, cs, name, route,
+                            record_traces=True)
+            check_serve_metrics(name, route, run, bench)
+            serve_launch_check(name, route, run)
+            rep = run["report"]
+            print(f"  {name} on {route!r}: {rep.n_mem_requests} requests in "
+                  f"{rep.n_dispatches} dispatches, launches "
+                  f"{run['launches']}, wall {run['wall_s']:.3f} s; equal to "
+                  f"BENCH_serve.json's {SERVE_PROFILES[name]['metrics']}"
+                  + (f" ({rep.frames_retired} frames retired, "
+                     f"{rep.fault_refetches} fault refetches, pinned "
+                     f"fast-hit {rep.pinned_fast_hit_rate})"
+                     if rep.frames_retired else ""), flush=True)
+            runs[route] = run
+        if name == "quick":
+            a_launches = runs["off"]["launches"]["hmmu_lookup"]
+        same_serve(torch, f"{name}, 'auto' against 'off'",
+                   runs["auto"]["sched"], runs["off"]["sched"])
+        print(f"  {name}: the two routes bitwise equal (outs_log, "
+              f"trace_log, final carry)", flush=True)
+        del runs
+    return {"off_launches": a_launches}
+
+
+def check_serve_replay(torch, dev, rt, hl, cs) -> None:
+    """``quick`` with no pin contracts, recorded, against
+    ``Engine.run_stream`` over its trace log on a fresh engine at prefetch
+    0 and 2 (``tests/test_serve.py:113-127`` at profile size): every
+    output equal. The scheduled run's last dispatch pads its tail to a
+    bucket, past the one chunk ``run_stream`` pads it to; the final state
+    equals the replay's continued over those all-invalid chunks (as in
+    the JAX package)."""
+    import numpy as np
+    run = serve_run(torch, dev, rt, hl, cs, "quick", pin_pages_per_seq=0,
+                    record_traces=True)
+    sched, chunk = run["sched"], run["cfg"].chunk
+    padded = [(s, n) for s, n in sched.dispatch_log if n < s]
+    if padded != sched.dispatch_log[-1:]:
+        raise Mismatch(f"quick without pins: padded dispatches {padded}; "
+                       "only the last may be padded for the replay")
+    size, n_valid = padded[0] if padded else (0, 0)
+    extra = size - -(-n_valid // chunk) * chunk
+    got = {k: np.concatenate([o[k] for o in sched.outs_log])
+           for k in sched.outs_log[0]}
+    for prefetch in (0, 2):
+        eng = rt.Engine(run["cfg"], device=dev)
+        t0 = time.perf_counter()
+        rep = eng.run_stream(iter(sched.trace_log), prefetch=prefetch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in got.items():
+            if not np.array_equal(v, rep.outs[k].cpu().numpy()):
+                raise Mismatch(f"run_stream replay (prefetch {prefetch}): "
+                               f"outs[{k}] differs")
+        state = rep.state
+        if extra:
+            z = torch.zeros(extra, dtype=torch.int32, device=dev)
+            state = eng.run(rt.core.Trace(z, z, z.bool(), z), state=state,
+                            valid=z.bool()).state
+        for name, u, v in leaves(sched.carry, state, "state"):
+            if not torch.equal(u, v):
+                raise Mismatch(f"run_stream replay (prefetch {prefetch}): "
+                               f"{name} differs")
+        print(f"  quick without pins ({run['report'].n_mem_requests} "
+              f"requests, {len(sched.trace_log)} segments) equal to "
+              f"Engine.run_stream over its trace log at prefetch {prefetch} "
+              f"(every output; the final state after {extra // chunk} "
+              f"all-invalid chunks, the last dispatch's padding past one "
+              f"chunk); replay wall {wall:.3f} s", flush=True)
+
+
+def plain_contracts(flags, device_lane, dma, stamp, release):
+    """The pin contracts written out plainly (numpy, one page at a time):
+    the FLAGS lane after stamping ``stamp`` and then releasing
+    ``release``."""
+    from repro_torch.core import table as tl
+    active, page_a, page_b = dma
+    out = flags.copy()
+    for p in stamp:
+        if flags[p] & (tl.POISONED | tl.RETIRED):
+            continue
+        d = device_lane[p]
+        if active and p == page_a:
+            d = 0
+        elif active and p == page_b:
+            d = 1
+        out[p] |= tl.PIN_FAST if d == 0 else tl.PIN_SLOW
+    for p in release:
+        out[p] &= ~tl.PINNED
+    return out
+
+
+def check_serve_contracts(torch, dev, rt) -> None:
+    """Stamp and release a padded batch at the ``full`` profile's geometry
+    and stamp width: live pages include the DMA's in-flight pair, a
+    POISONED and a RETIRED page, page 0 (every padding lane's row) and the
+    last page. The card equals the port on the CPU and the plain loop."""
+    import numpy as np
+    from repro_torch.core import table as tl
+    from repro_torch.serve import release_pin_pages, stamp_pin_pages
+    prof = SERVE_PROFILES["full"]
+    cfg = rt.paper_platform().with_(**prof["geometry"])
+    width = prof["serve"]["max_admit_per_step"]
+    nf, n = cfg.n_fast_pages, cfg.n_pages
+    rng = np.random.default_rng(8)
+    page_a, page_b = nf + 1234, 77
+    special = [page_a, page_b, nf + 5, 9, 0, n - 1]
+    pages = np.concatenate([special, rng.integers(0, n, 2000)]).astype(
+        np.int32)
+    rng.shuffle(pages)
+    release = pages[:700]
+    tables = {}
+    for where in ("cpu", dev):
+        st = rt.Engine(cfg, device=where).init_state()
+        tab = tl.set_flags(st.table, [nf + 5], tl.POISONED)
+        tab = tl.set_flags(tab, [9], tl.POISONED | tl.RETIRED)
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=where)
+        st = st._replace(table=tab, dma=st.dma._replace(
+            active=i32(1), page_a=i32(page_a), page_b=i32(page_b)))
+        start = st.table[:, tl.FLAGS].cpu().numpy()
+        lane = st.table[:, tl.DEVICE].cpu().numpy()
+        st = stamp_pin_pages(st, pages, width=width)
+        st = release_pin_pages(st, release, width=width)
+        tables[str(where)] = st.table.cpu()
+    torch.cuda.synchronize()
+    if not torch.equal(tables["cpu"], tables[str(dev)]):
+        raise Mismatch("pin contracts on the card differ from the CPU")
+    want = plain_contracts(start, lane, (1, page_a, page_b), pages, release)
+    got = tables[str(dev)][:, tl.FLAGS].numpy()
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)[:5].tolist()
+        raise Mismatch(f"pin contracts differ from the plain loop at pages "
+                       f"{bad}")
+    print(f"  pin contracts at the full geometry ({n} rows), {len(pages)} "
+          f"pages padded to {width} (in-flight swap pair, POISONED, "
+          f"RETIRED, page 0, the last page), then {len(release)} released: "
+          "equal on the card, on the CPU and in the plain loop", flush=True)
+
+
+def check_serve(torch, dev, rt, hl, cs, card: str, full: bool = True
+                ) -> dict:
+    """Every check of phase 8 (see the module docstring)."""
+    bench = serve_bench()
+    out = check_serve_full(torch, dev, rt, hl, cs, bench, card) \
+        if full else {}
+    out.update(check_serve_routes(torch, dev, rt, hl, cs, bench))
+    check_serve_replay(torch, dev, rt, hl, cs)
+    check_serve_contracts(torch, dev, rt)
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 # Each model kernel is held to its plain version within
 # ``repro_torch.kernels.ref.kernel_error``'s allowance, in the working
@@ -1428,12 +1899,16 @@ def main() -> int:
         sweep_numbers(torch, rt, base, spec, trace, card)
         del trace
 
+        print(f"[8] serving at full size ({card})", flush=True)
+        serve = check_serve(torch, dev, rt, hl, cs, card)
+
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/hmmu_lookup.cu",
              "replaces": "src/repro/kernels/hmmu_lookup.py:78",
              "launches": counts["off"]["hmmu_lookup"],
+             "serve_launches": serve["off_launches"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -1441,6 +1916,7 @@ def main() -> int:
              "source": "src/repro_torch/kernels/csrc/chunk_step.cu",
              "replaces": "src/repro/kernels/chunk_step.py:793",
              "launches": counts["auto"]["chunk_step"],
+             "serve_launches": serve["launches"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from . import counters as counters_lib, dma as dma_lib, table as table_lib
-from .config import EmulatorConfig, RuntimeParams
+from .config import EmulatorConfig, RuntimeParams, static_key
 from .faults import FaultPlan
 from .indexing import index_points as _index
 from .policies import PolicyRegistry
@@ -357,3 +357,37 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
     new, outs = _chunk_loop(cfg, registry, trace, valid, states, params,
                             faults, seq=False)
     return _write_back(states, new), outs
+
+
+# ---------------------------------------------------------------------------
+# The dispatch-signature registry (the JAX package's entry-point cache).
+#
+# The JAX package compiles one program per (static geometry, frozen policy
+# registry, batch?, donate?, shape signature) and counts its cache entries as
+# ``Engine.compile_count``. Here the kernels are built once per source
+# (``kernels/build.py``) and nothing is compiled per key, but every dispatch
+# still records its key under the same rules, so the count means what the
+# serving contract needs: a dispatch shape outside the warmed buckets shows
+# up as a new key.
+# ---------------------------------------------------------------------------
+_DISPATCH_KEYS: set[tuple] = set()
+
+
+def record_dispatch(cfg: EmulatorConfig, registry: PolicyRegistry, *,
+                    batch: bool = False, donate: bool = False,
+                    shape_sig: tuple = ()) -> tuple:
+    """Record (and return) the key of one dispatch: ``(static_key(cfg),
+    registry, batch, donate, shape_sig)``, as the JAX package keys its
+    compiled entry points."""
+    key = (static_key(cfg), registry, batch, donate, shape_sig)
+    _DISPATCH_KEYS.add(key)
+    return key
+
+
+def dispatch_key_count(skey: tuple | None = None) -> int:
+    """Distinct dispatch signatures recorded in this process: all
+    geometries, or one (``skey`` from :func:`config.static_key`). Backs
+    ``Engine.compile_count``."""
+    if skey is None:
+        return len(_DISPATCH_KEYS)
+    return sum(1 for k in _DISPATCH_KEYS if k[0] == skey)

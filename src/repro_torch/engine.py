@@ -6,6 +6,7 @@
     engine = Engine(paper_platform().with_(chunk=512))      # on cuda
     state, outs = engine.run(trace)                 # one design point
     state, outs = engine.run(trace2, state=state)   # continue, in place
+    state, outs = engine.run_stream(segments)       # a segmented trace
     res = engine.sweep(spec, trace)                 # a grid, one launch
     res = engine.continue_sweep(res, trace2)        # the warm grid
 
@@ -20,6 +21,11 @@ launch of the chunk-step kernel; on ``"off"`` or the CPU, in one chunk
 loop over the point axis with ONE lookup launch a chunk for all points.
 The multi-card sweep (``mesh=``) is not ported yet and raises.
 
+Every dispatch records its signature (``core.emulator.record_dispatch``,
+the JAX package's entry-point key); :attr:`Engine.compile_count` counts
+them per geometry, so a trace length outside a warmed set shows up as a
+new key exactly where the JAX package would compile a new program.
+
 States passed to :meth:`Engine.run` are **updated in place by default**
 (the JAX package donates them): the packed table moves forward without a
 copy and the passed-in state must not be reused. ``donate=False`` clones
@@ -27,15 +33,17 @@ the state first.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from collections import deque
+from typing import Iterable, NamedTuple
 
 import torch
 
 from .core import counters as counters_lib
 from .core.config import EmulatorConfig, RuntimeParams, static_key
 from .core.emulator import (EmulatorState, Trace, _emulate_batch_impl,
-                            _emulate_impl, clone_state, init_state,
-                            init_states, pad_trace)
+                            _emulate_impl, clone_state, dispatch_key_count,
+                            init_state, init_states, pad_trace,
+                            record_dispatch)
 from .core.faults import FaultPlan
 from .core.policies import PolicyRegistry
 from .sweep.results import SweepResult
@@ -78,6 +86,58 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _prefetched(segments: Iterable[Trace], depth: int,
+                device: torch.device):
+    """Keep ``depth`` upcoming segments on their way to ``device`` ahead of
+    consumption, so the host-to-device copy of segment ``k+1`` overlaps
+    the emulation of segment ``k``. On a CUDA device each segment still on
+    the host is staged in pinned memory and copied (``non_blocking``) on a
+    side stream; the consuming stream waits on the copy's event, each
+    copied tensor is recorded on that stream, and the pinned buffers stay
+    alive until their copy's event has passed. Elsewhere the segments pass
+    through unchanged. Values are never changed, only when they move."""
+    if device.type != "cuda":
+        yield from segments
+        return
+    side = torch.cuda.Stream(device)
+    it = iter(segments)
+    buf: deque = deque()     # (segment, its copy's event or None)
+    held: deque = deque()    # (copy event, pinned host tensors)
+
+    def pull():
+        try:
+            seg = next(it)
+        except StopIteration:
+            return
+        if all(x.device == device for x in seg):
+            buf.append((seg, None))
+            return
+        pinned = [x if x.is_cuda or x.is_pinned() else x.pin_memory()
+                  for x in seg]
+        with torch.cuda.stream(side):
+            moved = Trace(*(x.to(device, non_blocking=True) for x in pinned))
+            ev = torch.cuda.Event()
+            ev.record(side)
+        buf.append((moved, ev))
+        held.append((ev, pinned))
+
+    for _ in range(max(depth, 1)):
+        pull()
+    while buf:
+        seg, ev = buf.popleft()
+        if ev is not None:
+            cur = torch.cuda.current_stream(device)
+            cur.wait_event(ev)
+            for x in seg:
+                x.record_stream(cur)
+        while held and held[0][0].query():
+            held.popleft()
+        yield seg
+        pull()
+    for ev, _ in held:
+        ev.synchronize()
+
+
 def as_registry(registry) -> PolicyRegistry:
     """``None`` / a tuple of names / a ``PolicyRegistry`` -> a registry
     (None = every built-in policy, in registration order)."""
@@ -102,6 +162,13 @@ class Engine:
                 policy_id=self.registry.index(cfg.policy))
         else:
             self._default_params = None
+        self._no_faults: FaultPlan | None = None
+
+    @property
+    def compile_count(self) -> int:
+        """Dispatch signatures recorded for this geometry, by every
+        session of the process (``core.emulator.dispatch_key_count``)."""
+        return dispatch_key_count(self.static_key)
 
     @property
     def params(self) -> RuntimeParams:
@@ -136,6 +203,39 @@ class Engine:
             raise ValueError(f"{what} is on {t.device}, the engine on "
                              f"{self.device}")
 
+    @staticmethod
+    def _fault_sig(faults):
+        return None if faults is None else (faults.shape_sig,
+                                            faults.is_batched)
+
+    def _plan(self, faults: FaultPlan | None) -> FaultPlan:
+        """``faults`` on the engine's device; None is the empty plan, made
+        once per engine (equal to no plan)."""
+        if faults is not None:
+            return faults.to(self.device)
+        if self._no_faults is None:
+            self._no_faults = FaultPlan.empty(device=self.device)
+        return self._no_faults
+
+    def _dispatch(self, trace: Trace, valid: torch.Tensor, state, params,
+                  donate: bool, faults) -> tuple[EmulatorState, dict]:
+        """One run of a padded trace on the engine's device: records the
+        dispatch key as ``repro.Engine._entry_for`` builds it (carried
+        state or fresh, donation only of a carried state, the padded
+        length and the fault plan's shapes), then emulates."""
+        carried = state is not None
+        record_dispatch(self.cfg, self.registry, donate=donate and carried,
+                        shape_sig=(len(trace), False, not carried,
+                                   self._fault_sig(faults)))
+        if state is None:
+            state = self.init_state(params)
+        else:
+            self._check_device("state", state.table)
+            if not donate:
+                state = clone_state(state)
+        return _emulate_impl(self.cfg, self.registry, trace, valid, state,
+                             params, self._plan(faults))
+
     def run(self, trace: Trace, *, params: RuntimeParams | None = None,
             state: EmulatorState | None = None,
             valid: torch.Tensor | None = None,
@@ -163,20 +263,72 @@ class Engine:
         elif n % self.cfg.chunk:
             raise ValueError("explicit valid= requires a chunk-multiple "
                              "trace (use pad_trace, or drop valid=)")
-        valid = valid.to(self.device)
-        if state is None:
-            state = self.init_state(params)
-        else:
-            self._check_device("state", state.table)
-            if not donate:
-                state = clone_state(state)
-        if faults is not None:
-            faults = faults.to(self.device)
-        state, outs = _emulate_impl(self.cfg, self.registry, trace, valid,
-                                    state, params, faults)
+        state, outs = self._dispatch(trace, valid.to(self.device), state,
+                                     params, donate, faults)
         if len(trace) != n:
             outs = {k: v[:n] for k, v in outs.items()}
         return RunResult(state, outs)
+
+    def run_stream(self, segments: Iterable[Trace], *,
+                   params: RuntimeParams | None = None,
+                   state: EmulatorState | None = None,
+                   donate: bool | None = None,
+                   prefetch: int = 0,
+                   faults: FaultPlan | None = None) -> RunResult:
+        """Emulate a trace delivered as segments of any lengths, bitwise
+        equal to one :meth:`run` over their concatenation.
+
+        Requests are re-chunked across segment boundaries: each dispatch
+        takes the chunk multiple at hand and carries the sub-chunk
+        remainder into the next segment; the last remainder is padded.
+        Intermediate states belong to the engine and are updated in
+        place; ``donate`` governs only a caller's ``state`` (updated in
+        place by default, as in :meth:`run`).
+
+        ``prefetch`` > 0 keeps that many upcoming segments on their way to
+        the card ahead of use (pinned host buffers, a side stream): the
+        copy of segment ``k+1`` overlaps the emulation of segment ``k``.
+        On the CPU it changes nothing. One ``faults`` plan spans the whole
+        stream (its events are keyed on the carried ``chunk_idx``).
+        """
+        params = self.params if params is None else params
+        self._check_device("params", params.policy_id)
+        donate = self._resolve_donate(donate, state)
+        if prefetch:
+            segments = _prefetched(segments, prefetch, self.device)
+        chunk = self.cfg.chunk
+        carry: Trace | None = None
+        parts: list[dict] = []
+        first = True
+        for seg in segments:
+            seg = seg.to(self.device)
+            buf = seg if carry is None else Trace(
+                *(torch.cat([a, b]) for a, b in zip(carry, seg)))
+            m = len(buf) - len(buf) % chunk
+            if m == 0:
+                carry = buf
+                continue
+            head = Trace(*(x[:m] for x in buf))
+            carry = Trace(*(x[m:] for x in buf)) if m < len(buf) else None
+            valid = torch.ones(m, dtype=torch.bool, device=self.device)
+            state, outs = self._dispatch(head, valid, state, params,
+                                         donate if first else True, faults)
+            parts.append(outs)
+            first = False
+        if carry is not None and len(carry):
+            n = len(carry)
+            padded, valid = pad_trace(self.cfg, carry)
+            state, outs = self._dispatch(padded, valid, state, params,
+                                         donate if first else True, faults)
+            parts.append({k: v[:n] for k, v in outs.items()})
+        if not parts:
+            z = torch.zeros(0, dtype=torch.int32, device=self.device)
+            if state is None:
+                state = self.init_state(params)
+            return RunResult(state, {"returns": z, "device": z,
+                                     "latency": z})
+        return RunResult(state, {k: torch.cat([p[k] for p in parts])
+                                 for k in parts[0]})
 
     def run_channels(self, traces: Trace, *,
                      params: RuntimeParams | None = None,
@@ -197,6 +349,9 @@ class Engine:
                              f"chunk ({self.cfg.chunk}), got {n}")
         stacked = RuntimeParams(*(x.expand(c).contiguous() for x in params))
         valid = torch.ones(n, dtype=torch.bool, device=self.device)
+        record_dispatch(self.cfg, self.registry,
+                        shape_sig=("channels", (c, n),
+                                   self._fault_sig(faults)))
         if faults is not None:
             faults = faults.to(self.device)
         return _emulate_batch_impl(self.cfg, self.registry, traces, valid,
@@ -284,6 +439,9 @@ class Engine:
                 "and has nothing of yours to update")
         self._check_device("params", params.policy_id)
         padded, valid = pad_trace(self.cfg, trace.to(self.device))
+        record_dispatch(self.cfg, registry, batch=True, donate=donate,
+                        shape_sig=(len(padded), len(points), states is None,
+                                   None, self._fault_sig(faults)))
         if states is None:
             states = init_states(self.cfg, params)
         else:

@@ -3,7 +3,8 @@
 
 Post-cache-filter request streams with the access-pattern families that
 dominate SPEC CPU 2017: zipfian reuse, sequential streaming, strided,
-pointer chasing, and the ``mixed`` composition. The
+pointer chasing, the ``mixed`` composition, and ``serve_mixed``
+(multi-tenant prefill/decode serving traffic). The
 distributions are the JAX package's; the random bits are not (a
 ``torch.Generator`` seeded with ``spec.seed`` draws them), so parity
 tests feed both packages the same numpy-built traces instead. The
@@ -16,6 +17,7 @@ device, and then moved to ``device``.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,10 +32,13 @@ class TraceSpec:
     footprint_pages: int         # working-set size in pages
     write_frac: float = 0.3
     pattern: str = "zipfian"     # zipfian | sequential | strided | pointer
-    #                            # | mixed
+    #                            # | mixed | serve_mixed
     zipf_alpha: float = 1.1
     stride_pages: int = 2
     seq_frac: float = 0.5        # for `mixed`: fraction of sequential traffic
+    n_tenants: int = 4           # for `serve_mixed`: concurrent tenants
+    prefill_frac: float = 0.2    # for `serve_mixed`: prefill share of traffic
+    decode_window: int = 8       # for `serve_mixed`: decode window, pages
     line: int = 64
     page_size: int = 4096
     seed: int = 0
@@ -122,8 +127,50 @@ def mixed(spec: TraceSpec) -> Trace:
     return Trace(*(torch.where(pick_seq, a, b) for a, b in zip(s, z)))
 
 
+class ServeDraws(NamedTuple):
+    """The random draws of :func:`serve_mixed`, one per request."""
+    tenant: torch.Tensor        # int64 tenant of the request
+    is_prefill: torch.Tensor    # bool: a prefill (else a decode) request
+    delta: torch.Tensor         # int64 decode distance behind the frontier
+    decode_write: torch.Tensor  # bool: a decode token write, if delta == 0
+
+
+def serve_draws(spec: TraceSpec) -> ServeDraws:
+    n = spec.n_requests
+    return ServeDraws(
+        tenant=torch.randint(0, spec.n_tenants, (n,), generator=_gen(spec, 5)),
+        is_prefill=torch.rand(n, generator=_gen(spec, 6)) < spec.prefill_frac,
+        delta=torch.randint(0, spec.decode_window, (n,),
+                            generator=_gen(spec, 7)),
+        decode_write=torch.rand(n, generator=_gen(spec, 8)) < spec.write_frac)
+
+
+def serve_mixed(spec: TraceSpec) -> Trace:
+    """Multi-tenant mixed prefill/decode serving traffic: ``n_tenants``
+    tenants share the footprint in equal slices; a ``prefill_frac`` share
+    of requests are prefill writes marching the tenant's slice forward
+    (its frontier: the running count of its prefill requests, this one
+    included), the rest decode reads ``delta`` pages behind the frontier
+    (floored at 0), with a token write at ``delta == 0`` at the usual
+    ``write_frac``."""
+    t, w = spec.n_tenants, serve_draws(spec)
+    per = max(spec.footprint_pages // t, 1)
+    onehot = (w.tenant[:, None] == torch.arange(t)[None, :]) \
+        & w.is_prefill[:, None]
+    frontier = onehot.to(torch.int64).cumsum(0).gather(
+        1, w.tenant[:, None])[:, 0]
+    page_decode = (frontier - 1 - w.delta).clamp_min(0) % per
+    page = w.tenant * per + torch.where(w.is_prefill, frontier % per,
+                                        page_decode)
+    is_write = w.is_prefill | (w.decode_write & (w.delta == 0))
+    return Trace(page=page.to(torch.int32),
+                 offset=_offsets(spec, _gen(spec, 2)), is_write=is_write,
+                 size=_sizes(spec))
+
+
 _PATTERNS = {"zipfian": zipfian, "sequential": sequential, "strided": strided,
-             "pointer": pointer_chase, "mixed": mixed}
+             "pointer": pointer_chase, "mixed": mixed,
+             "serve_mixed": serve_mixed}
 
 
 def generate(spec: TraceSpec, device=None) -> Trace:

@@ -428,3 +428,106 @@ def test_sweep_registry_subset_and_out_of_range_id_equal_the_plain_run(
                                    t_emu.clone_state(st), p, plan, seq=True)
         _assert_equal((_point(res.states, i), _point(res.outs, i)), want)
     assert not torch.equal(res.states.table[2], res.states.table[3])
+
+
+# ------------------------------------------------------------------ serving
+def _serve_run(cfg, device, plan, **kw):
+    """tests/test_serve.py's ServeConfig on ``cfg``, with a fault plan."""
+    from repro_torch.kernels import hmmu_lookup as t_hl
+    from repro_torch.serve import ContinuousBatchingScheduler, ServeConfig
+    sched = ContinuousBatchingScheduler(
+        repro_torch.Engine(cfg, device=device), ServeConfig(
+            sorted_batch_sizes=(32, 64, 128), max_live_seqs=100,
+            max_admit_per_step=32, max_pages_per_seq=6, positions_per_page=8,
+            window_pages=2, prefill_writes_per_page=2, record_traces=True,
+            faults=plan, **kw))
+    sched.warmup()
+    rng = np.random.default_rng(1)
+    sched.submit(rng.integers(1, 4, 150), rng.integers(1, 16, 150))
+    before = (t_cs.KERNEL.launches, t_hl.KERNEL.launches)
+    c0 = sched.engine.compile_count
+    sched.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = (t_cs.KERNEL.launches - before[0],
+                t_hl.KERNEL.launches - before[1])
+    return sched, launches, sched.engine.compile_count - c0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_live_batches", [1, 3])
+@pytest.mark.parametrize("route", ["auto", "off"])
+def test_serve_scheduler_on_the_card_equals_the_cpu_port(
+        cuda_device, route, max_live_batches):
+    """The small-platform scheduler (pins, evictions, a fault plan whose
+    deaths cross dispatches) on the card against the same scheduler on
+    the CPU: report, dispatch and trace logs, every output, the final
+    state and the KV map; on ``"auto"`` one chunk-step launch a dispatch,
+    on ``"off"`` one lookup launch a chunk; no new dispatch key."""
+    cfg = tcore.small_platform(n_fast_pages=64, n_slow_pages=448, chunk=32,
+                               chunk_step_kernel=route)
+    plan = dict(seed=5, pages=np.arange(64), n_chunks=100, n_deaths=12,
+                n_transient=20)
+    got, launches, new_keys = _serve_run(
+        cfg, cuda_device, tcore.seeded_plan(**plan),
+        max_live_batches=max_live_batches)
+    want, _, _ = _serve_run(cfg, "cpu", tcore.seeded_plan(**plan),
+                            max_live_batches=max_live_batches)
+    a, b = got.report().to_dict(), want.report().to_dict()
+    a.pop("compile_count"), b.pop("compile_count")
+    assert a == b and a["frames_retired"] > 0
+    assert new_keys == 0
+    assert got.dispatch_log == want.dispatch_log
+    for x, y in zip(got.trace_log, want.trace_log, strict=True):
+        _assert_equal(tuple(x), tuple(y))
+    for x, y in zip(got.outs_log, want.outs_log, strict=True):
+        assert list(x) == list(y)
+        for k in x:
+            assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+    _assert_equal(tuple(t.cpu() for t in _leaves(got.carry)),
+                  tuple(_leaves(want.carry)))
+    for f in ("page_of", "owner", "pinned", "dead", "last_access"):
+        assert np.array_equal(getattr(got.kv, f), getattr(want.kv, f))
+    n_dispatch = len(got.dispatch_log)
+    n_chunks = sum(s for s, _ in got.dispatch_log) // cfg.chunk
+    assert launches == ((n_dispatch, 0) if route == "auto"
+                        else (0, n_chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [None, 40])
+def test_serve_contracts_on_the_card_equal_the_cpu(cuda_device, width):
+    """Stamp and release a padded batch holding both pages of the DMA's
+    in-flight swap, a poisoned and a retired page, page 0 (every padding
+    lane's row) and the last page, on the card with no host
+    synchronisation, against the same edits on the CPU."""
+    from repro_torch.serve import release_pin_pages, stamp_pin_pages
+    cfg = tcore.small_platform(n_fast_pages=64, n_slow_pages=448)
+    nf, n = cfg.n_fast_pages, cfg.n_pages
+    pages = np.array([nf + 9, 3, nf + 5, 7, 0, n - 1, 12, nf + 40, 3],
+                     np.int32)
+    states = []
+    for dev in ("cpu", cuda_device):
+        st = repro_torch.Engine(cfg, device=dev).init_state()
+        tab = t_table.set_flags(st.table, [nf + 5], t_table.POISONED)
+        tab = t_table.set_flags(tab, [7], t_table.POISONED | t_table.RETIRED)
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+        st = st._replace(table=tab, dma=st.dma._replace(
+            active=i32(1), page_a=i32(nf + 9), page_b=i32(3)))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = stamp_pin_pages(st, pages, width=width)
+            stamped = st.table.clone()
+            st = release_pin_pages(st, pages[:4], width=width)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        states.append((stamped.cpu(), st.table.cpu()))
+    (cpu_s, cpu_r), (gpu_s, gpu_r) = states
+    assert torch.equal(cpu_s, gpu_s) and torch.equal(cpu_r, gpu_r)
+    fl = cpu_s[:, t_table.FLAGS]
+    assert fl[nf + 9] & t_table.PIN_FAST and fl[3] & t_table.PIN_SLOW
+    assert not fl[nf + 5] & t_table.PINNED and not fl[7] & t_table.PINNED
+    assert fl[0] & t_table.PIN_FAST and fl[n - 1] & t_table.PIN_SLOW
+    assert not (cpu_r[[nf + 9, 3], t_table.FLAGS] & t_table.PINNED).any()

@@ -1,6 +1,7 @@
 """Import hygiene of the port, and no silent fallback.
 
-Every module of ``repro_torch`` (and the card scripts ``chip_smoke.py``,
+Every module of ``repro_torch``, the serving front end
+``repro_torch.serve`` included (and the card scripts ``chip_smoke.py``,
 ``chip_faults.py``, ``chip_sweep_clusters.py`` and ``chip_compare_off.py``)
 imports with
 ``jax`` and ``repro`` made unimportable; ``chip_smoke.py`` exits nonzero
@@ -36,15 +37,22 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))
        or m == "repro"]
 bad = [m for m in bad if sys.modules[m] is not None]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# The serving front end (``repro_torch.serve``) is part of the port.
+_SERVE = ("repro_torch.serve", "repro_torch.serve.buckets",
+          "repro_torch.serve.kv", "repro_torch.serve.contracts",
+          "repro_torch.serve.staging", "repro_torch.serve.scheduler")
 
 
 def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20
+    assert set(_SERVE) <= set(names)
 
 
 def _run_smoke(cwd):
@@ -78,8 +86,9 @@ FAULTS = _planted_faults()
 @pytest.mark.parametrize("i", range(len(FAULTS)))
 def test_planted_fault_text_stands_once_in_its_source(i):
     """Each fault of ``chip_faults.py`` replaces text that stands exactly
-    once in its CUDA source, so that an edit of the kernel that moves the
-    text shows here and not first on the card."""
+    once in its source (a CUDA kernel, or the port's serving code), so
+    that an edit that moves the text shows here and not first on the
+    card."""
     name, kernel, source, text, faulty = FAULTS[i]
     code = (ROOT / source).read_text()
     assert code.count(text) == 1, name
