@@ -8,7 +8,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Nineteen faults are planted. A fault in
+run in a process of its own. Twenty-one faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -23,7 +23,10 @@ serving path shows (the chunk step's carried fault cursor written back
 in 8 bits, which only a plan of more than 127 deaths over many
 dispatches reaches; the pin stamp's swap-aware tier flip dropped; the
 drain dispatch's valid mask one lane short) run phase 8's checks
-(``chip_smoke.check_serve`` without the ``full`` profile). A fault
+(``chip_smoke.check_serve`` without the ``full`` profile); the two of
+this slice (kernel B's energy folded without ``__fmaf_rn``, and the
+registry's built-in check made by name, so an impostor ``hotness`` runs
+on kernel B) run phase 9's checks (``chip_smoke.check_slice9``). A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -94,6 +97,36 @@ SERVE_FAULTS = [
      "src/repro_torch/serve/scheduler.py",
      "            torch.arange(size, device=dev) < n_valid",
      "            torch.arange(size, device=dev) < n_valid - 1"),
+]
+
+# Faults in this slice's code: kernel B folding the energy with every
+# product rounded on its own (no __fmaf_rn), which only a chunk's energy
+# folded from zero shows (on a long run the counter's own ulp hides a
+# one-ulp term); and the registry's built-in check made by name instead of
+# by function identity, so an impostor registered as "hotness" runs as the
+# built-in on kernel B. They run phase 9's checks (``chip_smoke.
+# check_slice9``): the single-chunk channels' energy against the plain
+# route, and the refusal of the impostor.
+SLICE9_FAULTS = [
+    ("chunk step: energy folded without __fmaf_rn (every product rounded "
+     "on its own)", "chunk_step", CSRC + "chunk_step.cu",
+     "            add = __fmaf_rn(\n"
+     "                __fmul_rn(8.0f, bws), F[POWER_PJ_PER_BIT_SLOW_WRITE],\n"
+     "                __fmaf_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST],\n"
+     "                          __fmul_rn(__fmul_rn(8.0f, brs),\n"
+     "                                    F[POWER_PJ_PER_BIT_SLOW_READ])));",
+     "            add = __fadd_rn(\n"
+     "                __fadd_rn(__fmul_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST]),\n"
+     "                          __fmul_rn(__fmul_rn(8.0f, brs),\n"
+     "                                    F[POWER_PJ_PER_BIT_SLOW_READ])),\n"
+     "                __fmul_rn(__fmul_rn(8.0f, bws),\n"
+     "                          F[POWER_PJ_PER_BIT_SLOW_WRITE]));"),
+    ("policies: a built-in recognised by its name, not its function, so an "
+     "impostor 'hotness' runs as the built-in on kernel B", "policies",
+     "src/repro_torch/core/policies.py",
+     "        return tuple(builtin_id(f) for f in self.fns)",
+     "        return tuple(policy_id(n) if policy_id(n) < len(_BUILTINS) "
+     "else -1\n                     for n in self.names)"),
 ]
 
 # (name, kernel, source, text, its faulty replacement)
@@ -167,11 +200,12 @@ FAULTS = [
      "      mma3<true>(a[j], FragA{{qa.hi[0], qa.hi[1], qa.hi[2], qa.hi[3]}, "
      "{0u, 0u, 0u, 0u}}, kb);"),
     *SERVE_FAULTS,
+    *SLICE9_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
-# chunk-step, kernel-A or serving fault the phase whose checks run
-# ("phase 4", "phase 7" or "phase 8").
+# chunk-step, kernel-A, serving or policy fault the phase whose checks run
+# ("phase 4", "phase 7", "phase 8" or "phase 9").
 CHILD = r'''
 import json, sys
 import torch
@@ -185,12 +219,14 @@ from repro_torch.kernels import rwkv_scan as rw
 torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
-if kernel in ("chunk_step", "hmmu_lookup", "serve"):
+if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
     try:
-        if sys.argv[3] == "phase 8":
+        if sys.argv[3] == "phase 9":
+            cs.check_slice9(torch, dev, rt, hmmu_lookup, chunk_step, "")
+        elif sys.argv[3] == "phase 8":
             cs.check_serve(torch, dev, rt, hmmu_lookup, chunk_step, "",
                            full=False)
         elif sys.argv[3] == "phase 7":
@@ -241,7 +277,8 @@ def main() -> int:
                 continue
             path.write_text(code.replace(text, faulty))
             phase = ("phase 7" if FAULTS[i] in SWEEP_FAULTS else
-                     "phase 8" if FAULTS[i] in SERVE_FAULTS else "phase 4")
+                     "phase 8" if FAULTS[i] in SERVE_FAULTS else
+                     "phase 9" if FAULTS[i] in SLICE9_FAULTS else "phase 4")
             run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
                                   phase], cwd=copy, capture_output=True,
                                  text=True, timeout=900)

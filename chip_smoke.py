@@ -105,8 +105,38 @@ Phases, each printing its lines in order:
    contracts stamped and released on the card, at the full geometry,
    over a padded batch holding the DMA's in-flight pair, a POISONED and
    a RETIRED page: equal to the CPU and to a plain loop.
-9. One JSON line of per-kernel numbers, the card line again, and the last
-   line ``{"ok": true, "device": {...}}``.
+9. **User policies, tiered KV-cache accounting and consumed states** —
+   (a) two policies registered with ``core.policies.register``
+   (``user_hotness``, ``hotness`` under a new name; ``user_write_hot``,
+   the hottest slow page written in the chunk) at phase 7's platform on
+   phase 7's trace cut to its first 128 chunks: the six built-ins and
+   both user policies in one ``"off"`` sweep (one chunk loop, ONE launch
+   of kernel A a chunk), the six built-ins on ``"auto"`` (ONE launch of
+   kernel B), bitwise equal across the routes; ``user_hotness`` equal to
+   ``hotness``; ``user_write_hot`` equal to its own one-point ``"off"``
+   run; ``"auto"`` refusing ``user_write_hot`` by name, launching kernel
+   B once at ``hotness`` with the user policies registered, and refusing
+   an impostor re-registered as ``hotness``; the ``"off"`` sweep's wall,
+   us per point-request and kernel A's device time. (b)
+   ``memtier.TieredKVAccounting`` at minitron-8b's KV width (4,096 B a
+   position, 64 positions a page, one pinned page a sequence) on
+   ``paper_platform().with_(chunk=512, policy="hotness",
+   hot_threshold=4)``: 128 sequences of 32,768 tokens (65,536 pages,
+   twice the fast tier), 8 decode steps, 16 sequences freed and 16
+   admitted, 4 more steps, on ``"auto"`` (one kernel-B launch a step) and
+   ``"off"`` (one kernel-A launch a chunk): reports, final tables,
+   counters and states bitwise equal, ``check_table`` passing; the wall
+   a step split into stream building and ``account``, kernel B's device
+   time a step and its share. (c) A consumed (donated) state passed to
+   ``Engine.run`` again raises ``RuntimeError``. (d), run first: kernel
+   B's energy fold (``__fmaf_rn``, the reference's order under ``jit``)
+   on 2,000 random single-chunk channels in one launch, each folded from
+   zero, bitwise equal to the plain route's exact FMA; some of them must
+   differ from the form that rounds every product on its own.
+10. One JSON line of per-kernel numbers (kernels A and B also carry
+   ``serve_launches``, ``policy_launches`` and ``memtier_launches``, the
+   counts of phases 8, 9 (a) and 9 (b)), the card line again, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -1430,6 +1460,372 @@ def check_serve(torch, dev, rt, hl, cs, card: str, full: bool = True
     return out
 
 
+# --------------------------------------------------------------- phase 9
+# The user policies' slice: phase 7's platform and trace, cut to its first
+# POLICY_CHUNKS chunks (65,536 of 970,662 requests).
+POLICY_CHUNKS = 128
+USER_POLICIES = ("user_hotness", "user_write_hot")
+
+
+def user_policies(torch, rt) -> dict:
+    """Two policies written against the port's policy interface, as a
+    user would (a leading point axis, as every policy takes):
+    ``user_hotness``, ``hotness`` under a new name and function object,
+    and ``user_write_hot``, which promotes the hottest slow page WRITTEN
+    in the chunk past ``hot_threshold``, with the CLOCK victim."""
+    pol = rt.core.policies
+    take_lane = rt.core.indexing.take_lane
+    hotness_lane = rt.core.table.HOTNESS
+
+    def user_hotness(cfg, params, table, ptr, pages, is_write, valid):
+        return pol.hotness_policy(cfg, params, table, ptr, pages, is_write,
+                                  valid)
+
+    def user_write_hot(cfg, params, table, ptr, pages, is_write, valid):
+        cand, heat = pol._chunk_candidate(table, pages, valid,
+                                          extra_mask=is_write)
+        victim, vfound, skip = pol._clock_victim(table, ptr,
+                                                 params.n_fast_pages)
+        want = vfound & (heat >= params.hot_threshold) & \
+            (heat > take_lane(table, victim, hotness_lane))
+        new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
+        return want, cand, victim, new_ptr
+    return {"user_hotness": user_hotness, "user_write_hot": user_write_hot}
+
+
+def expect_refusal(what: str, fn, pattern: str) -> str:
+    """Run ``fn``, which must raise the kernel route's ValueError naming
+    ``pattern``; returns its message."""
+    try:
+        fn()
+    except ValueError as e:
+        if pattern not in str(e) or "chunk_step_kernel=\"off\"" not in str(e):
+            raise Mismatch(f"{what}: refused with {e!r}") from e
+        return str(e)
+    raise Mismatch(f"{what}: not refused")
+
+
+def point_run(res, i, n):
+    """Design point ``i``'s (state, outs) of a sweep, outputs cut to n."""
+    from repro_torch.core.emulator import _index
+    return (_index(res.states, i),
+            {k: v[i, :n] for k, v in res.outs.items()})
+
+
+def check_user_policies(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Phase 9 (a): see the module docstring. Registers the two user
+    policies (and later an impostor ``hotness``) in the port's module
+    dict, and restores the dict before it returns."""
+    from repro_torch.sweep import SweepSpec
+    pol = rt.core.policies
+    saved = dict(pol.POLICIES)
+    try:
+        for name, fn in user_policies(torch, rt).items():
+            pol.register(name)(fn)
+        base = rt.paper_platform().with_(chunk=512, hot_threshold=4,
+                                         decay_every=32, write_weight=4)
+        whole = sweep_trace(torch, dev, rt)
+        n = POLICY_CHUNKS * base.chunk
+        trace = rt.core.Trace(*(x[:n] for x in whole))
+        print(f"  cut to its first {POLICY_CHUNKS} chunks: {n} of "
+              f"{len(whole)} requests; platform {base.n_fast_pages} + "
+              f"{base.n_slow_pages} pages "
+              f"({base.n_pages * 8 * 4} B of table a point)", flush=True)
+        del whole
+        names = (*POLICIES, *USER_POLICIES)
+        off = base.with_(chunk_step_kernel="off")
+        off_spec = SweepSpec(off, policies=names)
+        off_eng = rt.Engine(off)
+        hl.KERNEL.launches = 0
+        cs.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        got = off_eng.sweep(off_spec, trace)
+        torch.cuda.synchronize()
+        off_wall = time.perf_counter() - t0
+        off_counts = {"hmmu_lookup": hl.KERNEL.launches,
+                      "chunk_step": cs.KERNEL.launches}
+        if off_counts != {"hmmu_lookup": POLICY_CHUNKS, "chunk_step": 0}:
+            raise Mismatch(f"user policies on 'off': launches {off_counts},"
+                           f" not one of kernel A a chunk ({POLICY_CHUNKS})")
+        eng = rt.Engine(base)
+        hl.KERNEL.launches = 0
+        cs.KERNEL.launches = 0
+        want = eng.sweep(SweepSpec(base, policies=POLICIES), trace)
+        torch.cuda.synchronize()
+        auto_counts = {"hmmu_lookup": hl.KERNEL.launches,
+                       "chunk_step": cs.KERNEL.launches}
+        if auto_counts != {"hmmu_lookup": 0, "chunk_step": 1}:
+            raise Mismatch(f"built-ins on 'auto': launches {auto_counts}, "
+                           "not one of kernel B")
+        print(f"  Engine.sweep of the six built-ins and {USER_POLICIES} on "
+              f"'off': {len(names)} points in one chunk loop, launches "
+              f"{off_counts}, wall {off_wall:.3f} s (first call); the six "
+              f"built-ins on 'auto': launches {auto_counts}", flush=True)
+        for i, name in enumerate(POLICIES):
+            same_runs(torch, f"{name}: 'off' against 'auto'",
+                      point_run(got, i, n), point_run(want, i, n))
+        same_runs(torch, "user_hotness against hotness",
+                  point_run(got, names.index("user_hotness"), n),
+                  point_run(got, names.index("hotness"), n))
+        one = rt.Engine(off.with_(policy="user_write_hot")).run(trace)
+        same_runs(torch, "user_write_hot against its one-point 'off' run",
+                  point_run(got, names.index("user_write_hot"), n),
+                  (one.state, one.outs))
+        rows = got.rows()
+        for row in rows:
+            print(f"    {row['label']}: AMAT {row['amat_cyc']:.3f} cycles, "
+                  f"fast hits {row['fast_hit_rate']:.4f}, swaps "
+                  f"{row['swaps']}")
+        if rows[names.index("user_write_hot")]["swaps"] == 0:
+            raise Mismatch("user_write_hot never migrates on this trace")
+        print("  the six built-in points bitwise equal on 'off' and 'auto';"
+              " user_hotness equal to hotness; user_write_hot equal to its "
+              "one-point 'off' run", flush=True)
+        del got, want, one
+        a_ms, w_ms = device_and_wall_ms(
+            torch, lambda: off_eng.sweep(off_spec, trace), 1,
+            "hmmu_lookup_fused_kernel")
+        print(f"  'off' sweep of {len(names)} points (a second call, "
+              f"traced): wall {w_ms / 1e3:.3f} s, "
+              f"{w_ms * 1e3 / (len(names) * n):.4f} us per point-request; "
+              f"kernel A {off_counts['hmmu_lookup']} launches, "
+              f"{a_ms / POLICY_CHUNKS * 1e3:.2f} us/launch (device), "
+              f"{a_ms / w_ms:.4f} of the wall [{card}]", flush=True)
+        # The kernel route refuses a selected user policy by name, and an
+        # unselected one does not stop it.
+        msg = expect_refusal(
+            "Engine.run at user_write_hot on 'auto'",
+            lambda: rt.Engine(base.with_(policy="user_write_hot")).run(
+                trace), "'user_write_hot'")
+        print(f"  'auto' at user_write_hot refused: {msg}", flush=True)
+        hl.KERNEL.launches = 0
+        cs.KERNEL.launches = 0
+        hot_eng = rt.Engine(base.with_(policy="hotness"))
+        hot_eng.run(trace)
+        torch.cuda.synchronize()
+        if set(USER_POLICIES) - set(hot_eng.registry.names) or \
+                cs.KERNEL.launches != 1 or hl.KERNEL.launches != 0:
+            raise Mismatch(f"an unselected user policy: registry "
+                           f"{hot_eng.registry.names}, launches of kernel B "
+                           f"{cs.KERNEL.launches}, of kernel A "
+                           f"{hl.KERNEL.launches}")
+        print(f"  'auto' at hotness with {USER_POLICIES} registered: kernel "
+              "B launched once", flush=True)
+        pol.register("hotness")(user_policies(torch, rt)["user_hotness"])
+        cs.KERNEL.launches = 0
+        expect_refusal("an impostor registered as 'hotness' on 'auto'",
+                       lambda: rt.Engine(base.with_(policy="hotness")).run(
+                           trace), "'hotness' is a user policy")
+        if cs.KERNEL.launches:
+            raise Mismatch("the impostor launched kernel B")
+        print("  an impostor registered as 'hotness' refused on 'auto'",
+              flush=True)
+    finally:
+        pol.POLICIES.clear()
+        pol.POLICIES.update(saved)
+    return {"off_launches": off_counts["hmmu_lookup"],
+            "auto_launches": auto_counts["chunk_step"]}
+
+
+# Phase 9 (b): minitron-8b's KV cache. ``ServeEngine._kv_bytes_per_position``
+# gives 2 (K and V) x 2 bytes (bfloat16) x 8 KV heads x 128 head dim; it
+# sets 64 positions a page. 128 sequences (``decode_32k``'s batch) of
+# 32,768 tokens hold 512 pages each: 65,536 pages, twice the fast tier.
+KV_BYTES_PER_POSITION = 2 * 2 * 8 * 128
+KV_POSITIONS_PER_PAGE = 64
+KV_SEQS, KV_CONTEXT, KV_STEPS, KV_TURNOVER, KV_STEPS_AFTER = \
+    128, 32_768, 8, 16, 4
+
+
+def tiered_run(torch, dev, rt, route: str) -> dict:
+    """Phase 9 (b)'s decode run on ``route``: KV_STEPS decode steps of
+    KV_SEQS sequences, then KV_TURNOVER of them freed and as many new
+    ones admitted, then KV_STEPS_AFTER steps. Returns the accounting, the
+    host time of each step's stream building and ``account`` calls, and
+    each step's request count."""
+    from repro_torch.memtier import TieredKVAccounting
+    cfg = rt.paper_platform().with_(chunk=512, policy="hotness",
+                                    hot_threshold=4,
+                                    chunk_step_kernel=route)
+    tier = TieredKVAccounting(
+        cfg, n_layers=32, positions_per_page=KV_POSITIONS_PER_PAGE,
+        bytes_per_position=KV_BYTES_PER_POSITION, pin_pages_per_seq=1,
+        device=dev)
+    seqs = list(range(KV_SEQS))
+    lens = [KV_CONTEXT] * KV_SEQS
+    build, account, requests = [], [], []
+
+    def step():
+        t0 = time.perf_counter()
+        trace = tier.access_trace(seqs, lens)
+        t1 = time.perf_counter()
+        tier.account(trace)      # reads the clock back: synchronised
+        account.append(time.perf_counter() - t1)
+        build.append(t1 - t0)
+        requests.append(len(trace))
+        lens[:] = [x + 1 for x in lens]
+
+    for _ in range(KV_STEPS):
+        step()
+    for sid in seqs[:KV_TURNOVER]:
+        tier.free_sequence(sid)
+    seqs = seqs[KV_TURNOVER:] + list(range(KV_SEQS, KV_SEQS + KV_TURNOVER))
+    lens[:] = lens[KV_TURNOVER:] + [KV_CONTEXT] * KV_TURNOVER
+    for _ in range(KV_STEPS_AFTER):
+        step()
+    return {"tier": tier, "build": build, "account": account,
+            "requests": requests, "cfg": cfg}
+
+
+def check_tiered(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Phase 9 (b): see the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+    runs, counts = {}, {}
+    for route in ("auto", "off"):
+        hl.KERNEL.launches = 0
+        cs.KERNEL.launches = 0
+        if route == "auto":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                runs[route] = tiered_run(torch, dev, rt, route)
+            b_us, b_traced = trace_us(prof, lambda k: "chunk_step_kernel" in k)
+        else:
+            runs[route] = tiered_run(torch, dev, rt, route)
+        counts[route] = {"hmmu_lookup": hl.KERNEL.launches,
+                         "chunk_step": cs.KERNEL.launches}
+    a, o = runs["auto"], runs["off"]
+    steps = KV_STEPS + KV_STEPS_AFTER
+    chunk = a["cfg"].chunk
+    n_chunks = sum(-(-r // chunk) for r in a["requests"])
+    if counts["auto"] != {"hmmu_lookup": 0, "chunk_step": steps} or \
+            counts["off"] != {"hmmu_lookup": n_chunks, "chunk_step": 0}:
+        raise Mismatch(f"tiered accounting: launches {counts}; expected one "
+                       f"of kernel B a step ({steps}) on 'auto' and one of "
+                       f"kernel A a chunk ({n_chunks}) on 'off'")
+    ta, to = a["tier"], o["tier"]
+    rep_a, rep_o = ta.report(), to.report()
+    if rep_a != rep_o:
+        bad = [k for k in rep_a if rep_a[k] != rep_o[k]]
+        raise Mismatch(f"tiered accounting: report fields {bad} differ "
+                       "between 'auto' and 'off'")
+    for name, u, v in leaves(ta.state, to.state, "state"):
+        if not torch.equal(u, v):
+            raise Mismatch(f"tiered accounting: {name} differs between "
+                           "'auto' and 'off'")
+    if ta._pinned != to._pinned or a["requests"] != o["requests"]:
+        raise Mismatch("tiered accounting: pinned pages or streams differ")
+    rt.core.check_table(a["cfg"], ta.state.table)
+    if rep_a["slow_free"] >= a["cfg"].n_slow_pages or rep_a["fast_free"]:
+        raise Mismatch("tiered accounting: the cache did not spill past the "
+                       "fast tier")
+    wall = [x + y for x, y in zip(a["build"], a["account"])]
+    b_ms = b_us / 1e3 / steps
+    print(f"  minitron-8b KV ({KV_BYTES_PER_POSITION} B a position, "
+          f"{KV_POSITIONS_PER_PAGE} positions a page): {KV_SEQS} sequences "
+          f"at {KV_CONTEXT} tokens, {KV_STEPS} decode steps, "
+          f"{KV_TURNOVER} freed and admitted, {KV_STEPS_AFTER} more; "
+          f"requests a step {a['requests'][0]}..{max(a['requests'])}; "
+          f"launches {counts}", flush=True)
+    print(f"  report on 'auto' and 'off' equal ({rep_a['requests']} "
+          f"requests; pinned pages {rep_a['pinned_pages']}, pinned fast hit "
+          f"rate {rep_a['pinned_fast_hit_rate']:.4f}; reads fast/slow "
+          f"{rep_a['reads_fast']}/{rep_a['reads_slow']}; migrations "
+          f"{rep_a['migrations']}; free fast/slow {rep_a['fast_free']}/"
+          f"{rep_a['slow_free']}); final tables, counters and every state "
+          "field bitwise equal; check_table passes", flush=True)
+    mean = lambda xs: sum(xs) / len(xs) * 1e3
+    print(f"  'auto' a step: wall {mean(wall):.3f} ms = stream building "
+          f"{mean(a['build']):.3f} ms + account {mean(a['account']):.3f} ms; "
+          f"kernel B {b_ms:.3f} ms (device; {b_traced} of {steps} launches "
+          f"traced), {b_ms / mean(wall):.4f} of the wall; first step "
+          f"{wall[0] * 1e3:.3f} ms; 'off' a step: stream building "
+          f"{mean(o['build']):.3f} ms + account {mean(o['account']):.3f} ms "
+          f"[{card}]", flush=True)
+    return {"auto_launches": counts["auto"]["chunk_step"],
+            "off_launches": counts["off"]["hmmu_lookup"]}
+
+
+def check_consumed(torch, dev, rt) -> None:
+    """Phase 9 (c): a donated state passed to ``run`` again is refused."""
+    cfg = rt.small_platform(chunk=16)
+    eng = rt.Engine(cfg)
+    z = torch.arange(64, dtype=torch.int32, device=dev) % cfg.n_pages
+    trace = rt.core.Trace(z, z * 0, z % 3 == 0, torch.full_like(z, 64))
+    s0 = eng.run(trace).state
+    s1 = eng.run(trace, state=s0).state
+    try:
+        eng.run(trace, state=s0)
+    except RuntimeError as e:
+        if "donate=False" not in str(e):
+            raise Mismatch(f"consumed state: refused with {e!r}") from e
+    else:
+        raise Mismatch("a consumed state was run again on the card")
+    eng.run(trace, state=s1)
+    print("  a consumed state passed to Engine.run again on the card: "
+          "RuntimeError", flush=True)
+
+
+# Phase 9 (d): single-chunk channels whose energy is folded from zero, so
+# a one-ulp difference in a chunk's energy term shows (on a long run the
+# counter's own ulp hides it).
+ENERGY_CHANNELS = 2000
+
+
+def check_energy_fold(torch, dev, rt, cs) -> None:
+    """Phase 9 (d): ``Engine.run_channels`` over ENERGY_CHANNELS random
+    16-request chunks (64, 128 or 4,096 B, both tiers), each from a fresh
+    state, in ONE launch of kernel B, against the plain route (``"off"``,
+    ``counters.fma``): every counter bitwise equal. The energy of some
+    channels must differ from the form that rounds every product on its
+    own, or the data would not tell the two apart."""
+    cfg = rt.small_platform(chunk=16)
+    g = torch.Generator(device=dev).manual_seed(9)
+    shape = (ENERGY_CHANNELS, cfg.chunk)
+
+    def draw(hi):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    sizes = torch.tensor([64, 128, 4096], dtype=torch.int32, device=dev)
+    traces = rt.core.Trace(draw(cfg.n_pages), draw(64) * 64,
+                           draw(5) < 2, sizes[draw(3).long()])
+    cs.KERNEL.launches = 0
+    got = rt.Engine(cfg).run_channels(traces)[0].counters
+    torch.cuda.synchronize()
+    if cs.KERNEL.launches != 1:
+        raise Mismatch(f"energy fold: {cs.KERNEL.launches} launches of "
+                       "kernel B for one run_channels call")
+    want = rt.Engine(cfg.with_(chunk_step_kernel="off")).run_channels(
+        traces)[0].counters
+    for name, a, b in leaves(got, want, "counters"):
+        if not torch.equal(a, b):
+            raise Mismatch(f"energy fold: {name} differs between kernel B "
+                           f"and the plain route on "
+                           f"{int((a != b).sum())} channels")
+    p = rt.Engine(cfg).params
+    f32 = lambda x: x.to(torch.float32)
+    separate = (8.0 * (f32(want.bytes_read_fast) + f32(want.bytes_write_fast))
+                * p.power_pj_per_bit_fast
+                + 8.0 * f32(want.bytes_read_slow)
+                * p.power_pj_per_bit_slow_read) \
+        + 8.0 * f32(want.bytes_write_slow) * p.power_pj_per_bit_slow_write
+    differ = int((separate != want.energy_pj).sum())
+    if differ == 0:
+        raise Mismatch("energy fold: no channel's energy tells the two-FMA "
+                       "order from the product-by-product one")
+    print(f"  energy fold: {ENERGY_CHANNELS} single-chunk channels in one "
+          f"launch of kernel B, every counter bitwise equal to the plain "
+          f"route (counters.fma); {differ} of them differ from the "
+          "product-by-product rounding", flush=True)
+
+
+def check_slice9(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Every check of phase 9 (see the module docstring)."""
+    check_energy_fold(torch, dev, rt, cs)
+    out = {"policies": check_user_policies(torch, dev, rt, hl, cs, card),
+           "tiered": check_tiered(torch, dev, rt, hl, cs, card)}
+    check_consumed(torch, dev, rt)
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 # Each model kernel is held to its plain version within
 # ``repro_torch.kernels.ref.kernel_error``'s allowance, in the working
@@ -1902,6 +2298,10 @@ def main() -> int:
         print(f"[8] serving at full size ({card})", flush=True)
         serve = check_serve(torch, dev, rt, hl, cs, card)
 
+        print(f"[9] user policies, the tiered KV-cache accounting and "
+              f"consumed states ({card})", flush=True)
+        s9 = check_slice9(torch, dev, rt, hl, cs, card)
+
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -1909,6 +2309,8 @@ def main() -> int:
              "replaces": "src/repro/kernels/hmmu_lookup.py:78",
              "launches": counts["off"]["hmmu_lookup"],
              "serve_launches": serve["off_launches"],
+             "policy_launches": s9["policies"]["off_launches"],
+             "memtier_launches": s9["tiered"]["off_launches"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -1917,6 +2319,8 @@ def main() -> int:
              "replaces": "src/repro/kernels/chunk_step.py:793",
              "launches": counts["auto"]["chunk_step"],
              "serve_launches": serve["launches"],
+             "policy_launches": s9["policies"]["auto_launches"],
+             "memtier_launches": s9["tiered"]["auto_launches"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},

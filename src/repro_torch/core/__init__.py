@@ -5,7 +5,7 @@ from .config import (EmulatorConfig, RuntimeParams, TechnologyParams,
 from .emulator import Trace, EmulatorState, pad_trace, init_state
 from .faults import FaultPlan, seeded_plan, stack_plans, pad_plan
 from .policies import PolicyRegistry
-from .table import init_table, check_table
+from .table import HybridAllocator, init_table, check_table
 from . import (policies, counters, dma, faults, latency, consistency, table,
                indexing)
 
@@ -14,7 +14,7 @@ __all__ = [
     "paper_platform", "small_platform", "static_key",
     "FAST", "SLOW", "Trace", "EmulatorState", "pad_trace", "init_state",
     "FaultPlan", "seeded_plan", "stack_plans", "pad_plan",
-    "PolicyRegistry", "init_table", "check_table",
+    "PolicyRegistry", "HybridAllocator", "init_table", "check_table",
     "policies", "counters", "dma", "faults", "latency", "consistency",
     "table", "indexing",
 ]

@@ -10,6 +10,14 @@ once. That is the JAX package's float32 sum wherever that sum is exact
 and it does not depend on the order of the additions, so the CPU, the
 card's plain version and the chunk-step kernel agree bit for bit; above
 2^24 the JAX package's float32 sum depends on XLA's order of additions.
+
+Energy follows the reference as it runs, under ``jit``: XLA fuses the
+energy expression into two fused multiply-adds,
+``fma(8*bws, p_sw, fma(bits_fast, p_f, (8*brs) * p_sr))``, then adds it
+to the counter with a plain float32 ``+``. Eager PyTorch never contracts
+``a*b + c``, so :func:`fma` rounds it once by hand, with the same ops on
+the CPU and on the card; the chunk-step kernel uses ``__fmaf_rn`` in the
+same order.
 """
 from __future__ import annotations
 
@@ -52,6 +60,26 @@ FLOAT_FIELDS = frozenset({
     "bytes_write_slow", "sum_read_latency", "energy_pj"})
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 tensors, rounded once to float32 (IEEE
+    fusedMultiplyAdd, round to nearest even).
+
+    The product of two float32 is exact in float64; the float64 sum is
+    rounded to odd (its TwoSum error folded into the last bit: of the
+    two doubles around the exact sum, the one whose last bit is 1), and
+    53 bits rounded to odd round to 24 bits exactly as the exact sum
+    would, so the final cast is the only rounding that shows."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    prod = a64 * b64
+    s = prod + c64
+    bb = s - prod
+    err = (prod - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def update(p, c: Counters, *, device: torch.Tensor,
            is_write: torch.Tensor, size: torch.Tensor, valid: torch.Tensor,
            latency: torch.Tensor, held: torch.Tensor,
@@ -79,9 +107,9 @@ def update(p, c: Counters, *, device: torch.Tensor,
         return exact_sum(mask, size)
 
     bits_fast = 8.0 * (byt(r & ~slow) + byt(w & ~slow))
-    energy = (bits_fast * p.power_pj_per_bit_fast
-              + 8.0 * byt(r & slow) * p.power_pj_per_bit_slow_read
-              + 8.0 * byt(w & slow) * p.power_pj_per_bit_slow_write)
+    energy = fma(8.0 * byt(w & slow), p.power_pj_per_bit_slow_write,
+                 fma(bits_fast, p.power_pj_per_bit_fast,
+                     8.0 * byt(r & slow) * p.power_pj_per_bit_slow_read))
 
     lat_max = torch.where(v, latency, 0).amax(dim=-1)
     return Counters(

@@ -287,14 +287,18 @@ def _empty_outs(device, shape=(0,)) -> dict:
 def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
                   valid: torch.Tensor, state: EmulatorState,
                   params: RuntimeParams, faults: FaultPlan | None = None, *,
-                  seq: bool = False) -> tuple[EmulatorState, dict]:
+                  seq: bool = False, selected=None
+                  ) -> tuple[EmulatorState, dict]:
     """Run the chunk step over a chunk-multiple trace and write the final
     state into ``state``'s own tensors (returned). Where
     :func:`chunk_step.use_chunk_step_kernel` picks the kernel, one launch
     runs the whole trace; otherwise the chunk loop of
     :func:`_emulate_batch_impl` at a point axis of one. ``seq=True`` is
     that loop with the sequential recurrences (``step_ref(seq=True)``):
-    the kernel's plain version."""
+    the kernel's plain version. ``selected`` (registry indices the run
+    selects, where the caller knows them) spares the kernel route's
+    user-policy check its read of ``policy_id``
+    (:func:`chunk_step.refuse_user_policies`)."""
     if faults is None:
         faults = FaultPlan.empty(device=state.table.device)
     n = len(trace)
@@ -303,6 +307,7 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
     if n == 0:
         return state, _empty_outs(state.table.device)
     if not seq and chunk_step_lib.use_chunk_step_kernel(cfg, state.table):
+        chunk_step_lib.refuse_user_policies(cfg, registry, params, selected)
         new, outs = _emulate_kernel(cfg, registry, trace, valid, state,
                                     params, faults)
         return _write_back(state, new), outs
@@ -325,7 +330,7 @@ def init_states(cfg: EmulatorConfig, params: RuntimeParams) -> EmulatorState:
 def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
                         trace: Trace, valid: torch.Tensor,
                         states: EmulatorState, params: RuntimeParams,
-                        faults: FaultPlan | None = None
+                        faults: FaultPlan | None = None, *, selected=None
                         ) -> tuple[EmulatorState, dict]:
     """The sweep's computation: :func:`_emulate_impl` over B design
     points, the JAX package's ``vmap`` written out as a leading point
@@ -341,7 +346,7 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
     ``"off"``) one chunk loop runs every point: each chunk is ONE
     ``step_batch`` over the B points, whose stage-2 gather is one call of
     ``ops.hmmu_lookup_fused`` (one launch of kernel A on a CUDA device)
-    for all of them."""
+    for all of them. ``selected`` is as in :func:`_emulate_impl`."""
     device = states.table.device
     if faults is None:
         faults = FaultPlan.empty(device=device)
@@ -351,6 +356,7 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
     if n == 0:
         return states, _empty_outs(device, (b, 0))
     if chunk_step_lib.use_chunk_step_kernel(cfg, states.table):
+        chunk_step_lib.refuse_user_policies(cfg, registry, params, selected)
         out = _launch(cfg, registry, trace, valid, states, params, faults)
         new = kernel_state(states.table, out, ALL)
         return _write_back(states, new), kernel_outs(cfg, out, valid, ALL)

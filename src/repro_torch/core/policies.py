@@ -17,10 +17,21 @@ Victims come from a CLOCK pointer over DRAM frames (the OWNER lane);
 commits only when a wanted swap starts, or unconditionally when nothing
 is wanted (the pin-skip channel) — the emulator enforces that contract.
 
+A policy may declare a keyword parameter ``min_wear`` (as ``wear_level``
+does): the chunk step passes the emulator's global min-wear register to
+it. New policies register with ``@register("name")``; an ``Engine``
+snapshots the module dict into a frozen :class:`PolicyRegistry` of
+names AND function objects, so a later registration, or a re-registration
+of a name, changes future sessions only.
+
 The six built-in policies are registered in the JAX package's order, so
-a policy's index is the same ``policy_id`` in both packages; the CUDA
-chunk-step kernel compiles the same six in. Policies registered by users
-are not ported yet: a :class:`PolicyRegistry` holds built-in names only.
+a policy's index is the same ``policy_id`` in both packages (a user
+policy registered in the same order in both gets the same id too). The
+CUDA chunk-step kernel compiles the six built-ins in: an entry of a
+registry is built-in exactly when its function object is one of the six
+taken at import (:func:`builtin_id`), whatever its name. A user policy
+runs on the CPU and on the card's scan path (``chunk_step_kernel="off"``);
+the kernel route refuses it by name.
 """
 from __future__ import annotations
 
@@ -36,7 +47,9 @@ from .indexing import take_lane, take_rows
 POLICIES: dict[str, Callable] = {}
 
 
-def _register(name: str):
+def register(name: str):
+    """Register the decorated policy under ``name`` (a re-registration
+    replaces the module dict's entry; existing snapshots keep theirs)."""
     def deco(fn):
         POLICIES[name] = fn
         return fn
@@ -50,40 +63,59 @@ def get(name: str) -> Callable:
 
 
 def policy_id(name: str) -> int:
-    """Index of ``name`` among the built-in policies (registration
-    order) — the ``RuntimeParams.policy_id`` of the full registry."""
+    """Index of ``name`` in registration order — the
+    ``RuntimeParams.policy_id`` of the full registry."""
     get(name)
     return list(POLICIES).index(name)
 
 
+def builtin_id(fn: Callable) -> int:
+    """Index of ``fn`` among the six built-in policies — the branch the
+    chunk-step kernel runs — by identity of the function object; -1 for
+    any other function, whatever name it was registered under."""
+    for i, b in enumerate(_BUILTINS):
+        if fn is b:
+            return i
+    return -1
+
+
 @dataclasses.dataclass(frozen=True)
 class PolicyRegistry:
-    """An immutable, ordered selection of built-in policies — what a
+    """An immutable, ordered ``name -> policy fn`` snapshot — what a
     ``policy_id`` indexes. Dispatch clamps the id into range, as the JAX
-    package's ``lax.switch`` does."""
+    package's ``lax.switch`` does. Hashable: two snapshots of an
+    unchanged module dict compare equal."""
 
     names: tuple[str, ...]
+    fns: tuple[Callable, ...]
 
     def __post_init__(self):
+        if len(self.names) != len(self.fns):
+            raise ValueError("names and fns length mismatch")
         if len(set(self.names)) != len(self.names):
             raise ValueError(f"duplicate policy names: {self.names}")
-        for n in self.names:
-            get(n)
 
     @classmethod
     def snapshot(cls, names=None) -> "PolicyRegistry":
-        """All built-in policies in registration order when ``names`` is
-        None, else the named subset in the given order."""
-        return cls(tuple(POLICIES if names is None else names))
-
-    @property
-    def fns(self) -> tuple[Callable, ...]:
-        return tuple(POLICIES[n] for n in self.names)
+        """Snapshot the module dict: every registered policy in
+        registration order when ``names`` is None, else the named subset
+        in the given order."""
+        names = tuple(POLICIES if names is None else names)
+        return cls(names, tuple(get(n) for n in names))
 
     @property
     def builtin_ids(self) -> tuple[int, ...]:
-        """Built-in index of each entry (the map the kernel switches on)."""
-        return tuple(policy_id(n) for n in self.names)
+        """Built-in index of each entry (the map the kernel switches on),
+        -1 for a user policy (:func:`builtin_id`)."""
+        return tuple(builtin_id(f) for f in self.fns)
+
+    def user_policies(self, ids=None) -> tuple[str, ...]:
+        """Names of the entries that are not built-in, among the entries
+        ``ids`` (registry indices) or among all of them."""
+        ids = range(len(self)) if ids is None else ids
+        builtin = self.builtin_ids
+        return tuple(self.names[i] for i in sorted(set(ids))
+                     if builtin[i] < 0)
 
     def index(self, name: str) -> int:
         if name not in self.names:
@@ -92,9 +124,11 @@ class PolicyRegistry:
         return self.names.index(name)
 
     def subset(self, names) -> "PolicyRegistry":
-        for n in names:
-            self.index(n)
-        return PolicyRegistry(tuple(names))
+        """A restricted registry carrying the same snapshotted
+        functions."""
+        names = tuple(names)
+        return PolicyRegistry(names,
+                              tuple(self.fns[self.index(n)] for n in names))
 
     def __contains__(self, name) -> bool:
         return name in self.names
@@ -152,7 +186,7 @@ def _clock_victim(table, ptr, nf):
     return victim, found, skip
 
 
-@_register("static")
+@register("static")
 def static_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Placement fixed at initialization; never migrate."""
     z = torch.zeros(ptr.shape, dtype=torch.int32, device=table.device)
@@ -160,7 +194,7 @@ def static_policy(cfg, params, table, ptr, pages, is_write, valid):
         z, z, ptr
 
 
-@_register("hotness")
+@register("hotness")
 def hotness_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Promote the hottest slow page seen in this chunk once it crosses
     ``hot_threshold``; victim = CLOCK pointer over DRAM frames, skipped
@@ -173,14 +207,14 @@ def hotness_policy(cfg, params, table, ptr, pages, is_write, valid):
     return want, cand, victim, new_ptr
 
 
-@_register("write_bias")
+@register("write_bias")
 def write_bias_policy(cfg, params, table, ptr, pages, is_write, valid):
     """The ``hotness`` rule; the chunk step weights this policy's writes
     by ``write_weight`` when it accumulates hotness."""
     return hotness_policy(cfg, params, table, ptr, pages, is_write, valid)
 
 
-@_register("stream")
+@register("stream")
 def stream_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Detect a dominant small stride in the chunk's page stream and
     pre-promote the stream's next page; else the hotness rule."""
@@ -214,7 +248,7 @@ def stream_policy(cfg, params, table, ptr, pages, is_write, valid):
     return want, cand, victim, new_ptr
 
 
-@_register("hotness_global")
+@register("hotness_global")
 def hotness_global_policy(cfg, params, table, ptr, pages, is_write, valid):
     """Idealized reference: global hottest-slow / coldest-fast scan."""
     dev = table_lib.device(table)
@@ -229,7 +263,7 @@ def hotness_global_policy(cfg, params, table, ptr, pages, is_write, valid):
     return want, cand.to(torch.int32), victim.to(torch.int32), ptr
 
 
-@_register("wear_level")
+@register("wear_level")
 def wear_level_policy(cfg, params, table, ptr, pages, is_write, valid,
                       min_wear=None):
     """The hotness rule with a wear-aware demotion destination: skip
@@ -251,3 +285,9 @@ def wear_level_policy(cfg, params, table, ptr, pages, is_write, valid,
         (cheat > take_lane(table, victim, table_lib.HOTNESS))
     new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
     return want, cand, victim, new_ptr
+
+
+# The built-in policies' function objects, taken at import: what
+# ``builtin_id`` compares against, so a function re-registered under a
+# built-in name is still a user policy.
+_BUILTINS: tuple[Callable, ...] = tuple(POLICIES.values())

@@ -262,3 +262,94 @@ def check_table(cfg: EmulatorConfig, table,
             raise AssertionError(
                 f"{name} lane of row {bad[0]} outside [0, {name}_CAP]: "
                 f"{vals[bad[0]]} (wrapped or unsaturated accumulator)")
+
+
+class HybridAllocator:
+    """Host-side allocator over the flat hybrid space with placement hints
+    (numpy; a copy of the JAX package's).
+
+    Mirrors the paper's driver+jemalloc middleware: allocations are ranges
+    of flat pages; ``hint`` expresses device preference honoured on a
+    best-effort basis (like the extended malloc API of §III-G).
+    """
+
+    def __init__(self, cfg: EmulatorConfig):
+        self.cfg = cfg
+        # Free pools of flat page numbers whose *initial* mapping is on the
+        # given device, popped from the end (lowest page first).
+        self._free = {
+            FAST: list(range(cfg.n_fast_pages - 1, -1, -1)),
+            SLOW: list(range(cfg.n_pages - 1, cfg.n_fast_pages - 1, -1)),
+        }
+        self._owned: dict[int, list[int]] = {}
+        self._pinned: dict[int, list[int]] = {}
+        self._retired: set[int] = set()
+        self._next_handle = 0
+
+    def _pool_of(self, page: int) -> int:
+        return FAST if page < self.cfg.n_fast_pages else SLOW
+
+    def alloc(self, n_pages: int, hint: int = FAST,
+              pin: bool = False) -> tuple[int, np.ndarray]:
+        """Allocate ``n_pages`` flat pages, preferring the ``hint`` device
+        and spilling to the other. Returns (handle, int32 page numbers);
+        raises ``MemoryError`` (taking nothing) when the pools are short.
+
+        ``pin=True`` is the strong form of the hint: each page is pinned
+        to the device it landed on (PIN_FAST below the tier boundary,
+        PIN_SLOW above) by :meth:`apply_flags`, until :meth:`free`."""
+        other = SLOW if hint == FAST else FAST
+        take = []
+        for pool in (self._free[hint], self._free[other]):
+            while pool and len(take) < n_pages:
+                take.append(pool.pop())
+        if len(take) < n_pages:
+            for p in take:  # roll back
+                self._free[self._pool_of(p)].append(p)
+            raise MemoryError(f"out of hybrid memory ({n_pages} pages)")
+        handle = self._next_handle
+        self._next_handle += 1
+        self._owned[handle] = take
+        if pin:
+            self._pinned[handle] = take
+        return handle, np.asarray(take, np.int32)
+
+    def free(self, handle: int) -> None:
+        """Return a handle's pages to their pools (retired pages excepted)
+        and drop its pins."""
+        self._pinned.pop(handle, None)
+        for p in self._owned.pop(handle):
+            if p in self._retired:
+                continue  # dead frames never return to the free pools
+            self._free[self._pool_of(p)].append(p)
+
+    def retire(self, pages) -> None:
+        """Take ``pages`` out of circulation for good (their frames died):
+        free copies leave the pools now, owned copies when their handle is
+        freed."""
+        dead = {int(p) for p in np.atleast_1d(np.asarray(pages, np.int64))}
+        self._retired.update(dead)
+        for d in (FAST, SLOW):
+            self._free[d] = [p for p in self._free[d] if p not in dead]
+
+    @property
+    def retired_pages(self) -> set[int]:
+        return set(self._retired)
+
+    def apply_flags(self, table: torch.Tensor) -> torch.Tensor:
+        """Stamp the pin bits of every live pinned allocation into
+        ``table``'s FLAGS lane, in place (the tier from each page's
+        *initial* placement, where it still is before emulation moves
+        anything). Returns ``table``."""
+        nf = self.cfg.n_fast_pages
+        pinned = [p for ps in self._pinned.values() for p in ps]
+        for pages, bit in (([p for p in pinned if p < nf], PIN_FAST),
+                           ([p for p in pinned if p >= nf], PIN_SLOW)):
+            if pages:
+                table.copy_(set_flags(table, np.asarray(pages, np.int32),
+                                      bit))
+        return table
+
+    @property
+    def free_pages(self) -> dict[int, int]:
+        return {d: len(v) for d, v in self._free.items()}

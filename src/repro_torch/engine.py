@@ -5,7 +5,7 @@
 
     engine = Engine(paper_platform().with_(chunk=512))      # on cuda
     state, outs = engine.run(trace)                 # one design point
-    state, outs = engine.run(trace2, state=state)   # continue, in place
+    state, outs = engine.run(trace2, state=state)   # continue (donated)
     state, outs = engine.run_stream(segments)       # a segmented trace
     res = engine.sweep(spec, trace)                 # a grid, one launch
     res = engine.continue_sweep(res, trace2)        # the warm grid
@@ -26,10 +26,18 @@ the JAX package's entry-point key); :attr:`Engine.compile_count` counts
 them per geometry, so a trace length outside a warmed set shows up as a
 new key exactly where the JAX package would compile a new program.
 
-States passed to :meth:`Engine.run` are **updated in place by default**
-(the JAX package donates them): the packed table moves forward without a
-copy and the passed-in state must not be reused. ``donate=False`` clones
-the state first.
+States passed to :meth:`Engine.run`, :meth:`Engine.run_stream` and
+:meth:`Engine.continue_sweep` are **donated by default**, as in the JAX
+package: the run updates their memory in place (the packed table moves
+forward without a copy) and returns the result as new tensor objects over
+that memory. The passed-in state is consumed: passing it again raises
+``RuntimeError``. ``donate=False`` clones the state first and leaves it
+live.
+
+Policies registered with ``core.policies.register`` run on the CPU and,
+on a CUDA device, with ``chunk_step_kernel="off"``; the chunk-step
+kernel (``"auto"`` / ``"on"``) runs the six built-ins only and refuses a
+dispatch that selects any other policy, by name.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ import torch
 from .core import counters as counters_lib
 from .core.config import EmulatorConfig, RuntimeParams, static_key
 from .core.emulator import (EmulatorState, Trace, _emulate_batch_impl,
-                            _emulate_impl, clone_state, dispatch_key_count,
+                            _emulate_impl, _tensors, clone_state,
+                            dispatch_key_count,
                             init_state, init_states, pad_trace,
                             record_dispatch)
 from .core.faults import FaultPlan
@@ -138,9 +147,35 @@ def _prefetched(segments: Iterable[Trace], depth: int,
         ev.synchronize()
 
 
+# The attribute that marks a tensor of a donated (consumed) state.
+_CONSUMED = "_repro_consumed"
+
+
+def _refuse_consumed(what: str, state) -> None:
+    """Raise if ``state`` holds a tensor of a state an earlier run
+    consumed (donated)."""
+    if any(getattr(t, _CONSUMED, False) for t in _tensors(state)):
+        raise RuntimeError(
+            f"{what} was consumed by an earlier run that donated it (updated "
+            "its memory in place, as the JAX package's donation deletes its "
+            "buffers): pass the state that run returned, or run with "
+            "donate=False to keep a state for reuse")
+
+
+def _renew(state):
+    """Mark the tensors of a donated ``state`` consumed and return the
+    same values as new tensor objects over the same memory: the live
+    state the run hands back."""
+    if isinstance(state, tuple):
+        return type(state)(*(_renew(x) for x in state))
+    fresh = state.view_as(state)
+    setattr(state, _CONSUMED, True)
+    return fresh
+
+
 def as_registry(registry) -> PolicyRegistry:
     """``None`` / a tuple of names / a ``PolicyRegistry`` -> a registry
-    (None = every built-in policy, in registration order)."""
+    (None = every registered policy, in registration order)."""
     if isinstance(registry, PolicyRegistry):
         return registry
     return PolicyRegistry.snapshot(registry)
@@ -149,7 +184,8 @@ def as_registry(registry) -> PolicyRegistry:
 class Engine:
     """A stateful session over one static platform geometry on one
     device. ``registry`` optionally restricts the policy table (a
-    ``PolicyRegistry`` or a tuple of built-in names)."""
+    ``PolicyRegistry`` or a tuple of registered names); by default the
+    engine snapshots every policy registered when it is made."""
 
     def __init__(self, cfg: EmulatorConfig, *, registry=None, device=None):
         self.cfg = cfg
@@ -217,24 +253,36 @@ class Engine:
             self._no_faults = FaultPlan.empty(device=self.device)
         return self._no_faults
 
+    def _selected(self, params: RuntimeParams):
+        """The registry indices a run at ``params`` selects, where the
+        host knows them without reading the device (the engine's default
+        point); else None."""
+        if params is self._default_params:
+            return (self.registry.index(self.cfg.policy),)
+        return None
+
     def _dispatch(self, trace: Trace, valid: torch.Tensor, state, params,
                   donate: bool, faults) -> tuple[EmulatorState, dict]:
         """One run of a padded trace on the engine's device: records the
         dispatch key as ``repro.Engine._entry_for`` builds it (carried
         state or fresh, donation only of a carried state, the padded
-        length and the fault plan's shapes), then emulates."""
+        length and the fault plan's shapes), then emulates. A donated
+        state is consumed; the result comes back as new objects."""
         carried = state is not None
+        if carried:
+            self._check_device("state", state.table)
+            _refuse_consumed("the state", state)
         record_dispatch(self.cfg, self.registry, donate=donate and carried,
                         shape_sig=(len(trace), False, not carried,
                                    self._fault_sig(faults)))
         if state is None:
             state = self.init_state(params)
-        else:
-            self._check_device("state", state.table)
-            if not donate:
-                state = clone_state(state)
-        return _emulate_impl(self.cfg, self.registry, trace, valid, state,
-                             params, self._plan(faults))
+        elif not donate:
+            state = clone_state(state)
+        state, outs = _emulate_impl(self.cfg, self.registry, trace, valid,
+                                    state, params, self._plan(faults),
+                                    selected=self._selected(params))
+        return (_renew(state) if carried and donate else state), outs
 
     def run(self, trace: Trace, *, params: RuntimeParams | None = None,
             state: EmulatorState | None = None,
@@ -246,7 +294,8 @@ class Engine:
         The trace (moved to the engine's device) is padded to a chunk
         multiple and the outputs are trimmed back; pass ``valid`` only
         with an already padded trace. ``state`` continues a previous run
-        and is **updated in place** unless ``donate=False``. ``faults``
+        and is **donated** (updated in place, then consumed: use the
+        returned state) unless ``donate=False``. ``faults``
         injects a :class:`FaultPlan` (keyed on the state's absolute
         ``chunk_idx``); None is the empty plan.
         """
@@ -356,21 +405,21 @@ class Engine:
             faults = faults.to(self.device)
         return _emulate_batch_impl(self.cfg, self.registry, traces, valid,
                                    init_states(self.cfg, stacked), stacked,
-                                   faults)
+                                   faults, selected=self._selected(params))
 
     # ------------------------------------------------------------------
     # design-space sweeps
     # ------------------------------------------------------------------
     def _sweep_batch(self, spec):
         """Normalise spec / points / params into (points, registry,
-        stacked params)."""
+        stacked params, the registry indices selected where known)."""
         if isinstance(spec, RuntimeParams):
             # A pre-stacked batch: policy_id already indexes this engine's
             # registry; index-only points label the rows.
             n = int(spec.policy_id.shape[0])
             points = [DesignPoint(index=i, coords=(("point", i),),
                                   cfg=self.cfg) for i in range(n)]
-            return points, self.registry, spec
+            return points, self.registry, spec, None
         points = list(spec) if isinstance(spec, (list, tuple)) \
             else build_points(spec)
         if not points:
@@ -389,7 +438,7 @@ class Engine:
         ids = torch.tensor([registry.index(p.cfg.policy) for p in points],
                            dtype=torch.int32, device=self.device)
         params = stack_params(points, self.device)._replace(policy_id=ids)
-        return points, registry, params
+        return points, registry, params, tuple(range(len(registry)))
 
     def sweep(self, spec: SweepSpec | list[DesignPoint] | RuntimeParams,
               trace: Trace, *, mesh=None, states=None,
@@ -410,21 +459,24 @@ class Engine:
         (ROADMAP.md §1) and raises rather than running on one card.
 
         ``states``: stacked per-point ``EmulatorState`` (a previous
-        ``SweepResult.states``) to continue from, updated in place unless
+        ``SweepResult.states``) to continue from, donated (updated in
+        place, then consumed) unless
         ``donate=False``, which clones it first.
 
         ``faults``: one shared :class:`FaultPlan` for every point, or a
         stacked per-point batch (``faults.stack_plans`` of plans padded
         with ``pad_plan`` to one shape).
         """
-        points, registry, params = self._sweep_batch(spec)
+        points, registry, params, selected = self._sweep_batch(spec)
         return self._sweep_exec(points, registry, params, trace, mesh=mesh,
-                                states=states, donate=donate, faults=faults)
+                                states=states, donate=donate, faults=faults,
+                                selected=selected)
 
     def _sweep_exec(self, points, registry, params, trace, *, mesh, states,
-                    donate, faults=None) -> SweepResult:
+                    donate, faults=None, selected=None) -> SweepResult:
         """Run an already normalised (points, registry, stacked params)
-        batch: shared by :meth:`sweep` and :meth:`continue_sweep`."""
+        batch: shared by :meth:`sweep` and :meth:`continue_sweep`. Donated
+        ``states`` are consumed; the result holds new objects."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the multi-card sweep (torch.distributed over the "
@@ -438,20 +490,25 @@ class Engine:
                 "SweepResult.states): a fresh sweep builds its own states "
                 "and has nothing of yours to update")
         self._check_device("params", params.policy_id)
+        carried = states is not None
+        if carried:
+            self._check_device("states", states.table)
+            _refuse_consumed("the sweep's states", states)
         padded, valid = pad_trace(self.cfg, trace.to(self.device))
         record_dispatch(self.cfg, registry, batch=True, donate=donate,
                         shape_sig=(len(padded), len(points), states is None,
                                    None, self._fault_sig(faults)))
         if states is None:
             states = init_states(self.cfg, params)
-        else:
-            self._check_device("states", states.table)
-            if not donate:
-                states = clone_state(states)
+        elif not donate:
+            states = clone_state(states)
         if faults is not None:
             faults = faults.to(self.device)
         states, outs = _emulate_batch_impl(self.cfg, registry, padded, valid,
-                                           states, params, faults)
+                                           states, params, faults,
+                                           selected=selected)
+        if carried and donate:
+            states = _renew(states)
         return SweepResult(points=points, states=states, outs=outs,
                            params=params, registry=registry)
 
@@ -459,9 +516,9 @@ class Engine:
                        mesh=None, donate: bool = True,
                        faults: FaultPlan | None = None) -> SweepResult:
         """Continue a previous sweep on a further trace segment: every
-        point resumes from its own warm state (updated in place unless
-        ``donate=False``), replaying the recorded stacked params and
-        registry of ``result``."""
+        point resumes from its own warm state (donated, so ``result`` is
+        consumed, unless ``donate=False``), replaying the recorded stacked
+        params and registry of ``result``."""
         return self._sweep_exec(result.points, result.registry,
                                 result.params, trace, mesh=mesh,
                                 states=result.states, donate=donate,

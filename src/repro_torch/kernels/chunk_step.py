@@ -728,6 +728,30 @@ def use_chunk_step_kernel(cfg: EmulatorConfig, table: torch.Tensor) -> bool:
     return table.is_cuda
 
 
+def refuse_user_policies(cfg: EmulatorConfig, registry: PolicyRegistry,
+                         params: RuntimeParams, selected=None) -> None:
+    """Raise where the chunk-step kernel would run a point whose policy
+    is not built-in: the kernel compiles the six built-ins in, and a
+    registry entry is built-in by the identity of its function, never by
+    its name. ``selected`` holds the registry indices the dispatch runs,
+    where the host knows them (the engine's default point, a sweep's
+    points); otherwise, and only when the registry holds a user policy,
+    the clamped ``params.policy_id`` is read once. Never changes route."""
+    if not registry.user_policies():
+        return
+    if selected is None:
+        selected = params.policy_id.clamp(0, len(registry) - 1).reshape(
+            -1).unique().tolist()
+    users = registry.user_policies(selected)
+    if users:
+        raise ValueError(
+            f"policy {', '.join(map(repr, users))} is a user policy: the "
+            f"chunk-step kernel (chunk_step_kernel={cfg.chunk_step_kernel!r} "
+            "on a CUDA device) runs only the six built-in policies. "
+            'chunk_step_kernel="off" runs user policies on the card, with '
+            "the lookup kernel gathering the rows")
+
+
 def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
                table: torch.Tensor, params: RuntimeParams, sc: StepScalars,
                bank_free: torch.Tensor, page, offset, is_write, size, valid,
@@ -741,6 +765,7 @@ def chunk_step(cfg: EmulatorConfig, registry: PolicyRegistry,
     if not use_chunk_step_kernel(cfg, table):
         return step_ref(cfg, registry, table, params, sc, bank_free,
                         page, offset, is_write, size, valid, faults)
+    refuse_user_policies(cfg, registry, params)
     ints, floats = _pack_scalars(params, sc)
     out = chunk_step_cuda(
         cfg, registry, table[None], ints[None], floats[None],

@@ -56,7 +56,10 @@
 // commit is int32 atomicAdd (order-free, so it equals the scatter-add).
 // The float counters take each chunk's integer sums exactly (int64),
 // round them once (counters.update does the same) and fold them with
-// __fadd_rn / __fmul_rn, so nothing contracts into an FMA.
+// __fadd_rn / __fmul_rn, so nothing contracts on its own. The energy term
+// is the reference's under jit, where XLA fuses it into two FMAs:
+// __fmaf_rn(8*bws, p_sw, __fmaf_rn(bits_fast, p_f, (8*brs) * p_sr)),
+// then a plain add to the counter (counters.fma is the same on the host).
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1124,12 +1127,11 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
             break;
           default: {   // ENERGY_PJ
             const float bits_fast = __fmul_rn(8.0f, __fadd_rn(brf, bwf));
-            add = __fadd_rn(
-                __fadd_rn(__fmul_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST]),
+            add = __fmaf_rn(
+                __fmul_rn(8.0f, bws), F[POWER_PJ_PER_BIT_SLOW_WRITE],
+                __fmaf_rn(bits_fast, F[POWER_PJ_PER_BIT_FAST],
                           __fmul_rn(__fmul_rn(8.0f, brs),
-                                    F[POWER_PJ_PER_BIT_SLOW_READ])),
-                __fmul_rn(__fmul_rn(8.0f, bws),
-                          F[POWER_PJ_PER_BIT_SLOW_WRITE]));
+                                    F[POWER_PJ_PER_BIT_SLOW_READ])));
           }
         }
         cf[k] = __fadd_rn(cf[k], add);

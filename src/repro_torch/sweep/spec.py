@@ -53,7 +53,7 @@ class SweepSpec:
 
     ``technologies`` names entries of ``TECHNOLOGIES`` for the slow tier;
     ``fast_fractions`` are fast-tier shares of the (static) total page
-    space; ``policies`` are built-in policy names; ``link_lats`` are link
+    space; ``policies`` are registered policy names; ``link_lats`` are link
     round-trip cycle counts. ``extra_axes`` sweeps any field in
     ``RUNTIME_FIELDS``, e.g. ``(("hot_threshold", (2, 8)),)``. Axes left
     empty stay at the ``base`` value.

@@ -380,8 +380,9 @@ def test_counter_update_is_bitwise(seed):
     jc = jc._replace(energy_pj=jnp.float32(1234.5678),
                      sum_read_latency=jnp.float32(2.0 ** 25 + 3))
     tc = t_ctr.Counters(*(T(np.asarray(x)) for x in jc))
+    update = jax.jit(j_ctr.update)   # the reference as it runs
     for _ in range(3):
-        jc = j_ctr.update(jp, jc, device=jnp.asarray(dev),
+        jc = update(jp, jc, device=jnp.asarray(dev),
                           is_write=jnp.asarray(iw), size=jnp.asarray(size),
                           valid=jnp.asarray(valid), latency=jnp.asarray(lat),
                           held=jnp.int32(3), poisoned=jnp.asarray(poi),

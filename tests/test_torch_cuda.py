@@ -338,8 +338,9 @@ def test_chunk_step_counters_exact_past_2_24(cuda_device, policy):
 def test_engine_run_launches_once_and_updates_the_state_in_place(
         cuda_device):
     """``Engine.run`` on "auto": one launch of the chunk-step kernel per
-    run (a padded trace of 13 chunks), the passed state's own tensors
-    updated, and the same results as the CPU loop."""
+    run (a padded trace of 13 chunks), the passed state's own memory
+    updated (the returned state is new objects over it; the passed one
+    is consumed), and the same results as the CPU loop."""
     cfg = tcore.small_platform(chunk=16, hot_threshold=2)
     rng = np.random.default_rng(1)
     n = 200
@@ -351,12 +352,17 @@ def test_engine_run_launches_once_and_updates_the_state_in_place(
     state = eng.init_state()
     ptrs = [t.data_ptr() for t in _leaves(state)]
     before = t_cs.KERNEL.launches
+    trace = tcore.Trace(*(torch.as_tensor(a, device=cuda_device)
+                          for a in arrays))
+    first = state
     for _ in range(2):   # the second run continues from the first's state
-        res = eng.run(tcore.Trace(*(torch.as_tensor(a, device=cuda_device)
-                                    for a in arrays)), state=state)
+        res = eng.run(trace, state=state)
+        state = res.state
     torch.cuda.synchronize()
     assert t_cs.KERNEL.launches == before + 2
     assert [t.data_ptr() for t in _leaves(res.state)] == ptrs
+    with pytest.raises(RuntimeError, match="consumed"):
+        eng.run(trace, state=first)
     trace = tcore.Trace(*(torch.as_tensor(a) for a in arrays))
     ref = cpu.run(trace)
     ref = cpu.run(trace, state=ref.state)
@@ -531,3 +537,95 @@ def test_serve_contracts_on_the_card_equal_the_cpu(cuda_device, width):
     assert not fl[nf + 5] & t_table.PINNED and not fl[7] & t_table.PINNED
     assert fl[0] & t_table.PIN_FAST and fl[n - 1] & t_table.PIN_SLOW
     assert not (cpu_r[[nf + 9, 3], t_table.FLAGS] & t_table.PINNED).any()
+
+
+# ------------------------------------------------- user policies, memtier
+@pytest.fixture
+def user_write_hot():
+    """A user policy (the hottest slow page written in the chunk, the
+    CLOCK victim) registered in the port; the module dict restored
+    after."""
+    from repro_torch.core import policies as pol
+    from repro_torch.core.indexing import take_lane
+    saved = dict(pol.POLICIES)
+
+    def user_write_hot(cfg, params, table, ptr, pages, is_write, valid):
+        cand, heat = pol._chunk_candidate(table, pages, valid,
+                                          extra_mask=is_write)
+        victim, vfound, skip = pol._clock_victim(table, ptr,
+                                                 params.n_fast_pages)
+        want = vfound & (heat >= params.hot_threshold) & \
+            (heat > take_lane(table, victim, t_table.HOTNESS))
+        new_ptr = (ptr + skip + want.to(torch.int32)) % params.n_fast_pages
+        return want, cand, victim, new_ptr
+    pol.register("user_write_hot")(user_write_hot)
+    yield user_write_hot
+    pol.POLICIES.clear()
+    pol.POLICIES.update(saved)
+
+
+def _small_trace(cfg, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    page = np.where(rng.random(n) < 0.5,
+                    cfg.n_fast_pages + rng.integers(0, 4, n),
+                    rng.integers(0, cfg.n_pages, n)).astype(np.int32)
+    arrays = (page, np.zeros(n, np.int32), rng.random(n) < 0.5,
+              np.full(n, 64, np.int32))
+    return tcore.Trace(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+@pytest.mark.cuda
+def test_kernel_route_refuses_a_user_policy_by_name(cuda_device,
+                                                    user_write_hot):
+    """On the card, ``"auto"`` refuses a selected user policy by name
+    before any launch; an unselected one still launches kernel B once;
+    ``"off"`` runs the user policy equal to the CPU."""
+    cfg = tcore.small_platform(chunk=16, hot_threshold=2,
+                               policy="user_write_hot")
+    trace = _small_trace(cfg, 96, 2, cuda_device)
+    t_cs.KERNEL.reset()
+    with pytest.raises(ValueError, match="'user_write_hot'.*\"off\""):
+        repro_torch.Engine(cfg).run(trace)
+    assert t_cs.KERNEL.launches == 0
+    hot = repro_torch.Engine(cfg.with_(policy="hotness"))
+    assert "user_write_hot" in hot.registry
+    hot.run(trace)
+    torch.cuda.synchronize()
+    assert t_cs.KERNEL.launches == 1
+    off = repro_torch.Engine(cfg.with_(chunk_step_kernel="off")).run(trace)
+    cpu = repro_torch.Engine(cfg, device="cpu").run(trace.to("cpu"))
+    assert int(cpu.state.dma.swaps_done) > 0
+    for a, b in zip(t_emu._tensors(off.state), t_emu._tensors(cpu.state)):
+        assert torch.equal(a.cpu(), b)
+    for k in cpu.outs:
+        assert torch.equal(off.outs[k].cpu(), cpu.outs[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["auto", "off"])
+def test_tiered_accounting_on_the_card_equals_the_cpu(cuda_device, route):
+    """``TieredKVAccounting`` on the card (kernel B a step, or the scan
+    path) equals the CPU: report, table, pins; and a consumed state is
+    refused on the card."""
+    from repro_torch.memtier import TieredKVAccounting
+    cfg = tcore.EmulatorConfig(n_fast_pages=16, n_slow_pages=112, chunk=16,
+                               policy="hotness", hot_threshold=2,
+                               chunk_step_kernel=route)
+    tiers = [TieredKVAccounting(cfg, n_layers=2, positions_per_page=8,
+                                bytes_per_position=256, device=d)
+             for d in (cuda_device, "cpu")]
+    for step in range(6):
+        for tier in tiers:
+            tier.account(tier.access_trace([0, 1, 2, 3],
+                                           [20 + 3 * step] * 4))
+        if step == 3:
+            for tier in tiers:
+                tier.free_sequence(1)
+    card, cpu = tiers
+    assert card.report() == cpu.report()
+    assert torch.equal(card.state.table.cpu(), cpu.state.table)
+    assert card._pinned == cpu._pinned
+    stale = card.state
+    card.account(card.access_trace([0], [40]))
+    with pytest.raises(RuntimeError, match="consumed"):
+        card.engine.run(card.access_trace([0], [41]), state=stale)

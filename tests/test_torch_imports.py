@@ -1,7 +1,7 @@
 """Import hygiene of the port, and no silent fallback.
 
 Every module of ``repro_torch``, the serving front end
-``repro_torch.serve`` included (and the card scripts ``chip_smoke.py``,
+``repro_torch.serve`` and ``repro_torch.memtier`` included (and the card scripts ``chip_smoke.py``,
 ``chip_faults.py``, ``chip_sweep_clusters.py`` and ``chip_compare_off.py``)
 imports with
 ``jax`` and ``repro`` made unimportable; ``chip_smoke.py`` exits nonzero
@@ -46,6 +46,10 @@ _SERVE = ("repro_torch.serve", "repro_torch.serve.buckets",
           "repro_torch.serve.staging", "repro_torch.serve.scheduler")
 
 
+# The tiered KV-cache accounting (``repro_torch.memtier``) too.
+_MEMTIER = ("repro_torch.memtier", "repro_torch.memtier.tiered_cache")
+
+
 def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -53,6 +57,7 @@ def test_port_imports_without_jax_or_repro():
     names = out.stdout.split()
     assert len(names) >= 20
     assert set(_SERVE) <= set(names)
+    assert set(_MEMTIER) <= set(names)
 
 
 def _run_smoke(cwd):

@@ -17,6 +17,9 @@ step and held bit for bit against the plain version and the JAX package:
   the passed state, the per-request outputs), with the kernel replaced by
   a plain implementation of its contract.
 """
+from fractions import Fraction
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -279,11 +282,39 @@ def test_lane_resolve_property(data, n, nb):
 
 
 # ----------------------------------------------------------- the counters
+def exact_fma32(a, b, c):
+    """``a * b + c`` of three float32 numbers, computed exactly with
+    fractions and rounded once to float32 (nearest, ties to even)."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    lo = np.float32(float(exact))       # within one float32 step of exact
+    for cand in (np.nextafter(lo, np.float32(-np.inf)),
+                 np.nextafter(lo, np.float32(np.inf))):
+        d_lo, d_c = abs(Fraction(float(lo)) - exact), \
+            abs(Fraction(float(cand)) - exact)
+        if d_c < d_lo or (d_c == d_lo and
+                          int(cand.view(np.int32)) % 2 == 0):
+            lo = cand
+    return np.float32(lo)
+
+
+def energy_fma(p, brf, bwf, brs, bws):
+    """A chunk's energy in float32 as the reference computes it under
+    ``jit`` (XLA's two fused multiply-adds): ``fma(8*bws, p_sw,
+    fma(bits_fast, p_f, (8*brs) * p_sr))``."""
+    f32 = np.float32
+    bits_fast = f32(f32(8.0) * f32(f32(brf) + f32(bwf)))
+    inner = exact_fma32(bits_fast, p["power_pj_per_bit_fast"],
+                        f32(f32(f32(8.0) * f32(brs))
+                            * p["power_pj_per_bit_slow_read"]))
+    return exact_fma32(f32(f32(8.0) * f32(bws)),
+                       p["power_pj_per_bit_slow_write"], inner)
+
+
 def kernel_fold(p, c, *, device, is_write, size, valid, latency, held,
                 poisoned, retired, injected):
     """The kernel's counter fold in numpy float32: exact int64 chunk sums,
-    one rounding each, then c + s and the energy in JAX's order, every
-    product and sum rounded on its own (no FMA)."""
+    one rounding each, then c + s, and the energy as the reference
+    computes it under ``jit`` (:func:`energy_fma`)."""
     f32 = np.float32
     v, iw, slow = valid, is_write, device == 1
     r, w = ~iw & v, iw & v
@@ -293,11 +324,7 @@ def kernel_fold(p, c, *, device, is_write, size, valid, latency, held,
         return f32(np.where(mask, x, 0).astype(np.int64).sum())
     brf, bwf = s(r & ~slow, size), s(w & ~slow, size)
     brs, bws = s(r & slow, size), s(w & slow, size)
-    bits_fast = f32(f32(8.0) * f32(brf + bwf))
-    energy = f32(f32(f32(bits_fast * p["power_pj_per_bit_fast"])
-                     + f32(f32(f32(8.0) * brs)
-                           * p["power_pj_per_bit_slow_read"]))
-                 + f32(f32(f32(8.0) * bws) * p["power_pj_per_bit_slow_write"]))
+    energy = energy_fma(p, brf, bwf, brs, bws)
     i32 = np.int32
     return {
         "reads_fast": i32(c["reads_fast"] + (r & ~slow).sum()),
@@ -357,8 +384,8 @@ def test_counter_fold_matches_update_and_jax():
         kc = kernel_fold(pn, kc, **ins)
         tc = t_ctr.update(t_params(jp), tc, **{k: T(v) for k, v in
                                                ins.items()})
-        jc = j_ctr.update(jp, jc, **{k: jnp.asarray(v) for k, v in
-                                     ins.items()})
+        jc = jax.jit(j_ctr.update)(jp, jc, **{k: jnp.asarray(v) for k, v in
+                                              ins.items()})
         for f in tc._fields:
             got = getattr(tc, f).numpy()
             assert got.dtype == kc[f].dtype and got == kc[f], (chunk, f)
@@ -455,8 +482,10 @@ def test_one_launch_route_writes_the_run_into_the_passed_state(
 @pytest.mark.parametrize("policy", POLICIES)
 def test_loop_route_writes_the_run_into_the_passed_state(policy):
     """``Engine.run`` through the per-chunk loop (the CPU route): the
-    final state and counters are written into the tensors of the state
-    passed in, as on the one-launch route, and equal a run on a clone."""
+    final state and counters are written into the memory of the state
+    passed in, as on the one-launch route, and equal a run on a clone;
+    the returned state is new objects over that memory, and the donated
+    one is consumed."""
     _, cfg, js, arrays, jplan = _scenario(policy)
     eng = repro_torch.Engine(cfg, device="cpu")
     trace = tcore.Trace(*map(T, arrays[:4]))
@@ -471,10 +500,12 @@ def test_loop_route_writes_the_run_into_the_passed_state(policy):
     got = eng.run(trace, valid=valid, state=state, faults=plan)
     assert [t.data_ptr() for t in _flat(got.state)] == ptrs
     for a, b, w in zip(_flat(state), _flat(got.state), _flat(want.state)):
-        assert a is b
+        assert a is not b and a.data_ptr() == b.data_ptr()
         assert a.dtype == w.dtype and torch.equal(a, w)
-    assert int(state.chunk_idx) == int(start.chunk_idx) + len(valid) // \
-        cfg.chunk
+    assert int(got.state.chunk_idx) == int(start.chunk_idx) + \
+        len(valid) // cfg.chunk
+    with pytest.raises(RuntimeError, match="consumed"):
+        eng.run(trace, valid=valid, state=state, faults=plan)
 
 
 def test_chunk_step_launch_of_one_chunk(monkeypatch):

@@ -410,11 +410,15 @@ def test_run_stream_donate_false_keeps_the_callers_state():
         state=jst, donate=False)
     assert_same(jres.state, res.state, "continued state")
     assert_same(jres.outs, res.outs, "outs")
-    # The default updates the caller's state in place.
+    # The default donates the caller's state: updated in place, returned
+    # as new objects over the same memory, and consumed.
     res2 = teng.run_stream(iter([tcore.Trace(*map(T, s))
                                  for s in segs[1:]]), state=st)
-    assert res2.state is st
-    assert_same(to_np(res.state), st, "in place")
+    assert res2.state is not st
+    assert res2.state.table.data_ptr() == st.table.data_ptr()
+    assert_same(to_np(res.state), res2.state, "in place")
+    with pytest.raises(RuntimeError, match="donate=False"):
+        teng.run_stream(iter([tcore.Trace(*map(T, segs[1]))]), state=st)
     with pytest.raises(ValueError, match="donate=True requires state"):
         teng.run_stream(iter([]), donate=True)
 

@@ -198,7 +198,10 @@ def test_continuation_across_packages(direction):
             tres, states=convert.state_from_numpy(to_np(jres.states)))
         got = teng.continue_sweep(carried, tt2)
         want = jeng.continue_sweep(jres, jt2, donate=False)
-        assert got.states is carried.states
+        assert got.states.table.data_ptr() == \
+            carried.states.table.data_ptr()
+        with pytest.raises(RuntimeError, match="consumed"):
+            teng.continue_sweep(carried, tt2)
     else:
         carried = dataclasses.replace(
             jres, states=_j_state(convert.state_to_numpy(tres.states)))
