@@ -6,9 +6,9 @@ Run from the root of a checkout, with one CUDA device visible:
     python3 chip_faults.py
 
 Each planted fault is one edit to one source (a CUDA kernel, or the
-port's serving code), made in a temporary copy of ``src/``,
+port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Twenty-one faults are planted. A fault in
+run in a process of its own. Twenty-seven faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -26,7 +26,12 @@ drain dispatch's valid mask one lane short) run phase 8's checks
 (``chip_smoke.check_serve`` without the ``full`` profile); the two of
 this slice (kernel B's energy folded without ``__fmaf_rn``, and the
 registry's built-in check made by name, so an impostor ``hotness`` runs
-on kernel B) run phase 9's checks (``chip_smoke.check_slice9``). A fault
+on kernel B) run phase 9's checks (``chip_smoke.check_slice9``); the
+six of the model slice (an idle lane's cache write no longer held
+inside the cache, RoPE's halves swapped, an admission spliced into the
+wrong slot, ``rms_norm`` without its float32 up-cast, decode attending
+over one row too few, the new token's v not written) run phase 10's
+checks at minitron-8b (``chip_smoke.check_model_serve``). A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -129,6 +134,45 @@ SLICE9_FAULTS = [
      "else -1\n                     for n in self.names)"),
 ]
 
+# Faults in the dense model path and its serving engine, which phase 10
+# must catch: the idle lane's cache write no longer held inside the cache
+# (an idle lane's ``pos`` passes ``smax``: out of range, a device-side
+# assert), RoPE's halves swapped, an admission spliced into the wrong
+# slot, and ``rms_norm`` computed in bfloat16. Decode and prefill share
+# RoPE and the norm, so the two paths still agree with each other under
+# those faults: the layer-0 checks against the formulas catch them. Two
+# decode-side faults change layer 0's attention output by under 1% (one
+# row of some 1,500): decode attending over ``pos`` rows (the new token's
+# own k/v left out), and the new token's v not written. Layer 0 at a
+# decode step against the sequence path (the engine's length, the cache
+# rows) catches them in the layer where they happen, before the logits
+# check sees what the layers above make of them. They run phase 10's
+# checks at minitron-8b (``chip_smoke.check_model_serve``).
+SLICE10_FAULTS = [
+    ("model: the idle lane's cache write not held inside the cache",
+     "models", "src/repro_torch/models/transformer.py",
+     "    slot = pos.clamp(max=smax - 1)\n", "    slot = pos\n"),
+    ("model: RoPE's halves swapped", "models",
+     "src/repro_torch/models/layers.py",
+     "    x1, x2 = torch.chunk(x.float(), 2, dim=-1)",
+     "    x2, x1 = torch.chunk(x.float(), 2, dim=-1)"),
+    ("serve: the admission spliced into the next slot", "memtier",
+     "src/repro_torch/memtier/engine.py",
+     "                    dst[:, slot].copy_(cache1[name][:, 0])",
+     "                    dst[:, (slot + 1) % self.b].copy_(cache1[name][:, 0])"),
+    ("model: rms_norm without its float32 up-cast", "models",
+     "src/repro_torch/models/layers.py",
+     "    xf = x.float()\n    var = (xf * xf)",
+     "    xf = x\n    var = (xf * xf)"),
+    ("model: decode attends over pos rows, not pos + 1 (the new token's "
+     "own k/v left out)", "models", "src/repro_torch/models/transformer.py",
+     "    o = dist_decode(q, ck, cv, pos + 1, sh=sh, window=window)",
+     "    o = dist_decode(q, ck, cv, pos, sh=sh, window=window)"),
+    ("model: the new token's v not written to the cache", "models",
+     "src/repro_torch/models/transformer.py",
+     "    _write_token(cv, bidx, posl, v)\n", ""),
+]
+
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
     ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
@@ -201,11 +245,12 @@ FAULTS = [
      "{0u, 0u, 0u, 0u}}, kb);"),
     *SERVE_FAULTS,
     *SLICE9_FAULTS,
+    *SLICE10_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
-# chunk-step, kernel-A, serving or policy fault the phase whose checks run
-# ("phase 4", "phase 7", "phase 8" or "phase 9").
+# chunk-step, kernel-A, serving, policy or model fault the phase whose
+# checks run ("phase 4", "phase 7", "phase 8", "phase 9" or "phase 10").
 CHILD = r'''
 import json, sys
 import torch
@@ -219,12 +264,30 @@ from repro_torch.kernels import rwkv_scan as rw
 torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
-if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies"):
+if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
+              "memtier"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
     try:
-        if sys.argv[3] == "phase 9":
+        if sys.argv[3] == "phase 10":
+            try:
+                cs.check_model_serve(torch, dev, rt, {
+                    "hmmu_lookup": hmmu_lookup.KERNEL,
+                    "chunk_step": chunk_step.KERNEL,
+                    "flash_attention": fa.KERNEL,
+                    "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL},
+                    "", archs=cs.SERVE_ARCHS[:1])
+                torch.cuda.synchronize()
+            except (RuntimeError, IndexError) as e:
+                # An index past the cache is a device-side assert on the
+                # card: the run stops there, which phase 10 reports as a
+                # failure.
+                if "device-side assert" not in str(e) and \
+                        "out of bounds" not in str(e):
+                    raise
+                raise cs.Mismatch(f"stopped by the device: {e}") from e
+        elif sys.argv[3] == "phase 9":
             cs.check_slice9(torch, dev, rt, hmmu_lookup, chunk_step, "")
         elif sys.argv[3] == "phase 8":
             cs.check_serve(torch, dev, rt, hmmu_lookup, chunk_step, "",
@@ -278,7 +341,9 @@ def main() -> int:
             path.write_text(code.replace(text, faulty))
             phase = ("phase 7" if FAULTS[i] in SWEEP_FAULTS else
                      "phase 8" if FAULTS[i] in SERVE_FAULTS else
-                     "phase 9" if FAULTS[i] in SLICE9_FAULTS else "phase 4")
+                     "phase 9" if FAULTS[i] in SLICE9_FAULTS else
+                     "phase 10" if FAULTS[i] in SLICE10_FAULTS else
+                     "phase 4")
             run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
                                   phase], cwd=copy, capture_output=True,
                                  text=True, timeout=900)

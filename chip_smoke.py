@@ -133,10 +133,43 @@ Phases, each printing its lines in order:
    on 2,000 random single-chunk channels in one launch, each folded from
    zero, bitwise equal to the plain route's exact FMA; some of them must
    differ from the form that rounds every product on its own.
-10. One JSON line of per-kernel numbers (kernels A and B also carry
-   ``serve_launches``, ``policy_launches`` and ``memtier_launches``, the
-   counts of phases 8, 9 (a) and 9 (b)), the card line again, and the
-   last line ``{"ok": true, "device": {...}}``.
+10. **Serving the dense models at full width** — ``memtier.ServeEngine``
+   over the port's model (``models.init_params`` on the card from a seed,
+   bfloat16, every layer) with ``launch/serve.py``'s emulator settings
+   (64 fast and 4,096 slow pages, chunk 64, ``hotness``,
+   ``hot_threshold=4``, one pinned page a sequence), batch 8, ``smax``
+   2,048, 16 requests (prompts of 1,024-1,536 tokens from a seed, 32 new
+   tokens; the 15th 64 new tokens, the 16th a 2,016-token prompt and 8,
+   so its idle lane's ``pos`` passes ``smax``), at minitron-8b (32
+   layers) and then gemma3-4b (34 layers, window 1,024 on five layers of
+   six, tied embeddings), each model's weights freed before the next.
+   Checks: kernel B launched once a decode step and no other kernel
+   (the counts from the run alone); an idle lane's ``pos`` past
+   ``smax`` with no device assert; the tier's report, table, counters
+   and state bitwise equal to a CPU ``TieredKVAccounting`` replay of the
+   recorded streams and frees; every token the argmax of a prefill over
+   its prompt and the tokens before it wherever that row's top-2 margin
+   exceeds ``LOGIT_TOL``, and every decode-path logit row within
+   ``LOGIT_TOL`` of it; layer 0's ``rms_norm`` equal to its float32
+   formula and RoPE within one bfloat16 step of the rotation; on
+   layer 0's activations ``ops.flash_attention`` against
+   ``chunked_attention`` and ``ops.decode_attention`` against
+   ``dist_decode`` within ``ref.kernel_error``; and layer 0 at decode
+   step ``SPY_STEP`` against one layer-0 forward of each live lane's
+   sequence: the q and cache rows within ``CACHE_REL``, ``dist_decode``
+   within the float32 allowance of float64 attention over the engine's
+   ``pos + 1`` rows and the layer's window, ``chunked_attention``'s row
+   within the bfloat16 allowance of float64 attention on its inputs. The
+   model runs as users run it: its entry points accumulate bfloat16
+   products in float32 whatever PyTorch's default. Numbers: parameter bytes,
+   peak device memory, ``init_params`` time, prefill ms and tokens/s, a
+   decode step's wall split into the model, stream building and
+   ``account``, kernel B's device time a step (CUPTI) and its share.
+11. One JSON line of per-kernel numbers (kernels A and B also carry
+   ``serve_launches``, ``policy_launches``, ``memtier_launches`` and
+   ``model_serve_launches``, the counts of phases 8, 9 (a), 9 (b) and
+   10), the card line again, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -1826,6 +1859,548 @@ def check_slice9(torch, dev, rt, hl, cs, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+# Serving at full width: the port's ``ServeEngine`` over the dense model
+# (all layers, bfloat16, random weights from a seed on the card) with
+# ``launch/serve.py``'s emulator settings, at minitron-8b and gemma3-4b.
+SERVE_ARCHS = ("minitron-8b", "gemma3-4b")
+SERVE_BATCH, SERVE_SMAX, SERVE_REQUESTS, SERVE_NEW = 8, 2048, 16, 32
+SERVE_PROMPT = (1024, 1536)          # prompt lengths, drawn from a seed
+# The last request fills its lane to near SERVE_SMAX and ends after
+# IDLE_NEW tokens while the one before it runs for LONG_NEW: the idle
+# lane's ``pos`` then passes SERVE_SMAX (decode advances every lane).
+IDLE_PROMPT, IDLE_NEW, LONG_NEW = 2016, 8, 64
+LAYER0_BLOCK = 128     # the flash kernel takes Sq in multiples of its block
+SPY_STEP = 10          # the decode step whose layer 0 meets the sequence path
+# Decode-path logits against the sequence path's, both bfloat16: the two
+# paths round each layer's products and outputs to bfloat16 apart
+# (different product shapes, chunked against cached attention), and over
+# 32-34 layers of random weights the drift grows to several bfloat16
+# steps of the logits, whose largest magnitudes lie in [4, 8) (a step of
+# 2^-5 there). The sequence path alone moves as far when only its length
+# changes: on an H100 its row over the prompt stood up to 0.234
+# (minitron-8b) and 0.188 (gemma3-4b) from its row over the longer
+# sequence, and the decode path up to 0.322 and 0.223. The bound is 16
+# steps (0.5); a generated token is held to the sequence path's argmax
+# wherever that row's top-2 margin exceeds it.
+LOGIT_TOL = 0.5
+# Layer 0's q and cache rows at a decode step against the sequence path's:
+# a bfloat16 step of a value apart at most before RoPE, two after it (the
+# rotation carries the step, and each side rounds once more); the bound is
+# four steps of the largest magnitude. A row not written, or written at
+# another position or into another lane, stands the whole value apart.
+CACHE_REL = 2.0 ** -5
+
+
+def serve_requests(cfg, seed: int = 0) -> list:
+    """(rid, int32 prompt, max_new_tokens) of phase 10's 16 requests."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                        SERVE_REQUESTS - 1).tolist() + [IDLE_PROMPT]
+    news = [SERVE_NEW] * (SERVE_REQUESTS - 2) + [LONG_NEW, IDLE_NEW]
+    return [(rid, rng.integers(0, cfg.vocab, n).astype(np.int32), m)
+            for rid, (n, m) in enumerate(zip(lens, news))]
+
+
+def instrument_serve(torch, eng, spy_step: int) -> dict:
+    """Wrap one ``ServeEngine``'s calls (instance attributes over its
+    methods; the engine's code is not touched): each prefill's time,
+    tokens and logit row; each decode step's time, logit rows by request
+    and the largest ``pos`` of an idle lane; the tier's stream building
+    and ``account`` times; the tier's calls in order, for the replay. At
+    decode step ``spy_step`` the model's first ``dist_decode`` call (layer
+    0) is recorded too, with the engine's ``pos`` and lanes before the
+    step."""
+    from repro_torch.models import transformer
+    log = {"prefill": [], "rows": {}, "decode_ms": [], "build_ms": [],
+           "account_ms": [], "step_ms": [], "tier_calls": [],
+           "idle_pos": -1, "spy": None}
+    prefill, decode, step = eng._prefill, eng._decode, eng.step
+    tier = eng.tier
+    access, account, free = tier.access_trace, tier.account, \
+        tier.free_sequence
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def prefill_(params, inputs):
+        out, ms = timed(prefill, params, inputs)
+        log["prefill"].append((ms, inputs.shape[1], out[0][0].clone()))
+        return out
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        if log["spy"] is None:
+            q, ck, cv, kv_len = a
+            log["spy"] = {"q": q.clone(), "k": ck.clone(), "v": cv.clone(),
+                          "kv_len": kv_len.clone(),
+                          "window": kw.get("window"), "out": out.clone()}
+        return out
+
+    real = transformer.dist_decode
+
+    def decode_(params, tokens, cache, pos):
+        lanes = [r.rid if r is not None else None for r in eng.active]
+        spying = len(log["decode_ms"]) == spy_step
+        if spying:
+            transformer.dist_decode = spy
+            before = pos.tolist()
+        try:
+            out, ms = timed(decode, params, tokens, cache, pos)
+        finally:
+            transformer.dist_decode = real
+        if spying:
+            log["spy"].update(pos=before, lanes=lanes)
+        log["decode_ms"].append(ms)
+        for i, rid in enumerate(lanes):
+            if rid is not None:
+                log["rows"].setdefault(rid, []).append(out[0][i].clone())
+        idle = [i for i, rid in enumerate(lanes) if rid is None]
+        if idle:
+            log["idle_pos"] = max(log["idle_pos"],
+                                  int(out[2][idle].max()))
+        return out
+
+    def step_():
+        n = len(log["prefill"])
+        t0 = time.perf_counter()
+        live = step()
+        admit = sum(ms for ms, _, _ in log["prefill"][n:])
+        if live:       # the step's wall less its admissions' prefills
+            log["step_ms"].append((time.perf_counter() - t0) * 1e3 - admit)
+        return live
+
+    def access_(seq_ids, kv_lens, windows=None):
+        t0 = time.perf_counter()
+        trace = access(seq_ids, kv_lens, windows)
+        log["build_ms"].append((time.perf_counter() - t0) * 1e3)
+        log["tier_calls"].append(("trace", list(seq_ids), list(kv_lens),
+                                  None if windows is None else list(windows)))
+        return trace
+
+    def account_(trace):
+        t0 = time.perf_counter()
+        out = account(trace)      # reads the clock back: synchronised
+        log["account_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def free_(seq_id):
+        log["tier_calls"].append(("free", seq_id))
+        free(seq_id)
+
+    eng._prefill, eng._decode, eng.step = prefill_, decode_, step_
+    tier.access_trace, tier.account, tier.free_sequence = \
+        access_, account_, free_
+    return log
+
+
+def replay_tier(rt, tier, calls, device):
+    """A fresh ``TieredKVAccounting`` like ``tier`` on ``device``, fed the
+    recorded calls in order."""
+    from repro_torch.memtier import TieredKVAccounting
+    out = TieredKVAccounting(tier.cfg, tier.n_layers,
+                             positions_per_page=tier.ppp,
+                             bytes_per_position=tier.bpp,
+                             pin_pages_per_seq=tier.pin_pages_per_seq,
+                             device=device)
+    for call in calls:
+        if call[0] == "trace":
+            out.account(out.access_trace(*call[1:]))
+        else:
+            out.free_sequence(call[1])
+    return out
+
+
+def check_replay(torch, rt, eng, calls) -> dict:
+    """The tier's report, final table, counters and state against a CPU
+    ``TieredKVAccounting`` fed the recorded calls: bitwise."""
+    tier = eng.tier
+    cpu = replay_tier(rt, tier, calls, "cpu")
+    got, want = tier.report(), cpu.report()
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        raise Mismatch(f"model serve: report fields {bad} differ from the "
+                       "CPU replay")
+    for name, a, b in leaves(tier.state, cpu.state, "state"):
+        if not torch.equal(a.cpu(), b):
+            raise Mismatch(f"model serve: {name} differs from the CPU replay")
+    if tier._pinned != cpu._pinned:
+        raise Mismatch("model serve: pinned pages differ from the CPU replay")
+    return got
+
+
+def check_tokens(torch, cfg, params, reqs, log) -> dict:
+    """Each request's tokens against a prefill over its prompt and the
+    tokens before each one (the sequence path): the argmax wherever that
+    row's top-2 margin exceeds LOGIT_TOL, and every decode-path row (the
+    admission's prefill row, then the decode steps' rows) within
+    LOGIT_TOL of it."""
+    from repro_torch.models import ShardCtx, layers, transformer
+    sh = ShardCtx()
+    dev = params["final_norm"].device
+    checked = total = 0
+    worst = floor = 0.0
+    margins, row_diff, scale = [], [], 0.0
+    for i, req in enumerate(reqs):
+        n = len(req.prompt)
+        seq = torch.as_tensor(list(req.prompt) + req.out[:-1],
+                              dtype=torch.int32, device=dev)[None]
+        x, _, _ = transformer.forward_seq(cfg, params, seq, sh,
+                                          collect_cache=False)
+        want = layers.lm_logits(cfg, params, x[:, n - 1:], sh)[0]
+        got = torch.stack([log["prefill"][i][2]] + log["rows"].get(
+            req.rid, [])[:len(req.out) - 1])
+        if got.shape != want.shape:
+            raise Mismatch(f"model serve: request {req.rid} has "
+                           f"{got.shape[0]} logit rows for {want.shape[0]} "
+                           "tokens")
+        diff = (got.float() - want.float()).abs().amax(dim=-1)
+        # Row 0 is the sequence path itself, over the prompt alone: how far
+        # two lengths of the same path stand apart (the noise floor).
+        floor = max(floor, float(diff[0]))
+        row_diff += diff[1:].tolist()
+        scale = max(scale, float(want.float().abs().max()))
+        worst = max(worst, float(diff.max()))
+        if float(diff.max()) > LOGIT_TOL:
+            raise Mismatch(f"model serve: request {req.rid}'s decode-path "
+                           f"logits stand {float(diff.max()):.4f} from the "
+                           f"sequence path's (tolerance {LOGIT_TOL}; the "
+                           f"sequence path over the prompt alone "
+                           f"{float(diff[0]):.4f}; rows {diff.tolist()}; "
+                           f"largest |logit| {scale:.3f})")
+        top2 = want.float().topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        arg = want.argmax(dim=-1).tolist()
+        for j, tok in enumerate(req.out):
+            total += 1
+            margins.append(margin[j])
+            if margin[j] > LOGIT_TOL:
+                checked += 1
+                if arg[j] != tok:
+                    raise Mismatch(
+                        f"model serve: request {req.rid}'s token {j} is "
+                        f"{tok}, the sequence path's argmax {arg[j]} "
+                        f"(margin {margin[j]:.4f})")
+    margins.sort()
+    row_diff.sort()
+    return {"checked": checked, "total": total, "worst": worst,
+            "floor": floor, "median_diff": row_diff[len(row_diff) // 2],
+            "scale": scale, "median_margin": margins[len(margins) // 2]}
+
+
+def check_layer0(torch, ops, ref, cfg, params, prompt, spy) -> dict:
+    """Layer 0 of one prompt through the port's own functions: the norm's
+    output equal to its float32 formula rounded once (the reference's cast
+    points), RoPE within one bfloat16 step (of the pair's magnitude, which
+    the rotation keeps) of the rotation of each pair (x_i, x_{i+D/2})
+    computed in float64; then the hand-written kernels on
+    the model's activations: ``ops.flash_attention`` on the post-RoPE
+    q/k/v against ``chunked_attention`` (the model's prefill attention),
+    and ``ops.decode_attention`` on the q and cache that ``dist_decode``
+    saw at one decode step, each within ``ref.kernel_error``."""
+    from repro_torch.models import ShardCtx, layers, transformer
+    from repro_torch.models.chunked_attention import chunked_attention
+    sh = ShardCtx()
+    p = transformer._layer(params, 0)["attn"]
+    window = (transformer.layer_windows(cfg) or [None])[0]
+    x = layers.embed_tokens(cfg, params["embed"], prompt[None], sh)
+    h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+    xf = x.float()
+    want_h = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * p["norm"].float()).to(x.dtype)
+    if not torch.equal(h, want_h):
+        raise Mismatch(f"model serve: layer 0's rms_norm differs from its "
+                       f"float32 formula at {int((h != want_h).sum())} of "
+                       f"{h.numel()} elements")
+    q, k, v = layers.gqa_project(cfg, p, h, cfg.adtype)
+    s, hd = q.shape[2], cfg.head_dim_
+    posn = torch.arange(s, dtype=torch.float32, device=q.device)
+    cos, sin = layers.rope_tables(posn, hd, cfg.rope_theta)
+    rot = {}
+    for name, t in (("q", q), ("k", k)):
+        got = layers.apply_rope(t, cos, sin)
+        i = torch.arange(0, hd, 2, dtype=torch.float64, device=q.device)
+        ang = torch.arange(s, dtype=torch.float64, device=q.device)[:, None] \
+            * cfg.rope_theta ** (-i / hd)
+        z = torch.complex(*t.double().chunk(2, dim=-1)) * torch.polar(
+            torch.ones_like(ang), ang)
+        want = torch.cat([z.real, z.imag], dim=-1).to(t.dtype)
+        step = (z.abs().float().clamp_min(2.0 ** -126).log2().floor()
+                - 7).exp2().repeat(1, 1, 1, 2)
+        over = ((got.float() - want.float()).abs() / step).max()
+        if float(over) > 1.0:
+            raise Mismatch(f"model serve: layer 0's RoPE on {name} stands "
+                           f"{float(over):.1f} bfloat16 steps from the "
+                           "rotation")
+        rot[name] = got
+    v = v.contiguous()
+    attn = chunked_attention(rot["q"], rot["k"], v, causal=True,
+                             window=window)
+    flash = ops.flash_attention(rot["q"], rot["k"], v, causal=True,
+                                window=window)
+    f_err, f_share = ref.kernel_error("attention", flash, attn)
+    dec = ops.decode_attention(spy["q"], spy["k"], spy["v"], spy["kv_len"],
+                               window=spy["window"])
+    d_err, d_share = ref.kernel_error("attention", dec,
+                                      spy["out"].to(dec.dtype))
+    for what, share in (("flash_attention", f_share),
+                        ("decode_attention", d_share)):
+        if not share <= 1.0:
+            raise Mismatch(f"model serve: ops.{what} on layer 0's "
+                           f"activations at {share:.2f} of its allowance")
+    return {"flash": (f_err, f_share), "decode": (d_err, d_share),
+            "s": s, "window": window}
+
+
+def attention_f64(torch, q, k, v, n: int, window):
+    """Float64 attention of one query a head over cache rows [0, n), the
+    last ``window`` of them where ``window`` is an int. q [Hq, D]; k/v
+    [Hkv, >= n, D] -> [Hq, D] float64."""
+    hq, d = q.shape
+    hkv = k.shape[0]
+    qg = q.double().reshape(hkv, hq // hkv, d)
+    logits = torch.einsum("kgd,ktd->kgt", qg, k[:, :n].double()) * d ** -0.5
+    if window is not None:
+        logits[..., :max(0, n - window)] = -math.inf
+    return torch.einsum("kgt,ktd->kgd", logits.softmax(-1),
+                        v[:, :n].double()).reshape(hq, v.shape[-1])
+
+
+def check_decode_layer0(torch, ref, cfg, params, reqs, spy) -> dict:
+    """Layer 0 at the spied decode step against the sequence path, lane by
+    lane, through one layer only (no drift of 32 layers between them). For
+    each live lane, its request's prompt and the tokens fed up to this
+    step (``pos + 1`` positions, ``pos`` the engine's before the step) go
+    through layer 0 once, giving the sequence path's q, k, v. (a) The q
+    that ``dist_decode`` saw, and the lane's cache rows [0, pos], within
+    CACHE_REL of the largest magnitude of the sequence path's: the two
+    paths' projections sum in different orders and round to bfloat16
+    apart, by a step of a value at most (after RoPE, two), while a row
+    not written, or written at another position or into another lane,
+    stands apart by the whole value. (b) ``dist_decode``'s output within
+    ``ref.kernel_error``'s float32 allowance of float64 attention over the
+    same q and cache rows [0, pos + 1), in layer 0's own window: the length
+    and the window come from the engine and the configuration, not from the
+    call, so a length or window edge off by one row fails (on an H100 at
+    minitron-8b: 8.6e-3 of an output near 1, against float32 noise of
+    1.3e-6). (c) ``chunked_attention``'s row at ``pos`` over the
+    sequence path's q, k, v within the bfloat16 allowance of float64
+    attention on the same inputs. The two paths' outputs' largest
+    difference is printed, not held (the sequence path's row is rounded to
+    bfloat16)."""
+    from repro_torch.models import ShardCtx, layers, transformer
+    from repro_torch.models.chunked_attention import chunked_attention
+    sh = ShardCtx()
+    p = transformer._layer(params, 0)["attn"]
+    window = (transformer.layer_windows(cfg) or [None])[0]
+    dev = p["wq"].device
+    byrid = {r.rid: r for r in reqs}
+    out = {"lanes": 0, "cache": 0.0, "q": 0.0, "dist": 0.0, "chunked": 0.0,
+           "paths": 0.0}
+    for i, rid in enumerate(spy["lanes"]):
+        if rid is None:
+            continue
+        req, pos = byrid[rid], spy["pos"][i]
+        n = len(req.prompt)
+        seq = list(req.prompt) + req.out[:pos - n + 1]
+        if len(seq) != pos + 1:
+            raise Mismatch(f"model serve: lane {i} at pos {pos} holds "
+                           f"{len(seq)} tokens of request {rid}")
+        x = layers.embed_tokens(cfg, params["embed"], torch.as_tensor(
+            seq, dtype=torch.int32, device=dev)[None], sh)
+        h = layers.rms_norm(x, p["norm"], cfg.norm_eps)
+        q, k, v = layers.gqa_project(cfg, p, h, cfg.adtype)
+        cos, sin = layers.rope_tables(torch.arange(
+            pos + 1, dtype=torch.float32, device=dev), cfg.head_dim_,
+            cfg.rope_theta)
+        q, k = layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
+        for key, name, got, want in (
+                ("q", "q", spy["q"][i], q[0, :, pos]),
+                ("cache", "cache k", spy["k"][i, :, :pos + 1], k[0]),
+                ("cache", "cache v", spy["v"][i, :, :pos + 1], v[0])):
+            share = float((got.float() - want.float()).abs().max()
+                          / want.float().abs().max() / CACHE_REL)
+            out[key] = max(out[key], share)
+            if not share <= 1.0:
+                raise Mismatch(f"model serve: lane {i}'s {name} at decode "
+                               f"(pos {pos}) stands {share:.2f} of "
+                               f"{CACHE_REL} of its magnitude from layer 0 "
+                               "of the sequence path")
+        want = attention_f64(torch, spy["q"][i], spy["k"][i], spy["v"][i],
+                             pos + 1, window)
+        _, d_share = ref.kernel_error("attention", spy["out"][i],
+                                      want.float())
+        row = chunked_attention(q, k, v.contiguous(), causal=True,
+                                window=window)[0, :, pos]
+        want_c = attention_f64(torch, q[0, :, pos], k[0], v[0], pos + 1,
+                               window)
+        _, c_share = ref.kernel_error("attention", row, want_c.to(row.dtype))
+        for what, share in (("dist_decode", d_share),
+                            ("chunked_attention", c_share)):
+            if not share <= 1.0:
+                raise Mismatch(f"model serve: layer 0's {what} for lane {i} "
+                               f"(pos {pos}, window {window}) at "
+                               f"{share:.2f} of its allowance of float64 "
+                               "attention over the engine's length")
+        out["dist"] = max(out["dist"], d_share)
+        out["chunked"] = max(out["chunked"], c_share)
+        out["paths"] = max(out["paths"], float(
+            (spy["out"][i] - row.float()).abs().max()))
+        out["lanes"] += 1
+    if not out["lanes"]:
+        raise Mismatch("model serve: no live lane at the spied decode step")
+    return out
+
+
+def model_serve(torch, dev, rt, kernels, arch: str, card: str) -> dict:
+    """Phase 10 at one configuration: see the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.memtier import ServeEngine
+    from repro_torch.memtier.engine import Request
+    from repro_torch.models import init_params, transformer
+    cfg = configs.get(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for blk in (
+        params["embed"], params["layers"]["attn"], params["layers"]["mlp"],
+        {k: v for k, v in params.items() if k in ("final_norm", "lm_head")})
+        for t in blk.values())
+    emu = rt.EmulatorConfig(n_fast_pages=64, n_slow_pages=4096, chunk=64,
+                            policy="hotness", hot_threshold=4)
+    eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH, smax=SERVE_SMAX,
+                      emu_cfg=emu, policy="hotness", pin_pages_per_seq=1,
+                      device=dev)
+    reqs = [Request(rid=r, prompt=p, max_new_tokens=m)
+            for r, p, m in serve_requests(cfg)]
+    for r in reqs:
+        eng.submit(r)
+    log = instrument_serve(torch, eng, spy_step=SPY_STEP)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    steps = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {**{n: 0 for n in kernels}, "chunk_step": steps}:
+        raise Mismatch(f"model serve: launches {counts} over {steps} decode "
+                       "steps; expected kernel B once a step and no other")
+    if log["idle_pos"] < SERVE_SMAX:
+        raise Mismatch(f"model serve: no idle lane's pos passed "
+                       f"{SERVE_SMAX} (largest {log['idle_pos']})")
+    if not all(r.done for r in reqs):
+        raise Mismatch("model serve: a request did not finish")
+    t1 = time.perf_counter()
+    rep = check_replay(torch, rt, eng, log["tier_calls"])
+    # Kernel B's device time a step: the recorded streams replayed on the
+    # card under CUPTI, the same launches on the same inputs as the run's.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay_tier(rt, eng.tier, log["tier_calls"], dev)
+        torch.cuda.synchronize()
+    b_us, b_traced = trace_us(prof, lambda key: "chunk_step_kernel" in key)
+    del prof
+    t2 = time.perf_counter()
+    # Layer 0 first: a fault there is named by the check that sees it
+    # alone, before 32-34 layers carry it into the logits.
+    l0 = check_layer0(torch, ops, ref, cfg, params, torch.as_tensor(
+        reqs[-1].prompt[:len(reqs[-1].prompt) // LAYER0_BLOCK
+                        * LAYER0_BLOCK], device=dev),
+        log["spy"])
+    dl0 = check_decode_layer0(torch, ref, cfg, params, reqs, log["spy"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    tok = check_tokens(torch, cfg, params, reqs, log)
+    torch.cuda.synchronize()
+    checks = {"replays": t2 - t1, "layer 0": t3 - t2,
+              "tokens": time.perf_counter() - t3}
+    # The model's own device time a decode step: two more steps on the
+    # engine's final cache under CUPTI, every kernel counted.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            transformer.decode_step(cfg, params, eng.tokens, eng.cache,
+                                    eng.pos, eng.sh)
+        torch.cuda.synchronize()
+    m_us, m_kernels = trace_us(prof, lambda key: True)
+    del prof
+    mean = lambda xs: sum(xs) / len(xs)
+    pre_ms = [ms for ms, _, _ in log["prefill"][1:]]   # after the first
+    tok_s = [n / ms * 1e3 for ms, n, _ in log["prefill"][1:]]
+    model, build, acc, step_ms = (mean(log[k]) for k in (
+        "decode_ms", "build_ms", "account_ms", "step_ms"))
+    b_ms = b_us / 1e3 / steps
+    print(f"  {arch}: {cfg.n_layers} layers, {nbytes} parameter bytes "
+          f"(bf16), init_params {init_s:.3f} s; peak device memory "
+          f"{peak} B; {SERVE_REQUESTS} requests, batch {SERVE_BATCH}, smax "
+          f"{SERVE_SMAX}: {steps} decode steps in {wall:.3f} s; launches "
+          f"{counts} [{card}]", flush=True)
+    print(f"  prefill {mean(pre_ms):.3f} ms a request ({min(pre_ms):.3f}.."
+          f"{max(pre_ms):.3f}; the first {log['prefill'][0][0]:.3f}), "
+          f"{mean(tok_s):.0f} tokens/s; a decode step "
+          f"{step_ms:.3f} ms wall: model {model:.3f} (decode_step, "
+          f"synchronised), stream building {build:.3f}, account {acc:.3f}, "
+          f"the rest (argmax, one read back, bookkeeping) "
+          f"{step_ms - model - build - acc:.3f}; kernel B {b_ms:.4f} "
+          f"ms a step (device, CUPTI over a replay of the run's streams on "
+          f"the card; {b_traced} of {steps} launches traced), "
+          f"{b_ms / step_ms:.4f} of the step; the model's device time a "
+          f"step {m_us / 2e3:.3f} ms in {m_kernels // 2} kernels (CUPTI, 2 "
+          f"steps), {m_us / 2e3 / model:.4f} of its wall [{card}]",
+          flush=True)
+    print(f"  tokens: {tok['checked']} of {tok['total']} held to the "
+          f"sequence path's argmax (top-2 margin above {LOGIT_TOL}; median "
+          f"margin {tok['median_margin']:.4f}); decode-path logits within "
+          f"{tok['worst']:.4f} of it (median row {tok['median_diff']:.4f}; "
+          f"the sequence path over the prompt alone within "
+          f"{tok['floor']:.4f}; largest |logit| {tok['scale']:.3f}); "
+          f"largest idle pos {log['idle_pos']} "
+          f"(smax {SERVE_SMAX}); report ({rep['requests']} requests, "
+          f"migrations {rep['migrations']}, pinned fast hit rate "
+          f"{rep['pinned_fast_hit_rate']:.4f}, free fast/slow "
+          f"{rep['fast_free']}/{rep['slow_free']}) and every state field "
+          "bitwise equal to the CPU replay", flush=True)
+    print(f"  layer 0 ({l0['s']} tokens, window {l0['window']}): rms_norm "
+          f"equal to its float32 formula, RoPE within one bfloat16 step of "
+          f"the rotation; ops.flash_attention against chunked_attention "
+          f"{l0['flash'][0]:.3e} ({l0['flash'][1]:.3f} of its allowance), "
+          f"ops.decode_attention against dist_decode {l0['decode'][0]:.3e} "
+          f"({l0['decode'][1]:.3f}); checks took " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in checks.items()), flush=True)
+    print(f"  layer 0 at decode step {SPY_STEP}, {dl0['lanes']} live lanes "
+          f"against the sequence path: q within {dl0['q']:.3f} and the "
+          f"cache rows within {dl0['cache']:.3f} of {CACHE_REL} of the "
+          f"largest magnitude; dist_decode at {dl0['dist']:.3f} of the "
+          f"float32 allowance of float64 attention over the engine's pos + "
+          f"1 rows, chunked_attention's row at {dl0['chunked']:.3f} of the "
+          f"bfloat16 allowance; the two paths' outputs {dl0['paths']:.3e} "
+          "apart",
+          flush=True)
+    return counts
+
+
+def check_model_serve(torch, dev, rt, kernels, card: str,
+                      archs=SERVE_ARCHS) -> dict:
+    """Every check of phase 10 (see the module docstring); each
+    configuration's weights are freed before the next one's are drawn.
+    Returns each kernel's launches over the configurations' runs."""
+    out = {}
+    for arch in archs:
+        out[arch] = model_serve(torch, dev, rt, kernels, arch, card)
+        torch.cuda.empty_cache()
+    return {name: sum(c[name] for c in out.values()) for name in kernels}
+
+
 # --------------------------------------------------------------- phase 6
 # Each model kernel is held to its plain version within
 # ``repro_torch.kernels.ref.kernel_error``'s allowance, in the working
@@ -2302,6 +2877,16 @@ def main() -> int:
               f"consumed states ({card})", flush=True)
         s9 = check_slice9(torch, dev, rt, hl, cs, card)
 
+        print(f"[10] serving the dense models at full width ({card})",
+              flush=True)
+        t0 = time.perf_counter()
+        s10 = check_model_serve(torch, dev, rt, {
+            "hmmu_lookup": hl.KERNEL, "chunk_step": cs.KERNEL,
+            "flash_attention": fa.KERNEL, "decode_attention": da.KERNEL,
+            "rwkv_scan": rw.KERNEL}, card)
+        print(f"    phase 10 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -2311,6 +2896,7 @@ def main() -> int:
              "serve_launches": serve["off_launches"],
              "policy_launches": s9["policies"]["off_launches"],
              "memtier_launches": s9["tiered"]["off_launches"],
+             "model_serve_launches": s10["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -2321,6 +2907,7 @@ def main() -> int:
              "serve_launches": serve["launches"],
              "policy_launches": s9["policies"]["auto_launches"],
              "memtier_launches": s9["tiered"]["auto_launches"],
+             "model_serve_launches": s10["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},

@@ -8,6 +8,10 @@ state crosses over bit for bit, and so do shapes: every field may carry a
 leading design-point axis (a sweep's stacked params, states and plans).
 This plays the part weights play for a model: both sides start from the
 same, possibly adversarial, state.
+
+``model_params_from_numpy`` carries a model's parameters across the same
+way: the JAX package's ``init_params`` tree as numpy arrays, shapes and
+dtypes kept (bfloat16 included).
 """
 from __future__ import annotations
 
@@ -69,3 +73,17 @@ def params_to_numpy(params: RuntimeParams) -> dict:
 
 def faults_to_numpy(plan: FaultPlan) -> dict:
     return _to_numpy(plan)
+
+
+def model_params_from_numpy(tree, device=None):
+    """A model's parameter tree (nested dicts of numpy arrays, the JAX
+    package's ``init_params`` after ``np.asarray``) -> the same tree of
+    tensors on ``device``, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: model_params_from_numpy(v, device)
+                for k, v in tree.items()}
+    a = np.array(tree, order="C", copy=True)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: no torch view
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)

@@ -55,6 +55,7 @@ from .core.emulator import (EmulatorState, Trace, _emulate_batch_impl,
                             record_dispatch)
 from .core.faults import FaultPlan
 from .core.policies import PolicyRegistry
+from .device import resolve_device
 from .sweep.results import SweepResult
 from .sweep.spec import DesignPoint, SweepSpec, build_points
 
@@ -78,21 +79,6 @@ def stack_params(points: list[DesignPoint], device=None) -> RuntimeParams:
     point axis) on ``device``."""
     ps = [p.params() for p in points]
     return RuntimeParams(*(torch.stack(xs).to(device) for xs in zip(*ps)))
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; None means ``cuda``, which must
-    exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the port's plain "
-                "PyTorch path on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _prefetched(segments: Iterable[Trace], depth: int,

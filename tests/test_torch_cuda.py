@@ -629,3 +629,121 @@ def test_tiered_accounting_on_the_card_equals_the_cpu(cuda_device, route):
     card.account(card.access_trace([0], [40]))
     with pytest.raises(RuntimeError, match="consumed"):
         card.engine.run(card.access_trace([0], [41]), state=stale)
+
+
+DENSE = ["minitron_8b", "phi3_mini_3p8b", "gemma3_4b", "internlm2_1p8b",
+         "phi3_vision_4p2b", "musicgen_medium"]
+
+
+def _close(got, want, rel=1e-5):
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_model_on_the_card_equals_the_cpu(cuda_device, arch):
+    """The six dense smoke configurations (float32): ``forward_seq``,
+    ``prefill`` and teacher-forced ``decode_step`` on the card against
+    the port on the CPU, same parameters, within 1e-5 of each tensor's
+    largest magnitude."""
+    from repro_torch import configs
+    _dense_card_vs_cpu(cuda_device, configs.get_smoke(arch), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_model_bf16_on_the_card_equals_the_cpu(cuda_device, arch):
+    """The same in bfloat16, under PyTorch's default
+    ``allow_bf16_reduced_precision_reduction`` (on), which the model's
+    entry points switch off for their own run and restore: within 2^-6 of
+    each tensor's largest magnitude (a few bfloat16 steps of drift over
+    two layers, the tolerance the CPU tests hold the port to JAX with)."""
+    from repro_torch import configs
+    mm = torch.backends.cuda.matmul
+    assert mm.allow_bf16_reduced_precision_reduction
+    cfg = configs.get_smoke(arch).with_(param_dtype="bfloat16",
+                                        activation_dtype="bfloat16")
+    _dense_card_vs_cpu(cuda_device, cfg, 2.0 ** -6)
+    assert mm.allow_bf16_reduced_precision_reduction
+
+
+def _dense_card_vs_cpu(cuda_device, cfg, rel):
+    from repro_torch.models import ShardCtx, transformer as tt
+    sh = ShardCtx()
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _to(cpu, cuda_device)
+    rng = np.random.default_rng(2)
+    shape = (2, 12, cfg.frame_dim) if cfg.frontend == "frames" else (2, 12)
+    prompt = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              if cfg.frontend == "frames" else
+              torch.from_numpy(rng.integers(0, cfg.vocab, shape)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2)))
+    out = []
+    for dev, params in (("cpu", cpu), (cuda_device, card)):
+        x, _, _ = tt.forward_seq(cfg, params, prompt.to(dev), sh,
+                                 collect_cache=False)
+        logits, cache, pos = tt.prefill(cfg, params, prompt.to(dev), sh, 20)
+        steps = [logits]
+        for t in toks:
+            lg, cache, pos = tt.decode_step(cfg, params, t.to(dev), cache,
+                                            pos, sh)
+            steps.append(lg)
+        out.append((x, steps, cache))
+    (cx, csteps, ccache), (x, steps, cache) = out
+    _close(cx, x, rel)
+    for a, b in zip(csteps, steps):
+        _close(a, b, rel)
+    for name in ("k", "v"):
+        _close(ccache[name], cache[name], rel)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_serve_engine_idle_lane_on_the_card_equals_the_cpu(cuda_device):
+    """``ServeEngine`` on the card and on the CPU (gemma3-4b's smoke shape,
+    float32, one idle lane run past ``smax``): no device assert, the same
+    tokens wherever the CPU's rows have a clear top-2 margin (every row
+    here), and the same report."""
+    from repro_torch import configs
+    from repro_torch.memtier import ServeEngine
+    from repro_torch.memtier.engine import Request
+    from repro_torch.models import init_params
+    cfg = configs.get_smoke("gemma3_4b")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (12, 36)]
+    emu = tcore.EmulatorConfig(n_fast_pages=4, n_slow_pages=128, chunk=16,
+                               policy="hotness", hot_threshold=2)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, _to(params, dev), batch_size=2, smax=40,
+                          emu_cfg=emu, device=dev)
+        rows = []
+        decode = eng._decode
+
+        def rec(*a, decode=decode, rows=rows, eng=eng):
+            out = decode(*a)
+            live = [i for i, r in enumerate(eng.active) if r is not None]
+            rows.append(out[0][live].float().cpu())
+            return out
+        eng._decode = rec
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(zip(prompts, (20, 2)))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        runs.append((reqs, eng.report(), int(eng.pos.max()), rows))
+    (creqs, crep, cmax, crows), (reqs, rep, mx, rows) = runs
+    top2 = torch.cat(crows).topk(2, dim=-1).values
+    assert float((top2[..., 0] - top2[..., 1]).min()) > 1e-4
+    assert [r.out for r in reqs] == [r.out for r in creqs]
+    assert rep == crep and mx == cmax > 40

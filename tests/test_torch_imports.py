@@ -1,10 +1,11 @@
 """Import hygiene of the port, and no silent fallback.
 
 Every module of ``repro_torch``, the serving front end
-``repro_torch.serve`` and ``repro_torch.memtier`` included (and the card scripts ``chip_smoke.py``,
-``chip_faults.py``, ``chip_sweep_clusters.py`` and ``chip_compare_off.py``)
-imports with
-``jax`` and ``repro`` made unimportable; ``chip_smoke.py`` exits nonzero
+``repro_torch.serve``, ``repro_torch.memtier``, ``repro_torch.models``,
+``repro_torch.configs`` and ``repro_torch.launch`` included (and the card
+scripts ``chip_smoke.py``, ``chip_faults.py``, ``chip_sweep_clusters.py``
+and ``chip_compare_off.py``) imports with ``jax`` and ``repro`` made
+unimportable; ``chip_smoke.py`` exits nonzero
 and prints no result where there is no CUDA device, or when it stands
 alone without the repository.
 """
@@ -49,6 +50,16 @@ _SERVE = ("repro_torch.serve", "repro_torch.serve.buckets",
 # The tiered KV-cache accounting (``repro_torch.memtier``) too.
 _MEMTIER = ("repro_torch.memtier", "repro_torch.memtier.tiered_cache")
 
+# The dense model path, the serving engine over it and its launcher.
+_MODELS = ("repro_torch.device", "repro_torch.configs",
+           "repro_torch.configs.shapes", "repro_torch.configs.minitron_8b",
+           "repro_torch.configs.gemma3_4b", "repro_torch.models",
+           "repro_torch.models.config", "repro_torch.models.sharding",
+           "repro_torch.models.chunked_attention",
+           "repro_torch.models.layers", "repro_torch.models.decode",
+           "repro_torch.models.transformer", "repro_torch.memtier.engine",
+           "repro_torch.launch", "repro_torch.launch.serve")
+
 
 def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -58,6 +69,7 @@ def test_port_imports_without_jax_or_repro():
     assert len(names) >= 20
     assert set(_SERVE) <= set(names)
     assert set(_MEMTIER) <= set(names)
+    assert set(_MODELS) <= set(names)
 
 
 def _run_smoke(cwd):
