@@ -8,7 +8,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Twenty-seven faults are planted. A fault in
+run in a process of its own. Thirty-one faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -31,7 +31,13 @@ six of the model slice (an idle lane's cache write no longer held
 inside the cache, RoPE's halves swapped, an admission spliced into the
 wrong slot, ``rms_norm`` without its float32 up-cast, decode attending
 over one row too few, the new token's v not written) run phase 10's
-checks at minitron-8b (``chip_smoke.check_model_serve``). A fault
+checks at minitron-8b (``chip_smoke.check_model_serve``); the four of the
+other families (RWKV's decode state not decayed, MLA's latent written one
+row early, Hymba's ring length not clamped, the MoE keep mask ignored)
+run phase 11's checks at the one model that runs the code
+(``chip_smoke.check_model_serve`` over that row of
+``FAMILY_SERVES``), whose failure must name the layer
+where the fault is. A fault
 in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -150,7 +156,7 @@ SLICE9_FAULTS = [
 # checks at minitron-8b (``chip_smoke.check_model_serve``).
 SLICE10_FAULTS = [
     ("model: the idle lane's cache write not held inside the cache",
-     "models", "src/repro_torch/models/transformer.py",
+     "models", "src/repro_torch/models/layers.py",
      "    slot = pos.clamp(max=smax - 1)\n", "    slot = pos\n"),
     ("model: RoPE's halves swapped", "models",
      "src/repro_torch/models/layers.py",
@@ -158,8 +164,8 @@ SLICE10_FAULTS = [
      "    x2, x1 = torch.chunk(x.float(), 2, dim=-1)"),
     ("serve: the admission spliced into the next slot", "memtier",
      "src/repro_torch/memtier/engine.py",
-     "                    dst[:, slot].copy_(cache1[name][:, 0])",
-     "                    dst[:, (slot + 1) % self.b].copy_(cache1[name][:, 0])"),
+     "        t[:, slot].copy_(src[name][:, 0])",
+     "        t[:, (slot + 1) % t.shape[1]].copy_(src[name][:, 0])"),
     ("model: rms_norm without its float32 up-cast", "models",
      "src/repro_torch/models/layers.py",
      "    xf = x.float()\n    var = (xf * xf)",
@@ -170,8 +176,39 @@ SLICE10_FAULTS = [
      "    o = dist_decode(q, ck, cv, pos, sh=sh, window=window)"),
     ("model: the new token's v not written to the cache", "models",
      "src/repro_torch/models/transformer.py",
-     "    _write_token(cv, bidx, posl, v)\n", ""),
+     "    layers.write_row(cv.transpose(1, 2), bidx, posl, v)\n", ""),
 ]
+
+# Faults in the other families' model code, which phase 11 must name in
+# the layer where they happen (``chip_smoke.check_model_serve`` at the one
+# model of phase 11 that runs the code): RWKV's decode state not decayed
+# (layer 0's decode state against float64 over prompt + 1), MLA's latent
+# written one row early (layer 0's cache rows against the sequence path),
+# Hymba's ring length not clamped to the ring (``dist_decode`` masks rows
+# past ``kv_len``, so past the ring's end an unclamped length reads the
+# same slots: only layer 1's check of the length the call saw names it),
+# and the MoE keep mask ignored in the combine (layer 0's MoE output
+# against its plain recomputation, over calls where slots are dropped).
+SLICE11_FAULTS = [
+    ("model: the RWKV decode state not decayed", "models",
+     "src/repro_torch/models/rwkv.py",
+     "    new_state = state * w[..., None] + kv\n",
+     "    new_state = state + kv\n"),
+    ("model: the MLA latent written at pos - 1", "models",
+     "src/repro_torch/models/mla.py",
+     "    write_row(cache[\"c_kv\"], bidx, pos, c_kv[:, 0])",
+     "    write_row(cache[\"c_kv\"], bidx, pos - 1, c_kv[:, 0])"),
+    ("model: Hymba's ring length not clamped to the ring", "models",
+     "src/repro_torch/models/transformer.py",
+     "        eff_len = torch.clamp(new_len, max=size)\n",
+     "        eff_len = new_len\n"),
+    ("model: the MoE keep mask ignored in the combine", "models",
+     "src/repro_torch/models/moe.py",
+     "    w = gates * keep\n", "    w = gates\n"),
+]
+# The model of phase 11 that runs each one's code.
+SLICE11_ARCHS = ("rwkv6-7b", "deepseek-v2-236b", "hymba-1.5b",
+                 "phi3.5-moe-42b-a6.6b")
 
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
@@ -246,11 +283,13 @@ FAULTS = [
     *SERVE_FAULTS,
     *SLICE9_FAULTS,
     *SLICE10_FAULTS,
+    *SLICE11_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
 # chunk-step, kernel-A, serving, policy or model fault the phase whose
-# checks run ("phase 4", "phase 7", "phase 8", "phase 9" or "phase 10").
+# checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase 10", or
+# "phase 11 <arch>" for the one model of phase 11 that runs the fault).
 CHILD = r'''
 import json, sys
 import torch
@@ -269,15 +308,19 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
+    kernels = {"hmmu_lookup": hmmu_lookup.KERNEL,
+               "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
+               "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3] == "phase 10":
+        if sys.argv[3].startswith("phase 11"):
+            cs.check_model_serve(torch, dev, rt, kernels, "", [
+                r for r in cs.FAMILY_SERVES
+                if r.arch == sys.argv[3].split(" ", 2)[2]])
+            torch.cuda.synchronize()
+        elif sys.argv[3] == "phase 10":
             try:
-                cs.check_model_serve(torch, dev, rt, {
-                    "hmmu_lookup": hmmu_lookup.KERNEL,
-                    "chunk_step": chunk_step.KERNEL,
-                    "flash_attention": fa.KERNEL,
-                    "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL},
-                    "", archs=cs.SERVE_ARCHS[:1])
+                cs.check_model_serve(torch, dev, rt, kernels, "",
+                                     cs.DENSE_SERVES[:1])
                 torch.cuda.synchronize()
             except (RuntimeError, IndexError) as e:
                 # An index past the cache is a device-side assert on the
@@ -343,6 +386,8 @@ def main() -> int:
                      "phase 8" if FAULTS[i] in SERVE_FAULTS else
                      "phase 9" if FAULTS[i] in SLICE9_FAULTS else
                      "phase 10" if FAULTS[i] in SLICE10_FAULTS else
+                     "phase 11 " + SLICE11_ARCHS[SLICE11_FAULTS.index(
+                         FAULTS[i])] if FAULTS[i] in SLICE11_FAULTS else
                      "phase 4")
             run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
                                   phase], cwd=copy, capture_output=True,

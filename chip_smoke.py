@@ -165,11 +165,43 @@ Phases, each printing its lines in order:
    peak device memory, ``init_params`` time, prefill ms and tokens/s, a
    decode step's wall split into the model, stream building and
    ``account``, kernel B's device time a step (CUPTI) and its share.
-11. One JSON line of per-kernel numbers (kernels A and B also carry
-   ``serve_launches``, ``policy_launches``, ``memtier_launches`` and
-   ``model_serve_launches``, the counts of phases 8, 9 (a), 9 (b) and
-   10), the card line again, and the last line
-   ``{"ok": true, "device": {...}}``.
+11. **Serving the other families at full width** — ``ServeEngine`` as in
+   phase 10 (bfloat16, random weights from a seed, ``launch/serve.py``'s
+   emulator settings, kernel B once a decode step, the report and every
+   tier state field bitwise equal to a CPU replay) at rwkv6-7b (whole:
+   batch 8, 10 requests of 1,024-1,536 tokens in multiples of the 128
+   chunk, 128 new tokens, two of them 64, so the 9th and 10th join a live
+   batch), hymba-1.5b (whole: batch 4, 6 requests of 960-1,100 tokens,
+   one past the 1,024 window and one crossing it while decoding, 48 new),
+   deepseek-v2-236b (full width, the first 4 of 60 layers: MLA and 160
+   experts top-6 plus 2 shared) and phi3.5-moe-42b (full width, 8 of 32
+   layers), both batch 8, 10 requests of 1,024-1,536 tokens, 32 new, each
+   model's weights freed before the next. Checks, in the layer where a
+   fault would happen first: rwkv6-7b's layer 0 through kernel 5
+   (``ops.rwkv_chunk``) against the model's scan, and its decode state
+   against float64 over prompt + 1; hymba's layer 1 (windowed): the flash
+   kernel against ``chunked_attention``, the length ``dist_decode`` saw
+   over a wrapped ring, the decode kernel over the ring against
+   ``dist_decode`` and float64, the Mamba state against the sequential
+   scan over prompt + 1; deepseek-v2's layer 0: the absorbed MLA decode
+   against float64 materialised attention and the latent cache rows
+   against the sequence path; both MoE models' layer 0: the routing equal
+   to a plain recomputation and the output within its allowance, over
+   calls that drop slots; phi3.5-moe's layer 0 also takes phase 10's GQA
+   checks. Then the tokens against the sequence path within
+   ``LOGIT_TOL`` (the MoE models in a second serve of 4 requests with no
+   token dropped on either path, and every row held, the sequence path
+   routing the compared tokens to the decode path's experts). Phases 10
+   and 11 run one function (``model_serve``) over their rows
+   (``DENSE_SERVES``, ``FAMILY_SERVES``). Numbers: parameter
+   bytes, peak memory, prefill ms and tokens/s, a decode step's wall
+   split, the model's device time and kernels a step, kernel B's device
+   time a step, the MoE's live slots dropped a step, the logit spread.
+12. One JSON line of per-kernel numbers (kernels A and B also carry
+   ``serve_launches``, ``policy_launches``, ``memtier_launches``,
+   ``model_serve_launches`` and ``family_serve_launches``, the counts of
+   phases 8, 9 (a), 9 (b), 10 and 11), the card line again, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -177,6 +209,7 @@ Only the port is imported: nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -1863,13 +1896,30 @@ def check_slice9(torch, dev, rt, hl, cs, card: str) -> dict:
 # Serving at full width: the port's ``ServeEngine`` over the dense model
 # (all layers, bfloat16, random weights from a seed on the card) with
 # ``launch/serve.py``'s emulator settings, at minitron-8b and gemma3-4b.
-SERVE_ARCHS = ("minitron-8b", "gemma3-4b")
-SERVE_BATCH, SERVE_SMAX, SERVE_REQUESTS, SERVE_NEW = 8, 2048, 16, 32
-SERVE_PROMPT = (1024, 1536)          # prompt lengths, drawn from a seed
-# The last request fills its lane to near SERVE_SMAX and ends after
-# IDLE_NEW tokens while the one before it runs for LONG_NEW: the idle
-# lane's ``pos`` then passes SERVE_SMAX (decode advances every lane).
+SERVE_SMAX = 2048
+# The last request of a dense model's serve fills its lane to near
+# SERVE_SMAX and ends after IDLE_NEW tokens while the one before it runs
+# for LONG_NEW: the idle lane's ``pos`` then passes SERVE_SMAX (decode
+# advances every lane).
 IDLE_PROMPT, IDLE_NEW, LONG_NEW = 2016, 8, 64
+
+
+class ServeModel(NamedTuple):
+    """One model's serve in phases 10 and 11."""
+    arch: str
+    layers: int | None   # the depth cut (None: every layer)
+    batch: int
+    prompts: tuple       # (lowest, highest) prompt length, from a seed
+    new: int             # new tokens a request
+    lengths: tuple       # (request index, its new tokens) that differ
+    requests: int
+    idle: bool           # the last request is the idle-lane one above
+
+
+DENSE_SERVES = tuple(
+    ServeModel(arch, None, 8, (1024, 1536), 32, ((14, LONG_NEW),
+                                                 (15, IDLE_NEW)), 16, True)
+    for arch in ("minitron-8b", "gemma3-4b"))
 LAYER0_BLOCK = 128     # the flash kernel takes Sq in multiples of its block
 SPY_STEP = 10          # the decode step whose layer 0 meets the sequence path
 # Decode-path logits against the sequence path's, both bfloat16: the two
@@ -1892,34 +1942,63 @@ LOGIT_TOL = 0.5
 CACHE_REL = 2.0 ** -5
 
 
-def serve_requests(cfg, seed: int = 0) -> list:
-    """(rid, int32 prompt, max_new_tokens) of phase 10's 16 requests."""
+def seq_multiple(cfg) -> int:
+    """Sequence-path lengths are multiples of this: RWKV's chunk (a longer
+    whole-sequence chunk overflows float32, ROADMAP §3), else 1."""
+    return cfg.rwkv_chunk if cfg.attn_type == "rwkv6" else 1
+
+
+def serve_requests(row: ServeModel, cfg, seed: int = 0) -> list:
+    """(rid, int32 prompt, max_new_tokens) of one model's requests: prompt
+    lengths from a seed, multiples of ``seq_multiple``. With ``row.idle``
+    the last prompt is IDLE_PROMPT long. Hymba's first prompt is the
+    longest (past the 1,024 window: prefill restacks the ring) and its
+    third ends half the new tokens short of the window (its lane crosses
+    it while decoding)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
-                        SERVE_REQUESTS - 1).tolist() + [IDLE_PROMPT]
-    news = [SERVE_NEW] * (SERVE_REQUESTS - 2) + [LONG_NEW, IDLE_NEW]
+    m = seq_multiple(cfg)
+    lo, hi = (n // m for n in row.prompts)
+    lens = (rng.integers(lo, hi + 1, row.requests - row.idle) * m).tolist()
+    if row.idle:
+        lens.append(IDLE_PROMPT)
+    if cfg.attn_type == "hymba":
+        lens[0], lens[2] = row.prompts[1], cfg.window - row.new // 2
+    news = [row.new] * row.requests
+    for i, n in row.lengths:
+        news[i] = n
     return [(rid, rng.integers(0, cfg.vocab, n).astype(np.int32), m)
             for rid, (n, m) in enumerate(zip(lens, news))]
 
 
-def instrument_serve(torch, eng, spy_step: int) -> dict:
+def instrument_serve(torch, eng) -> dict:
     """Wrap one ``ServeEngine``'s calls (instance attributes over its
     methods; the engine's code is not touched): each prefill's time,
-    tokens and logit row; each decode step's time, logit rows by request
-    and the largest ``pos`` of an idle lane; the tier's stream building
-    and ``account`` times; the tier's calls in order, for the replay. At
-    decode step ``spy_step`` the model's first ``dist_decode`` call (layer
-    0) is recorded too, with the engine's ``pos`` and lanes before the
-    step."""
-    from repro_torch.models import transformer
+    tokens and logit row; each decode step's time, logit rows by request,
+    the largest ``pos`` of an idle lane and the live lanes' MoE slots
+    dropped (over the layers); the tier's stream building and ``account``
+    times; the tier's calls in order, for the replay. At one decode step
+    one layer's decode call is recorded (``log["spy"]``), with the
+    engine's ``pos`` and lanes before the step: GQA's layer 0
+    ``dist_decode`` and MLA's layer 0 ``mla_decode`` at step SPY_STEP,
+    Hymba's layer HYMBA_LAYER ``dist_decode`` over its ring at the first
+    step where a live lane's ``pos`` reaches the window. The model
+    functions are looked up at each call, so an outer wrapper's spies
+    stay in place."""
+    from repro_torch.models import mamba, mla, moe, transformer
+    cfg = eng.cfg
     log = {"prefill": [], "rows": {}, "decode_ms": [], "build_ms": [],
            "account_ms": [], "step_ms": [], "tier_calls": [],
-           "idle_pos": -1, "spy": None}
+           "idle_pos": -1, "drops": [], "spy": None}
     prefill, decode, step = eng._prefill, eng._decode, eng.step
     tier = eng.tier
     access, account, free = tier.access_trace, tier.account, \
         tier.free_sequence
+    # the decode call a check holds: its module, name and place in a step
+    mod, name, nth = {"gqa": (transformer, "dist_decode", 1),
+                      "mla": (mla, "mla_decode", 1),
+                      "hymba": (mamba, "dist_decode", HYMBA_LAYER + 1)
+                      }.get(cfg.attn_type, (None, None, 0))
 
     def timed(fn, *a):
         torch.cuda.synchronize()
@@ -1933,37 +2012,61 @@ def instrument_serve(torch, eng, spy_step: int) -> dict:
         log["prefill"].append((ms, inputs.shape[1], out[0][0].clone()))
         return out
 
-    def spy(*a, **kw):
-        out = real(*a, **kw)
-        if log["spy"] is None:
-            q, ck, cv, kv_len = a
-            log["spy"] = {"q": q.clone(), "k": ck.clone(), "v": cv.clone(),
-                          "kv_len": kv_len.clone(),
-                          "window": kw.get("window"), "out": out.clone()}
-        return out
-
-    real = transformer.dist_decode
-
     def decode_(params, tokens, cache, pos):
         lanes = [r.rid if r is not None else None for r in eng.active]
-        spying = len(log["decode_ms"]) == spy_step
-        if spying:
-            transformer.dist_decode = spy
-            before = pos.tolist()
+        live = [i for i, rid in enumerate(lanes) if rid is not None]
+        before = pos.tolist()
+        spying = log["spy"] is None and mod is not None and (
+            max(before[i] for i in live) >= cfg.window
+            if cfg.attn_type == "hymba"
+            else len(log["decode_ms"]) == SPY_STEP)
+        keeps, calls = [], []
+        real_route = moe._top_k_dispatch
+        real = getattr(mod, name) if mod is not None else None
+
+        def route(probs, k, cap):
+            out = real_route(probs, k, cap)
+            keeps.append(out[3])
+            return out
+
+        def spy(*a, **kw):
+            out = real(*a, **kw)
+            calls.append(None)
+            if spying and len(calls) == nth:
+                if cfg.attn_type == "mla":
+                    _, p, x, _, c, kv_len = a
+                    log["spy"] = {"p": p, "x": x.clone(),
+                                  "c_kv": c["c_kv"].clone(),
+                                  "k_rope": c["k_rope"].clone(),
+                                  "kv_len": kv_len.clone(),
+                                  "out": out[0].clone()}
+                else:
+                    q, ck, cv, kv_len = a
+                    log["spy"] = {"q": q.clone(), "k": ck.clone(),
+                                  "v": cv.clone(), "kv_len": kv_len.clone(),
+                                  "window": kw.get("window"),
+                                  "out": out.clone()}
+                log["spy"].update(pos=before, lanes=lanes)
+            return out
+
+        moe._top_k_dispatch = route
+        if mod is not None:
+            setattr(mod, name, spy)
         try:
             out, ms = timed(decode, params, tokens, cache, pos)
         finally:
-            transformer.dist_decode = real
-        if spying:
-            log["spy"].update(pos=before, lanes=lanes)
+            moe._top_k_dispatch = real_route
+            if mod is not None:
+                setattr(mod, name, real)
         log["decode_ms"].append(ms)
-        for i, rid in enumerate(lanes):
-            if rid is not None:
-                log["rows"].setdefault(rid, []).append(out[0][i].clone())
+        for i in live:
+            log["rows"].setdefault(lanes[i], []).append(out[0][i].clone())
         idle = [i for i, rid in enumerate(lanes) if rid is None]
         if idle:
             log["idle_pos"] = max(log["idle_pos"],
                                   int(out[2][idle].max()))
+        if keeps:
+            log["drops"].append(int(sum((~kp[live]).sum() for kp in keeps)))
         return out
 
     def step_():
@@ -2034,27 +2137,54 @@ def check_replay(torch, rt, eng, calls) -> dict:
     return got
 
 
-def check_tokens(torch, cfg, params, reqs, log) -> dict:
+def check_tokens(torch, cfg, params, reqs, log,
+                 routes: dict | None = None) -> dict:
     """Each request's tokens against a prefill over its prompt and the
     tokens before each one (the sequence path): the argmax wherever that
     row's top-2 margin exceeds LOGIT_TOL, and every decode-path row (the
-    admission's prefill row, then the decode steps' rows) within
-    LOGIT_TOL of it."""
+    admission's prefill row, then the decode steps' rows) within LOGIT_TOL
+    of it. The sequence is padded with token 0 past its end to a multiple
+    of ``seq_multiple`` (causality keeps the padding out of the compared
+    rows). With ``routes`` (an MoE model: each request's experts a row and
+    a layer on the decode path, ``record_serve_routes``), the sequence
+    path routes the compared rows to the decode path's experts
+    (``forced_routes``): the two paths' bf16 hidden states differ by
+    rounding, and where two experts' router probabilities stand that close
+    the choice flips, a discrete change of the row that is not the fault
+    this check looks for. The rows whose choice flipped are counted."""
     from repro_torch.models import ShardCtx, layers, transformer
     sh = ShardCtx()
     dev = params["final_norm"].device
-    checked = total = 0
+    mult = seq_multiple(cfg)
+    checked = total = flipped = 0
     worst = floor = 0.0
     margins, row_diff, scale = [], [], 0.0
     for i, req in enumerate(reqs):
-        n = len(req.prompt)
-        seq = torch.as_tensor(list(req.prompt) + req.out[:-1],
-                              dtype=torch.int32, device=dev)[None]
-        x, _, _ = transformer.forward_seq(cfg, params, seq, sh,
-                                          collect_cache=False)
-        want = layers.lm_logits(cfg, params, x[:, n - 1:], sh)[0]
+        n, r = len(req.prompt), len(req.out)
+        toks = list(req.prompt) + req.out[:-1]
+        toks += [0] * (-len(toks) % mult)
+        seq = torch.as_tensor(toks, dtype=torch.int32, device=dev)[None]
+        own = []
+        if routes is not None:
+            forced = routes[req.rid][:r]
+            if forced.shape[0] != r:
+                raise Mismatch(f"model serve: request {req.rid} has "
+                               f"{forced.shape[0]} routed rows for {r} "
+                               "tokens")
+            ctx = forced_routes(slice(n - 1, n - 1 + r), forced, own)
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            x, _, _ = transformer.forward_seq(cfg, params, seq, sh,
+                                              collect_cache=False)
+        if own:
+            own = torch.stack(own, 1).sort(dim=-1).values    # [r, L, k]
+            flipped += int((own != forced.sort(dim=-1).values).any(
+                -1).any(-1).sum())
+        x = x[:, n - 1:n - 1 + r]
+        want = layers.lm_logits(cfg, params, x, sh)[0]
         got = torch.stack([log["prefill"][i][2]] + log["rows"].get(
-            req.rid, [])[:len(req.out) - 1])
+            req.rid, [])[:r - 1])
         if got.shape != want.shape:
             raise Mismatch(f"model serve: request {req.rid} has "
                            f"{got.shape[0]} logit rows for {want.shape[0]} "
@@ -2090,7 +2220,8 @@ def check_tokens(torch, cfg, params, reqs, log) -> dict:
     row_diff.sort()
     return {"checked": checked, "total": total, "worst": worst,
             "floor": floor, "median_diff": row_diff[len(row_diff) // 2],
-            "scale": scale, "median_margin": margins[len(margins) // 2]}
+            "scale": scale, "median_margin": margins[len(margins) // 2],
+            "flipped": flipped}
 
 
 def check_layer0(torch, ops, ref, cfg, params, prompt, spy) -> dict:
@@ -2257,35 +2388,523 @@ def check_decode_layer0(torch, ref, cfg, params, reqs, spy) -> dict:
     return out
 
 
-def model_serve(torch, dev, rt, kernels, arch: str, card: str) -> dict:
-    """Phase 10 at one configuration: see the module docstring."""
+# --------------------------------------------------------------- phase 11
+# Serving the other families at full width: RWKV6, Hymba (attention +
+# Mamba), MLA + MoE and GQA + MoE through ``ServeEngine`` with
+# ``launch/serve.py``'s emulator settings, bfloat16, random weights from a
+# seed. Each model's checks start in the layer where a fault would happen
+# (layer 0, or Hymba's first windowed layer), before its tokens are held
+# to the sequence path; every failure of a model is reported together.
+
+
+@contextlib.contextmanager
+def record_routes(out: list):
+    """Append every MoE routing call's experts (``moe._top_k_dispatch``'s
+    indices) to ``out``, in call order: one ``[T, k]`` tensor a layer a
+    forward."""
+    from repro_torch.models import moe
+    real = moe._top_k_dispatch
+
+    def spy(probs, k, cap):
+        got = real(probs, k, cap)
+        out.append(got[0])
+        return got
+    moe._top_k_dispatch = spy
+    try:
+        yield
+    finally:
+        moe._top_k_dispatch = real
+
+
+def record_serve_routes(eng, routes: dict) -> None:
+    """Wrap an engine's ``_prefill`` / ``_decode`` to keep each request's
+    expert sets a row: ``routes[rid]`` becomes ``[rows, L, k]`` (the
+    admission's last prompt token, then one row a decode step)."""
+    import torch
+    prefill, decode = eng._prefill, eng._decode
+
+    def prefill_(params, inputs):
+        rid = next(r.rid for r in eng.active
+                   if r is not None and r.rid not in routes)
+        rec = []
+        with record_routes(rec):
+            out = prefill(params, inputs)
+        routes[rid] = torch.stack([r[-1] for r in rec])[None]
+        return out
+
+    def decode_(params, tokens, cache, pos):
+        lanes = [(i, r.rid) for i, r in enumerate(eng.active)
+                 if r is not None]
+        rec = []
+        with record_routes(rec):
+            out = decode(params, tokens, cache, pos)
+        for i, rid in lanes:
+            routes[rid] = torch.cat([routes[rid], torch.stack(
+                [r[i] for r in rec])[None]])
+        return out
+    eng._prefill, eng._decode = prefill_, decode_
+
+
+@contextlib.contextmanager
+def forced_routes(rows: slice, forced, own: list):
+    """Inside, the l-th MoE routing call sends the tokens ``rows`` to the
+    experts ``forced[:, l]`` (``[R, L, k]``) and every other token where
+    the model sends it, with the gates and slots of ``moe_plain_routing``
+    over those experts; each call's own experts for ``rows`` are appended
+    to ``own``."""
+    import torch
+    from repro_torch.models import moe
+    real = moe._top_k_dispatch
+
+    def spy(probs, k, cap):
+        idx = real(probs, k, cap)[0]
+        own.append(idx[rows])
+        idx = idx.clone()
+        idx[rows] = forced[:, len(own) - 1]
+        return tuple(torch.as_tensor(a, device=probs.device) for a in
+                     moe_plain_routing(probs, k, cap, idx.cpu().numpy()))
+    moe._top_k_dispatch = spy
+    try:
+        yield
+    finally:
+        moe._top_k_dispatch = real
+
+
+# The bf16 logit bound LOGIT_TOL holds here too. On an H100 (NVIDIA H100
+# 80GB HBM3, 700 W) the decode path stood at most 0.3125 / 0.1211 from the
+# sequence path at rwkv6 / hymba, and the sequence path alone, only its
+# length changed, 0.2390 / 0.1016 from itself: bf16 drift through random
+# weights.
+FAMILY_SERVES = (
+    ServeModel("rwkv6-7b", None, 8, (1024, 1536), 128, ((0, 64), (1, 64)),
+               10, False),
+    ServeModel("hymba-1.5b", None, 4, (960, 1100), 48, ((0, 16), (1, 24)),
+               6, False),
+    ServeModel("deepseek-v2-236b", 4, 8, (1024, 1536), 32, (), 10, False),
+    ServeModel("phi3.5-moe-42b-a6.6b", 8, 8, (1024, 1536), 32, (), 10,
+               False),
+)
+# The MoE token check's own serve: no token dropped on either path.
+MOE_CHECK_REQUESTS, MOE_CHECK_NEW = 4, 16
+# Hymba's first windowed layer (layer 0 is global).
+HYMBA_LAYER = 1
+# A model's state and its recomputations, both from the same bf16 inputs:
+# RWKV's decode state against float64 within 1e-4 of its largest magnitude
+# (float32 prefix sums of log-decays up to ~47 in a chunk, each exp off by
+# up to a few 1e-6), and the Mamba state and conv window after one decode
+# step against the sequential scan's over prompt + 1 within the same 1e-4
+# (both float32 recurrences over the same projections); the MLA decode
+# output and the MoE output against their recomputations within 2^-6 of
+# the largest magnitude (a few bfloat16 steps: each side rounds its
+# products to bfloat16 apart), the CPU tests' bfloat16 bound.
+STATE_REL = 1e-4
+BF16_REL = 2.0 ** -6
+
+
+def rel_share(torch, got, want, rel: float) -> float:
+    """max |got - want| as a share of ``rel`` of max |want|."""
+    want = want.double()
+    return float((got.double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30) / rel)
+
+
+def hold(fails: list, what: str, share: float) -> float:
+    """Record a failure when ``share`` (of an allowance) passes 1."""
+    if not share <= 1.0:
+        fails.append(f"{what} at {share:.3f} of its allowance")
+    return share
+
+
+def layer_input(torch, cfg, params, tokens, upto: int):
+    """The normed input of layer ``upto`` (its attention norm) over
+    ``tokens`` [1, S], through the layers before it (the sequence path)."""
+    from repro_torch.models import ShardCtx, layers, transformer
+    sh = ShardCtx()
+    x = layers.embed_tokens(cfg, params["embed"], tokens, sh)
+    positions = torch.arange(tokens.shape[1], dtype=torch.float32,
+                             device=x.device)
+    windows = transformer._windows(cfg)
+    for l in range(upto):
+        x, _, _ = transformer._seq_block(cfg, sh, positions,
+                                         transformer._layer(params, l), x,
+                                         windows[l])
+    p = transformer._layer(params, upto)
+    return layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps), x, p
+
+
+def rwkv_layer0(torch, ops, ref, cfg, params, prompt, tok, fails) -> dict:
+    """rwkv6-7b, layer 0, on the model's activations of a prompt whose
+    length is a multiple of the chunk: (a) kernel 5 (``ops.rwkv_chunk``)
+    against the model's plain chunked scan within ``ref.kernel_error
+    ("rwkv")``; (b) the decode state after one more token (the model's
+    prefill state, then ``rwkv_decode_step``) against the float64 state of
+    the recurrence over prompt + 1 on the same inputs (the prefill's
+    log-decays rounded to bfloat16 as the model's time mix rounds them,
+    the decode token's in float32 as its decode step keeps them), within
+    STATE_REL of its largest magnitude."""
+    from repro_torch.models import ShardCtx, rwkv
+    sh = ShardCtx()
+    seq = torch.cat([prompt, tok])[None]
+    h, _, p = layer_input(torch, cfg, params, seq, 0)
+    p = p["attn"]
+    n, hh = prompt.shape[0], cfg.n_heads
+    zero = h.new_zeros((1, cfg.d_model))
+    r, k, v, _, logw = rwkv._projections(cfg, p, h[:, :n],
+                                         rwkv._token_shift(h[:, :n], zero))
+    heads = [rwkv._heads(t, hh).contiguous() for t in
+             (r, k, v, logw.to(cfg.adtype))]
+    got = ops.rwkv_chunk(*heads, p["u"], chunk=cfg.rwkv_chunk)
+    want, _ = rwkv.rwkv_chunk_scan(*heads, p["u"], cfg.rwkv_chunk)
+    k_err, k_share = ref.kernel_error("rwkv", got, want)
+    hold(fails, "rwkv6-7b layer 0: ops.rwkv_chunk against the plain scan",
+         k_share)
+    _, _, state = rwkv.rwkv_time_mix(cfg, p, h[:, :n], sh, zero)
+    _, _, state = rwkv.rwkv_decode_step(cfg, p, h[:, n:], sh, h[:, n - 1],
+                                        state)
+    _, k1, v1, _, lw1 = rwkv._projections(cfg, p, h[:, n:], h[:, n - 1:n])
+    ks = torch.cat([k, k1], 1)
+    vs = torch.cat([v, v1], 1)
+    lw = torch.cat([logw.to(cfg.adtype).float(), lw1], 1)
+    ks, vs, lw = (rwkv._heads(t.double(), hh)[0] for t in (ks, vs, lw))
+    cum = lw.cumsum(1)                                   # [H, n+1, Dk]
+    wk = ks * torch.exp(cum[:, -1:] - cum)
+    want_s = torch.einsum("hsk,hsv->hkv", wk, vs)
+    s_share = hold(fails, "rwkv6-7b layer 0: the decode state against "
+                   "float64 over prompt + 1",
+                   rel_share(torch, state[0], want_s, STATE_REL))
+    return {"kernel": (k_err, k_share), "state": s_share, "s": n}
+
+
+def moe_plain_routing(probs, k: int, cap: int, idx=None):
+    """The reference's routing recomputed on the host, token by token:
+    each token's k most probable experts (ties to the lower index; or the
+    experts ``idx`` [T, k] where given), the gates over their float32 sum
+    in order, then the slots numbered slot j = 0..k-1 in turn, token by
+    token, counts carried."""
+    import numpy as np
+    P = probs.float().cpu().numpy()
+    t, e = P.shape
+    if idx is None:
+        idx = np.array([sorted(range(e), key=lambda j: (-P[i, j], j))[:k]
+                        for i in range(t)], np.int64).reshape(t, k)
+    gates = np.empty((t, k), np.float32)
+    for i in range(t):
+        order = idx[i].tolist()
+        total = np.float32(P[i, order[0]])
+        for j in order[1:]:
+            total = np.float32(total + P[i, j])
+        gates[i] = P[i, order] / np.float32(max(total, np.float32(1e-9)))
+    counts = np.zeros(e, np.int64)
+    pos = np.empty((t, k), np.int64)
+    keep = np.empty((t, k), bool)
+    for j in range(k):
+        for i in range(t):
+            c = counts[idx[i, j]]
+            keep[i, j] = c < cap
+            pos[i, j] = min(c, cap - 1)
+            counts[idx[i, j]] += 1
+    return idx, gates, pos, keep
+
+
+def moe_plain_out(torch, cfg, p, x, route):
+    """The MoE FFN of tokens ``x`` [T, D] under the routing ``route``:
+    each kept slot's expert SwiGLU in float32 from the bf16 weights, times
+    its gate, summed a token; plus the shared experts."""
+    idx, gates, _, keep = (torch.as_tensor(a, device=x.device)
+                           for a in route)
+    xf = x.float()
+    out = torch.zeros_like(xf)
+    silu = torch.nn.functional.silu
+    ffn = lambda w, h: (silu(h @ w["w_gate"].float()) * (
+        h @ w["w_in"].float())) @ w["w_out"].float()
+    for e in torch.unique(idx[keep]).tolist():
+        t, j = torch.nonzero((idx == e) & keep, as_tuple=True)
+        w = {n: p[n][e] for n in ("w_in", "w_gate", "w_out")}
+        out.index_add_(0, t, ffn(w, xf[t]) * gates[t, j, None].float())
+    if "shared" in p:
+        out += ffn(p["shared"], xf)
+    return out
+
+
+def moe_layer0(torch, cfg, params, prompt, fails) -> dict:
+    """An MoE model's layer 0 on its activations over a prompt: the MoE
+    call at the prefill's shape (every token, its capacity) and at the
+    decode step's (8 consecutive tokens a call, capacity 4 for both
+    models): ``idx``, ``gates``, ``pos`` and ``keep`` equal to
+    ``moe_plain_routing`` exactly, the output within BF16_REL of
+    ``moe_plain_out``. Some slots must be dropped over these calls, so
+    that the keep mask is seen at work."""
+    from repro_torch.models import ShardCtx, layers, mla, moe, transformer
+    sh = ShardCtx()
+    seq = prompt[None]
+    h, x, p = layer_input(torch, cfg, params, seq, 0)
+    positions = torch.arange(seq.shape[1], dtype=torch.float32,
+                             device=h.device)
+    attn = (mla.mla_attention if cfg.attn_type == "mla"
+            else layers.gqa_attention)
+    a, _ = attn(cfg, p["attn"], h, sh, positions,
+                transformer._windows(cfg)[0])
+    # the MoE's input: layer 0's residual after attention, normed
+    h2 = layers.rms_norm(x + a, p["mlp"]["norm"], cfg.norm_eps)
+    calls = [h2] + [h2[0, i:i + 8, None] for i in
+                    range(0, h2.shape[1] - 7, 8)][:64]
+    seen = {"calls": 0, "dropped": 0, "out": 0.0, "tokens": 0}
+    real = moe._top_k_dispatch
+    for xin in calls:
+        rec = {}
+
+        def spy(probs, k, cap):
+            out = real(probs, k, cap)
+            rec.update(probs=probs, cap=cap, out=out)
+            return out
+        moe._top_k_dispatch = spy
+        try:
+            got, _ = moe.moe_block(cfg, p["mlp"], xin, sh)
+        finally:
+            moe._top_k_dispatch = real
+        plain = moe_plain_routing(rec["probs"], cfg.moe.top_k, rec["cap"])
+        for name, a_, b_ in zip(("idx", "gates", "pos", "keep"),
+                                rec["out"], plain):
+            if not (a_.cpu().numpy() == b_).all():
+                fails.append(f"{cfg.name} layer 0: the MoE's {name} differs "
+                             f"from the plain routing at {xin.shape[0]} x "
+                             f"{xin.shape[1]} tokens (capacity {rec['cap']})")
+        want = moe_plain_out(torch, cfg, p["mlp"], xin.reshape(
+            -1, cfg.d_model), plain).reshape(got.shape)
+        seen["out"] = max(seen["out"], rel_share(torch, got, want, BF16_REL))
+        seen["dropped"] += int((~plain[3]).sum())
+        seen["calls"] += 1
+        seen["tokens"] += xin.shape[0] * xin.shape[1]
+    hold(fails, f"{cfg.name} layer 0: the MoE output against its plain "
+         f"recomputation (share of {BF16_REL})", seen["out"])
+    if not seen["dropped"]:
+        fails.append(f"{cfg.name} layer 0: no slot dropped in "
+                     f"{seen['calls']} MoE calls; the keep mask is unseen")
+    return seen
+
+
+def mla_f64(torch, cfg, p, x, c_kv, k_rope, kv_len):
+    """MLA attention of one token a lane over the latent cache with
+    per-head K and V materialised from it (the prefill form), float64 from
+    the same bf16 weights and inputs. x [B,1,D]; c_kv [B,S,R]; k_rope
+    [B,S,rope] -> [B,1,D]."""
+    m, h = cfg.mla, cfg.n_heads
+    f = {k: v.double() for k, v in p.items()}
+    b = x.shape[0]
+    cq = x.double() @ f["wq_a"]
+    cq = cq * torch.rsqrt((cq * cq).mean(-1, keepdim=True)
+                          + cfg.norm_eps) * f["q_norm"]
+    q = (cq @ f["wq_b"]).reshape(b, h, -1)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    i = torch.arange(0, m.rope_head_dim, 2, dtype=torch.float64,
+                     device=x.device)
+    ang = (kv_len - 1).double()[:, None, None] * cfg.rope_theta ** (
+        -i / m.rope_head_dim)
+    q1, q2 = q_rope.chunk(2, -1)
+    q_rope = torch.cat([q1 * ang.cos() - q2 * ang.sin(),
+                        q2 * ang.cos() + q1 * ang.sin()], -1)
+    ckv = c_kv.double()
+    k_nope = torch.einsum("bsr,rhn->bhsn", ckv, f["wk_b"].reshape(
+        m.kv_lora_rank, h, m.nope_head_dim))
+    v = torch.einsum("bsr,rhn->bhsn", ckv, f["wv_b"].reshape(
+        m.kv_lora_rank, h, m.v_head_dim))
+    logits = (torch.einsum("bhn,bhsn->bhs", q_nope, k_nope)
+              + torch.einsum("bhr,bsr->bhs", q_rope, k_rope.double())) * \
+        (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    mask = torch.arange(ckv.shape[1], device=x.device)[None, None, :] < \
+        kv_len[:, None, None]
+    att = torch.where(mask, logits, -math.inf).softmax(-1)
+    o = torch.einsum("bhs,bhsn->bhn", att, v).reshape(b, 1, -1)
+    return o @ f["wo"]
+
+
+def mla_decode_layer0(torch, cfg, params, reqs, spy, fails) -> dict:
+    """deepseek-v2, layer 0 at the spied decode step: (a) the absorbed
+    ``mla_decode`` output against ``mla_f64`` over the same latent cache
+    and lengths (live lanes), within BF16_REL; (b) each live lane's cache
+    rows [0, pos] (latent and RoPE key) against the sequence path's layer
+    0 over its tokens, within CACHE_REL of their largest magnitude (a row
+    written at another position stands the whole value apart)."""
+    from repro_torch.models import layers, mla
+    live = [i for i, rid in enumerate(spy["lanes"]) if rid is not None]
+    p = spy["p"]
+    want = mla_f64(torch, cfg, p, spy["x"][live], spy["c_kv"][live],
+                   spy["k_rope"][live], spy["kv_len"][live])
+    out = {"absorbed": hold(fails, "deepseek-v2 layer 0: the absorbed "
+                            "decode against float64 materialised attention",
+                            rel_share(torch, spy["out"][live], want,
+                                      BF16_REL)),
+           "cache": 0.0, "lanes": len(live)}
+    byrid = {r.rid: r for r in reqs}
+    for i in live:
+        req, pos = byrid[spy["lanes"][i]], spy["pos"][i]
+        toks = (list(req.prompt) + req.out)[:pos + 1]
+        h, _, _ = layer_input(torch, cfg, params, torch.as_tensor(
+            toks, dtype=torch.int32, device=p["wq_a"].device)[None], 0)
+        c_kv, k_rope = mla._project_kv_latent(cfg, p, h)
+        cos, sin = layers.rope_tables(torch.arange(
+            pos + 1, dtype=torch.float32, device=h.device),
+            cfg.mla.rope_head_dim, cfg.rope_theta)
+        k_rope = layers.apply_rope(k_rope, cos, sin)[:, 0]
+        for name, got, w in (("c_kv", spy["c_kv"][i, :pos + 1], c_kv[0]),
+                             ("k_rope", spy["k_rope"][i, :pos + 1],
+                              k_rope[0])):
+            out["cache"] = max(out["cache"], hold(
+                fails, f"deepseek-v2 layer 0: lane {i}'s cache {name} rows "
+                f"(pos {pos}) against the sequence path",
+                rel_share(torch, got, w, CACHE_REL)))
+    return out
+
+
+def hymba_layer1(torch, ops, ref, cfg, params, reqs, spy, fails) -> dict:
+    """hymba-1.5b, layer 1 (a local layer, window 1,024): (a)
+    ``ops.flash_attention`` against ``chunked_attention`` on the layer's
+    q, k, v over the longest request's tokens padded to a multiple of 128
+    (past the window); (b) at the spied decode step, where a live lane's
+    ring has wrapped: the length ``dist_decode`` saw equal to min(pos + 1,
+    1,024) in every lane, ``ops.decode_attention`` over the ring against
+    ``dist_decode`` within ``ref.kernel_error``, and ``dist_decode``
+    within the float32 allowance of float64 attention over the ring's
+    valid slots; (c) the Mamba state after one decode token (the prefill
+    form's state, then one step) against the sequential scan over prompt +
+    1 on the same inputs, within STATE_REL."""
+    from repro_torch.models import ShardCtx, layers, mamba, transformer
+    from repro_torch.models.chunked_attention import chunked_attention
+    sh = ShardCtx()
+    dev = params["final_norm"].device
+    req = max(reqs, key=lambda r: len(r.prompt))
+    toks = list(req.prompt) + req.out
+    toks += [0] * (-len(toks) % LAYER0_BLOCK)
+    h, _, p = layer_input(torch, cfg, params, torch.as_tensor(
+        toks, dtype=torch.int32, device=dev)[None], HYMBA_LAYER)
+    p = p["attn"]
+    window = transformer._windows(cfg)[HYMBA_LAYER]
+    q, k, v = layers.gqa_project(cfg, p, h, cfg.adtype)
+    cos, sin = layers.rope_tables(torch.arange(
+        h.shape[1], dtype=torch.float32, device=dev), cfg.head_dim_,
+        cfg.rope_theta)
+    q, k = layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
+    v = v.contiguous()
+    out = {"s": h.shape[1], "window": window}
+    flash = ops.flash_attention(q, k, v, causal=True, window=window)
+    attn = chunked_attention(q, k, v, causal=True, window=window)
+    out["flash"] = ref.kernel_error("attention", flash, attn)
+    hold(fails, "hymba-1.5b layer 1: ops.flash_attention against "
+         "chunked_attention", out["flash"][1])
+    size = spy["k"].shape[2]
+    pos = torch.as_tensor(spy["pos"], device=dev)
+    eff = torch.clamp(pos + 1, max=size).to(torch.int32)
+    live = [i for i, rid in enumerate(spy["lanes"]) if rid is not None]
+    if not torch.equal(spy["kv_len"][live].int(), eff[live]):
+        fails.append(f"hymba-1.5b layer {HYMBA_LAYER}: dist_decode over the "
+                     f"ring saw lengths {spy['kv_len'][live].tolist()}, "
+                     f"expected min(pos + 1, {size}) = {eff[live].tolist()}")
+    dec = ops.decode_attention(spy["q"], spy["k"], spy["v"], eff)
+    out["decode"] = ref.kernel_error("attention", dec[live],
+                                     spy["out"][live].to(dec.dtype))
+    hold(fails, "hymba-1.5b layer 1: ops.decode_attention over the ring "
+         "against dist_decode", out["decode"][1])
+    d64 = 0.0
+    for i in live:
+        want = attention_f64(torch, spy["q"][i], spy["k"][i], spy["v"][i],
+                             int(eff[i]), None)
+        d64 = max(d64, ref.kernel_error("attention", spy["out"][i],
+                                        want.float())[1])
+    out["dist"] = hold(fails, "hymba-1.5b layer 1: dist_decode against "
+                       "float64 attention over the ring's valid slots", d64)
+    out["wrapped"] = int(pos[live].max()) + 1 - size
+    # (c) the Mamba state over prompt + 1, on the sequence path's inputs
+    n = len(req.prompt)
+    xn = h[:, :n + 1]
+    _, conv_a, ssm_a = mamba.mamba_mix(cfg, p["mamba"], xn[:, :n], sh)
+    _, conv_b, ssm_b = mamba.mamba_mix(cfg, p["mamba"], xn[:, n:], sh,
+                                       conv_state=conv_a, ssm_state=ssm_a)
+    _, conv_c, ssm_c = mamba.mamba_mix(cfg, p["mamba"], xn, sh)
+    out["ssm"] = hold(fails, "hymba-1.5b layer 1: the Mamba decode state "
+                      "against the sequential scan over prompt + 1",
+                      rel_share(torch, ssm_b, ssm_c, STATE_REL))
+    out["conv"] = hold(fails, "hymba-1.5b layer 1: the conv state against "
+                       "the sequential scan's",
+                       rel_share(torch, conv_b, conv_c, STATE_REL))
+    return out
+
+
+def serve_engine(torch, dev, rt, cfg, row: ServeModel, params, reqs):
+    """A ``ServeEngine`` with ``launch/serve.py``'s emulator settings,
+    ``reqs`` submitted, and ``instrument_serve``'s log."""
+    from repro_torch.memtier import ServeEngine
+    from repro_torch.memtier.engine import Request
+    emu = rt.EmulatorConfig(n_fast_pages=64, n_slow_pages=4096, chunk=64,
+                            policy="hotness", hot_threshold=4)
+    eng = ServeEngine(cfg, params, batch_size=row.batch, smax=SERVE_SMAX,
+                      emu_cfg=emu, policy="hotness", pin_pages_per_seq=1,
+                      device=dev)
+    reqs = [Request(rid=r, prompt=p, max_new_tokens=m) for r, p, m in reqs]
+    for r in reqs:
+        eng.submit(r)
+    return eng, reqs, instrument_serve(torch, eng)
+
+
+def layer_checks(torch, ops, ref, cfg, params, reqs, log, layer,
+                 fails) -> None:
+    """The checks in the layer where each family's fault would happen."""
+    dev = params["final_norm"].device
+    fam, spy = cfg.attn_type, log["spy"]
+    if fam != "rwkv6" and spy is None:
+        fails.append("no decode call of the checked layer was recorded")
+        return
+    if fam == "rwkv6":
+        r0 = reqs[-1]
+        layer.update(rwkv_layer0(
+            torch, ops, ref, cfg, params,
+            torch.as_tensor(r0.prompt, device=dev),
+            torch.as_tensor(r0.out[:1], device=dev, dtype=torch.int32),
+            fails))
+    elif fam == "hymba":
+        layer.update(hymba_layer1(torch, ops, ref, cfg, params, reqs, spy,
+                                  fails))
+    elif fam == "mla":
+        layer["mla"] = mla_decode_layer0(torch, cfg, params, reqs, spy,
+                                         fails)
+    else:
+        prompt = reqs[-1].prompt
+        try:
+            layer["gqa"] = check_layer0(torch, ops, ref, cfg, params,
+                                        torch.as_tensor(prompt[:len(
+                                            prompt) // LAYER0_BLOCK
+                                            * LAYER0_BLOCK], device=dev),
+                                        spy)
+            layer["gqa_decode"] = check_decode_layer0(torch, ref, cfg,
+                                                      params, reqs, spy)
+        except Mismatch as exc:
+            fails.append(str(exc))
+    if cfg.moe:
+        layer["moe"] = moe_layer0(torch, cfg, params, torch.as_tensor(
+            reqs[-1].prompt, device=dev), fails)
+
+
+def model_serve(torch, dev, rt, kernels, row: ServeModel, card: str
+                ) -> dict:
+    """Phase 10 or 11 at one configuration: see the module docstring.
+    Returns each kernel's launches over the serve; raises once, naming
+    each check that failed."""
+    import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.kernels import ops, ref
-    from repro_torch.memtier import ServeEngine
-    from repro_torch.memtier.engine import Request
-    from repro_torch.models import init_params, transformer
-    cfg = configs.get(arch)
+    from repro_torch.models import init_params, layers, transformer
+    cfg = configs.get(row.arch)
+    if row.layers:
+        cfg = cfg.with_(n_layers=row.layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    nbytes = sum(t.numel() * t.element_size() for blk in (
-        params["embed"], params["layers"]["attn"], params["layers"]["mlp"],
-        {k: v for k, v in params.items() if k in ("final_norm", "lm_head")})
-        for t in blk.values())
-    emu = rt.EmulatorConfig(n_fast_pages=64, n_slow_pages=4096, chunk=64,
-                            policy="hotness", hot_threshold=4)
-    eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH, smax=SERVE_SMAX,
-                      emu_cfg=emu, policy="hotness", pin_pages_per_seq=1,
-                      device=dev)
-    reqs = [Request(rid=r, prompt=p, max_new_tokens=m)
-            for r, p, m in serve_requests(cfg)]
-    for r in reqs:
-        eng.submit(r)
-    log = instrument_serve(torch, eng, spy_step=SPY_STEP)
+    pbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    eng, reqs, log = serve_engine(torch, dev, rt, cfg, row, params,
+                                  serve_requests(row, cfg))
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -2294,14 +2913,15 @@ def model_serve(torch, dev, rt, kernels, arch: str, card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
+    fails = []
     if counts != {**{n: 0 for n in kernels}, "chunk_step": steps}:
-        raise Mismatch(f"model serve: launches {counts} over {steps} decode "
-                       "steps; expected kernel B once a step and no other")
-    if log["idle_pos"] < SERVE_SMAX:
-        raise Mismatch(f"model serve: no idle lane's pos passed "
-                       f"{SERVE_SMAX} (largest {log['idle_pos']})")
+        fails.append(f"launches {counts} over {steps} decode steps; "
+                     "expected kernel B once a step and no other")
     if not all(r.done for r in reqs):
-        raise Mismatch("model serve: a request did not finish")
+        fails.append("a request did not finish")
+    if row.idle and log["idle_pos"] < SERVE_SMAX:
+        fails.append(f"no idle lane's pos passed {SERVE_SMAX} (largest "
+                     f"{log['idle_pos']})")
     t1 = time.perf_counter()
     rep = check_replay(torch, rt, eng, log["tier_calls"])
     # Kernel B's device time a step: the recorded streams replayed on the
@@ -2311,20 +2931,39 @@ def model_serve(torch, dev, rt, kernels, arch: str, card: str) -> dict:
         torch.cuda.synchronize()
     b_us, b_traced = trace_us(prof, lambda key: "chunk_step_kernel" in key)
     del prof
+    # The layer where each family's fault would happen, first: a fault
+    # there is named by the check that sees it alone, before the layers
+    # above carry it into the logits.
     t2 = time.perf_counter()
-    # Layer 0 first: a fault there is named by the check that sees it
-    # alone, before 32-34 layers carry it into the logits.
-    l0 = check_layer0(torch, ops, ref, cfg, params, torch.as_tensor(
-        reqs[-1].prompt[:len(reqs[-1].prompt) // LAYER0_BLOCK
-                        * LAYER0_BLOCK], device=dev),
-        log["spy"])
-    dl0 = check_decode_layer0(torch, ref, cfg, params, reqs, log["spy"])
+    layer = {}
+    with layers.fp32_sums():
+        layer_checks(torch, ops, ref, cfg, params, reqs, log, layer, fails)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    tok = check_tokens(torch, cfg, params, reqs, log)
+    # The tokens against the sequence path. MoE: a second, shorter serve
+    # with no token dropped on either path (capacity n_experts / top_k).
+    try:
+        if cfg.moe:
+            e = cfg.moe
+            ccfg = cfg.with_(moe=dataclasses.replace(
+                e, capacity_factor=e.n_experts / e.top_k))
+            crow = row._replace(requests=MOE_CHECK_REQUESTS,
+                                new=MOE_CHECK_NEW)
+            ceng, creqs, clog = serve_engine(
+                torch, dev, rt, ccfg, crow, params,
+                serve_requests(crow, ccfg, 1))
+            routes = {}
+            record_serve_routes(ceng, routes)
+            ceng.run()
+            del ceng
+            tok = check_tokens(torch, ccfg, params, creqs, clog, routes)
+        else:
+            tok = check_tokens(torch, cfg, params, reqs, log)
+    except Mismatch as exc:
+        fails.append(str(exc))
+        tok = None
     torch.cuda.synchronize()
-    checks = {"replays": t2 - t1, "layer 0": t3 - t2,
-              "tokens": time.perf_counter() - t3}
+    t4 = time.perf_counter()
     # The model's own device time a decode step: two more steps on the
     # engine's final cache under CUPTI, every kernel counted.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2340,64 +2979,139 @@ def model_serve(torch, dev, rt, kernels, arch: str, card: str) -> dict:
     model, build, acc, step_ms = (mean(log[k]) for k in (
         "decode_ms", "build_ms", "account_ms", "step_ms"))
     b_ms = b_us / 1e3 / steps
-    print(f"  {arch}: {cfg.n_layers} layers, {nbytes} parameter bytes "
-          f"(bf16), init_params {init_s:.3f} s; peak device memory "
-          f"{peak} B; {SERVE_REQUESTS} requests, batch {SERVE_BATCH}, smax "
-          f"{SERVE_SMAX}: {steps} decode steps in {wall:.3f} s; launches "
-          f"{counts} [{card}]", flush=True)
+    depth = (f"{cfg.n_layers} of {configs.get(row.arch).n_layers} layers"
+             if row.layers else f"{cfg.n_layers} layers")
+    print(f"  {row.arch}: {depth}, {pbytes} parameter bytes (bf16), "
+          f"init_params {init_s:.3f} s; peak device memory {peak} B; "
+          f"{len(reqs)} requests, batch {row.batch}, smax {SERVE_SMAX}: "
+          f"{steps} decode steps in {wall:.3f} s "
+          f"({max(0, len(reqs) - row.batch)} admitted into a live batch); "
+          f"launches {counts} [{card}]", flush=True)
     print(f"  prefill {mean(pre_ms):.3f} ms a request ({min(pre_ms):.3f}.."
           f"{max(pre_ms):.3f}; the first {log['prefill'][0][0]:.3f}), "
-          f"{mean(tok_s):.0f} tokens/s; a decode step "
-          f"{step_ms:.3f} ms wall: model {model:.3f} (decode_step, "
-          f"synchronised), stream building {build:.3f}, account {acc:.3f}, "
-          f"the rest (argmax, one read back, bookkeeping) "
-          f"{step_ms - model - build - acc:.3f}; kernel B {b_ms:.4f} "
-          f"ms a step (device, CUPTI over a replay of the run's streams on "
-          f"the card; {b_traced} of {steps} launches traced), "
-          f"{b_ms / step_ms:.4f} of the step; the model's device time a "
-          f"step {m_us / 2e3:.3f} ms in {m_kernels // 2} kernels (CUPTI, 2 "
-          f"steps), {m_us / 2e3 / model:.4f} of its wall [{card}]",
-          flush=True)
-    print(f"  tokens: {tok['checked']} of {tok['total']} held to the "
-          f"sequence path's argmax (top-2 margin above {LOGIT_TOL}; median "
-          f"margin {tok['median_margin']:.4f}); decode-path logits within "
-          f"{tok['worst']:.4f} of it (median row {tok['median_diff']:.4f}; "
-          f"the sequence path over the prompt alone within "
-          f"{tok['floor']:.4f}; largest |logit| {tok['scale']:.3f}); "
-          f"largest idle pos {log['idle_pos']} "
-          f"(smax {SERVE_SMAX}); report ({rep['requests']} requests, "
-          f"migrations {rep['migrations']}, pinned fast hit rate "
+          f"{mean(tok_s):.0f} tokens/s; a decode step {step_ms:.3f} ms "
+          f"wall: model {model:.3f} (decode_step, synchronised), stream "
+          f"building {build:.3f}, account {acc:.3f}, the rest (argmax, one "
+          f"read back, bookkeeping) {step_ms - model - build - acc:.3f}; "
+          f"kernel B {b_ms:.4f} ms a step (device, CUPTI over a replay of "
+          f"the run's streams on the card; {b_traced} of {steps} launches "
+          f"traced), {b_ms / step_ms:.4f} of the step; the model's device "
+          f"time a step {m_us / 2e3:.3f} ms in {m_kernels // 2} kernels "
+          f"(CUPTI, 2 steps), {m_us / 2e3 / model:.4f} of its wall "
+          f"[{card}]", flush=True)
+    if cfg.moe:
+        d = log["drops"]
+        print(f"  MoE (capacity factor {cfg.moe.capacity_factor}): live "
+              f"lanes' slots dropped a step over {cfg.n_layers} layers: "
+              f"mean {mean(d):.2f}, max {max(d)}, {sum(d)} in all; by step "
+              f"{d}", flush=True)
+    if tok is not None:
+        flips = (f"; {tok['flipped']} rows whose experts differ between "
+                 "the two paths, held with the sequence path routed as the "
+                 "decode path" if cfg.moe else "")
+        print(f"  tokens{' (no-drop serve)' if cfg.moe else ''}: "
+              f"{tok['checked']} of {tok['total']} held to the sequence "
+              f"path's argmax (top-2 margin above {LOGIT_TOL}; median "
+              f"margin {tok['median_margin']:.4f}); decode-path logits "
+              f"within {tok['worst']:.4f} of it (median row "
+              f"{tok['median_diff']:.4f}; the sequence path over the prompt "
+              f"alone within {tok['floor']:.4f}; largest |logit| "
+              f"{tok['scale']:.3f}){flips}", flush=True)
+    idle = (f"largest idle pos {log['idle_pos']} (smax {SERVE_SMAX}); "
+            if row.idle else "")
+    print(f"  {idle}report ({rep['requests']} requests, migrations "
+          f"{rep['migrations']}, pinned fast hit rate "
           f"{rep['pinned_fast_hit_rate']:.4f}, free fast/slow "
           f"{rep['fast_free']}/{rep['slow_free']}) and every state field "
-          "bitwise equal to the CPU replay", flush=True)
-    print(f"  layer 0 ({l0['s']} tokens, window {l0['window']}): rms_norm "
-          f"equal to its float32 formula, RoPE within one bfloat16 step of "
-          f"the rotation; ops.flash_attention against chunked_attention "
-          f"{l0['flash'][0]:.3e} ({l0['flash'][1]:.3f} of its allowance), "
-          f"ops.decode_attention against dist_decode {l0['decode'][0]:.3e} "
-          f"({l0['decode'][1]:.3f}); checks took " + ", ".join(
-              f"{k} {v:.1f} s" for k, v in checks.items()), flush=True)
-    print(f"  layer 0 at decode step {SPY_STEP}, {dl0['lanes']} live lanes "
-          f"against the sequence path: q within {dl0['q']:.3f} and the "
-          f"cache rows within {dl0['cache']:.3f} of {CACHE_REL} of the "
-          f"largest magnitude; dist_decode at {dl0['dist']:.3f} of the "
-          f"float32 allowance of float64 attention over the engine's pos + "
-          f"1 rows, chunked_attention's row at {dl0['chunked']:.3f} of the "
-          f"bfloat16 allowance; the two paths' outputs {dl0['paths']:.3e} "
-          "apart",
+          f"bitwise equal to the CPU replay; checks took replays "
+          f"{t2 - t1:.1f} s, layer {t3 - t2:.1f} s, tokens {t4 - t3:.1f} s",
           flush=True)
+    for line in layer_lines(layer):
+        print(f"  {line}", flush=True)
+    del eng, params
+    if fails:
+        raise Mismatch(f"{row.arch}: " + "; ".join(fails))
     return counts
 
 
-def check_model_serve(torch, dev, rt, kernels, card: str,
-                      archs=SERVE_ARCHS) -> dict:
-    """Every check of phase 10 (see the module docstring); each
-    configuration's weights are freed before the next one's are drawn.
-    Returns each kernel's launches over the configurations' runs."""
-    out = {}
-    for arch in archs:
-        out[arch] = model_serve(torch, dev, rt, kernels, arch, card)
+def layer_lines(layer: dict) -> list:
+    """The printed lines of ``layer_checks``' readings."""
+    out = []
+    if "gqa" in layer:
+        l0 = layer["gqa"]
+        f, d = l0["flash"], l0["decode"]
+        out.append(f"layer 0 ({l0['s']} tokens, window {l0['window']}): "
+                   f"rms_norm equal to its float32 formula, RoPE within one "
+                   f"bfloat16 step of the rotation; ops.flash_attention "
+                   f"against chunked_attention {f[0]:.3e} ({f[1]:.3f} of its "
+                   f"allowance), ops.decode_attention against dist_decode "
+                   f"{d[0]:.3e} ({d[1]:.3f})")
+    if "gqa_decode" in layer:
+        dl0 = layer["gqa_decode"]
+        out.append(f"layer 0 at decode step {SPY_STEP}, {dl0['lanes']} "
+                   f"live lanes against the sequence path: q within "
+                   f"{dl0['q']:.3f} and the cache rows within "
+                   f"{dl0['cache']:.3f} of {CACHE_REL} of the largest "
+                   f"magnitude; dist_decode at "
+                   f"{dl0['dist']:.3f} of the float32 allowance of float64 "
+                   f"attention over the engine's pos + 1 rows, "
+                   f"chunked_attention's row at {dl0['chunked']:.3f} of the "
+                   f"bfloat16 allowance; the two paths' outputs "
+                   f"{dl0['paths']:.3e} apart")
+    if "kernel" in layer:
+        out.append(f"layer 0 ({layer['s']} tokens): ops.rwkv_chunk (kernel "
+                   f"5) against the model's scan {layer['kernel'][0]:.3e} "
+                   f"({layer['kernel'][1]:.3f} of its allowance); the decode "
+                   f"state at {layer['state']:.3f} of {STATE_REL} of float64")
+    if "ssm" in layer:
+        f, d = layer["flash"], layer["decode"]
+        out.append(f"layer {HYMBA_LAYER} (window {layer['window']}, "
+                   f"{layer['s']} tokens): ops.flash_attention against "
+                   f"chunked_attention {f[0]:.3e} ({f[1]:.3f}); over the "
+                   f"ring (wrapped by {layer['wrapped']} slots): "
+                   f"ops.decode_attention against dist_decode {d[0]:.3e} "
+                   f"({d[1]:.3f}), dist_decode at {layer['dist']:.3f} of the "
+                   f"float32 allowance of float64; Mamba state "
+                   f"{layer['ssm']:.3e}, conv {layer['conv']:.3e} of "
+                   f"{STATE_REL}")
+    if "mla" in layer:
+        a = layer["mla"]
+        out.append(f"layer 0, MLA at decode step {SPY_STEP}, {a['lanes']} "
+                   f"live lanes: absorbed decode at {a['absorbed']:.3f} of "
+                   f"{BF16_REL} of float64 materialised attention, cache "
+                   f"rows at {a['cache']:.3f} of {CACHE_REL}")
+    if "moe" in layer:
+        m = layer["moe"]
+        out.append(f"layer 0: MoE routing equal to the plain routing in "
+                   f"{m['calls']} calls ({m['tokens']} tokens, {m['dropped']}"
+                   f" slots dropped), output at {m['out']:.3f} of "
+                   f"{BF16_REL}")
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def check_model_serve(torch, dev, rt, kernels, card: str, rows) -> dict:
+    """Every check of phase 10 or 11 (see the module docstring) over the
+    models ``rows``, each model's weights freed before the next one's are
+    drawn. Returns each kernel's launches over the models' runs; raises
+    once, naming every model that failed and each of its checks."""
+    out, fails = {}, []
+    for row in rows:
+        try:
+            out[row.arch] = model_serve(torch, dev, rt, kernels, row, card)
+        except Mismatch as exc:
+            print(f"  FAILED: {exc}", flush=True)
+            fails.append(str(exc))
         torch.cuda.empty_cache()
+    if fails:
+        raise Mismatch(" | ".join(fails))
     return {name: sum(c[name] for c in out.values()) for name in kernels}
 
 
@@ -2880,11 +3594,21 @@ def main() -> int:
         print(f"[10] serving the dense models at full width ({card})",
               flush=True)
         t0 = time.perf_counter()
-        s10 = check_model_serve(torch, dev, rt, {
+        serve_kernels = {
             "hmmu_lookup": hl.KERNEL, "chunk_step": cs.KERNEL,
             "flash_attention": fa.KERNEL, "decode_attention": da.KERNEL,
-            "rwkv_scan": rw.KERNEL}, card)
+            "rwkv_scan": rw.KERNEL}
+        s10 = check_model_serve(torch, dev, rt, serve_kernels, card,
+                                DENSE_SERVES)
         print(f"    phase 10 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        print(f"[11] serving rwkv6, hymba, deepseek-v2 and phi3.5-moe at "
+              f"full width ({card})", flush=True)
+        t0 = time.perf_counter()
+        s11 = check_model_serve(torch, dev, rt, serve_kernels, card,
+                                FAMILY_SERVES)
+        print(f"    phase 11 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
@@ -2897,6 +3621,7 @@ def main() -> int:
              "policy_launches": s9["policies"]["off_launches"],
              "memtier_launches": s9["tiered"]["off_launches"],
              "model_serve_launches": s10["hmmu_lookup"],
+             "family_serve_launches": s11["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -2908,6 +3633,7 @@ def main() -> int:
              "policy_launches": s9["policies"]["auto_launches"],
              "memtier_launches": s9["tiered"]["auto_launches"],
              "model_serve_launches": s10["chunk_step"],
+             "family_serve_launches": s11["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},

@@ -9,9 +9,9 @@ leading design-point axis (a sweep's stacked params, states and plans).
 This plays the part weights play for a model: both sides start from the
 same, possibly adversarial, state.
 
-``model_params_from_numpy`` carries a model's parameters across the same
-way: the JAX package's ``init_params`` tree as numpy arrays, shapes and
-dtypes kept (bfloat16 included).
+``model_params_from_numpy`` carries a model's parameters (or a decode
+cache) across the same way: the JAX package's ``init_params`` tree as
+numpy arrays, shapes and dtypes kept (bfloat16 included).
 """
 from __future__ import annotations
 
@@ -77,11 +77,14 @@ def faults_to_numpy(plan: FaultPlan) -> dict:
 
 def model_params_from_numpy(tree, device=None):
     """A model's parameter tree (nested dicts of numpy arrays, the JAX
-    package's ``init_params`` after ``np.asarray``) -> the same tree of
-    tensors on ``device``, bit for bit."""
+    package's ``init_params`` after ``np.asarray``), or a decode cache
+    (Hymba's is a tuple of per-layer dicts) -> the same tree of tensors
+    on ``device``, bit for bit."""
     if isinstance(tree, dict):
         return {k: model_params_from_numpy(v, device)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(model_params_from_numpy(v, device) for v in tree)
     a = np.array(tree, order="C", copy=True)
     if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: no torch view
         return torch.from_numpy(a.view(np.uint16)).view(

@@ -36,6 +36,22 @@ class Request:
     done: bool = False
 
 
+def splice(dst, src, slot: int) -> None:
+    """Copy lane 0 of a one-lane cache ``src`` into lane ``slot`` of
+    ``dst``, in place. The stacked caches (``[L, B, ...]`` leaves) hold
+    the lane on axis 1; Hymba's tuple of per-layer dicts (``[B, ...]``
+    leaves) holds it on axis 0. (The reference splices every family on
+    axis 1, which for Hymba writes the lane into the heads, conv taps or
+    channels of every lane: a divergence the port does not copy.)"""
+    if isinstance(dst, tuple):
+        for dst_l, src_l in zip(dst, src):
+            for name, t in dst_l.items():
+                t[slot].copy_(src_l[name][0])
+        return
+    for name, t in dst.items():
+        t[:, slot].copy_(src[name][:, 0])
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch_size: int = 4,
                  smax: int = 256, emu_cfg: EmulatorConfig | None = None,
@@ -96,8 +112,7 @@ class ServeEngine:
                 prompt = torch.as_tensor(req.prompt, device=self.device)[None]
                 logits, cache1, pos1 = self._prefill(self.params, prompt)
                 # splice lane 0 of the fresh cache into this slot, in place
-                for name, dst in self.cache.items():
-                    dst[:, slot].copy_(cache1[name][:, 0])
+                splice(self.cache, cache1, slot)
                 self.pos[slot] = pos1[0]
                 nxt = logits[0].argmax()
                 self.tokens[slot] = nxt

@@ -1,13 +1,16 @@
 """The model zoo of the port (PyTorch counterpart of ``repro.models``):
-the dense GQA family (``transformer``: init, prefill, decode) over plain
-PyTorch layers, and RWKV6's chunked scan (``rwkv.rwkv_chunk_scan``, the
-plain version of the RWKV kernel). The other block families and MoE wait
-for later slices (ROADMAP §1 items 3.2 and 3.3)."""
+every family of the reference over plain PyTorch layers. ``transformer``
+assembles init, prefill and decode for dense GQA, MLA (``mla``), RWKV6
+(``rwkv``, whose chunked scan is also the plain version of the RWKV
+kernel) and Hymba's attention + Mamba (``mamba``), with SwiGLU, RWKV
+channel-mix or mixture-of-experts (``moe``, the dense path) FFNs.
+Training and the multi-card paths wait for later slices (ROADMAP §1
+items 5 and 1)."""
 from .config import ModelConfig, MoEConfig, MLAConfig, SSMConfig
 from .sharding import ShardCtx
 from .transformer import (init_params, forward_seq, prefill, decode_step,
-                          init_cache, layer_windows)
+                          init_cache, layer_windows, hymba_cache_sizes)
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "ShardCtx",
            "init_params", "forward_seq", "prefill", "decode_step",
-           "init_cache", "layer_windows"]
+           "init_cache", "layer_windows", "hymba_cache_sizes"]

@@ -5,8 +5,8 @@ One dataclass describes dense GQA transformers, MoE (standard and
 MLA/DeepSeek-style), RWKV6, hybrid attention+SSM (Hymba), sliding-window
 interleaves (Gemma3), and modality-stub backbones (Phi-3-vision,
 MusicGen). The fields and ``n_params`` are the reference's; ``pdtype``
-and ``adtype`` are torch dtypes. The port's model runs the dense ``gqa``
-family so far (``transformer.py``).
+and ``adtype`` are torch dtypes. The port's model runs every family
+(``transformer.py``).
 """
 from __future__ import annotations
 

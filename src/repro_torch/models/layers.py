@@ -11,6 +11,7 @@ under ``fp32_accumulation``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -21,25 +22,43 @@ from .config import ModelConfig
 from .sharding import ShardCtx
 
 
-def fp32_accumulation(fn):
-    """Run ``fn`` with cuBLAS's reduced-precision reduction of bfloat16
-    products switched off, then restore the caller's setting. PyTorch's
+@contextlib.contextmanager
+def fp32_sums():
+    """Inside, cuBLAS's reduced-precision reduction of bfloat16 products is
+    switched off; the caller's setting is restored on leaving. PyTorch's
     default (``torch.backends.cuda.matmul.
     allow_bf16_reduced_precision_reduction``) lets cuBLAS sum a split-K
     product's partials in bfloat16; the reference accumulates in float32.
     The switch is process-wide: a product another thread runs meanwhile
     accumulates in float32 too."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = saved
+
+
+def fp32_accumulation(fn):
+    """Run ``fn`` under ``fp32_sums``."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        mm = torch.backends.cuda.matmul
-        if not mm.allow_bf16_reduced_precision_reduction:
+        with fp32_sums():
             return fn(*args, **kwargs)
-        mm.allow_bf16_reduced_precision_reduction = False
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            mm.allow_bf16_reduced_precision_reduction = True
     return run
+
+
+def write_row(cache: torch.Tensor, bidx: torch.Tensor, pos: torch.Tensor,
+              x: torch.Tensor) -> None:
+    """``cache[b, pos[b]] = x[b]`` in place for a ``[B, smax, ...]`` cache
+    (or a view of one with the position axis second), dropped for a lane
+    whose ``pos`` is past the capacity: that lane rewrites its last row
+    with the value it holds, so nothing reads or writes out of range."""
+    smax = cache.shape[1]
+    slot = pos.clamp(max=smax - 1)
+    keep = (pos < smax).reshape(-1, *[1] * (x.dim() - 1))
+    cache[bidx, slot] = torch.where(keep, x, cache[bidx, slot])
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,23 +1,29 @@
-"""Model assembly for the dense GQA family: init, the full-sequence
-forward, prefill and decode (the port's counterpart of
+"""Model assembly for every family: init, the full-sequence forward,
+prefill and decode (the port's counterpart of
 ``repro.models.transformer``).
 
+The block families are dense GQA (``layers``), MLA (``mla``), RWKV6
+(``rwkv``) and Hymba's parallel attention + Mamba (``mamba``); the FFN is
+a SwiGLU, RWKV's channel mix, or a mixture of experts (``moe``).
 Parameters are stacked over layers (``[L, ...]``, the reference's scan
 layout) and the layer scan is a Python loop over that axis. Per-layer
-heterogeneity (gemma3's 5:1 local:global interleave) rides through
-``layer_windows``: one ``Optional[int]`` a layer, None for a global
-layer (the reference's ``NO_WINDOW`` sentinel).
+heterogeneity (gemma3's 5:1 local:global interleave, Hymba's global
+layers) rides through ``layer_windows``: one ``Optional[int]`` a layer,
+None for a global layer (the reference's ``NO_WINDOW`` sentinel).
 
 Cache convention: ``pos`` = number of tokens already in the cache. A
 decode step writes the new token's state at index ``pos`` and attends
-over ``pos + 1`` entries. The port updates the cache in place and
-returns it. A lane whose ``pos`` has passed the cache's capacity (an
-idle serving lane, which every step still advances) has its write
-dropped, as the reference's out-of-range scatter is, with no device
-assert and no host synchronisation.
+over ``pos + 1`` entries. The caches are stacked over layers
+(``{"k", "v"}``, ``{"c_kv", "k_rope"}``, ``{"state", "prev_att",
+"prev_ffn"}``), except Hymba's: a tuple of per-layer dicts, whose local
+layers hold ring buffers of the window (``hymba_cache_sizes``). The port
+updates the cache in place and returns it. A lane whose ``pos`` has
+passed the cache's capacity (an idle serving lane, which every step
+still advances) has its write dropped, as the reference's out-of-range
+scatter is, with no device assert and no host synchronisation; a Hymba
+ring wraps instead, as in the reference.
 
-The ``mla``, ``rwkv6`` and ``hymba`` block families and MoE FFNs raise
-``NotImplementedError``; training (``loss_fn``) waits for its slice.
+Training (``loss_fn``) waits for its slice (ROADMAP §1 item 5).
 """
 from __future__ import annotations
 
@@ -26,33 +32,31 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from . import layers
+from . import layers, mamba as mamba_lib, mla as mla_lib, moe as moe_lib
+from . import rwkv as rwkv_lib
 from .config import ModelConfig
 from .decode import dist_decode
 from .sharding import ShardCtx
 
-# Where the families the port does not run yet are queued.
-_QUEUED = {"rwkv6": "ROADMAP §1 item 3.2", "mla": "ROADMAP §1 item 3.3",
-           "hymba": "ROADMAP §1 item 3.3"}
+FAMILIES = ("gqa", "mla", "rwkv6", "hymba")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.attn_type != "gqa":
-        where = _QUEUED.get(cfg.attn_type)
-        if where is None:
-            raise ValueError(cfg.attn_type)
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.attn_type!r} block family is not ported "
-            f"yet ({where})")
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP §1 item 3.3)")
+def _family(cfg: ModelConfig) -> str:
+    if cfg.attn_type not in FAMILIES:
+        raise ValueError(cfg.attn_type)
+    return cfg.attn_type
+
+
+def _index(tree, l: int):
+    """Layer ``l`` of a stacked tree (views into the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, l) for k, v in tree.items()}
+    return tree[l]
 
 
 def _layer(params: dict, l: int) -> dict:
     """Layer ``l``'s parameters (views into the stacked tensors)."""
-    return {blk: {k: v[l] for k, v in p.items()}
-            for blk, p in params["layers"].items()}
+    return _index(params["layers"], l)
 
 
 # --------------------------------------------------------------------------- #
@@ -60,45 +64,121 @@ def _layer(params: dict, l: int) -> dict:
 # --------------------------------------------------------------------------- #
 
 def _dense(gen: torch.Generator, shape, dtype, device, scale=0.02):
-    """N(0, scale^2) drawn in float32 and cast, one leading slice at a time
-    for stacked ``[L, ...]`` weights (a layer's float32 draw at a time)."""
+    """N(0, scale^2) drawn in float32 and cast, one matrix (the last two
+    axes) at a time for stacked weights: a layer's float32 draw at a
+    time, or an expert's for ``[L, E, ...]``."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    rows = out if len(shape) == 3 else out[None]
+    rows = out.reshape(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
     for row in rows:
         row.copy_(torch.randn(row.shape, generator=gen, device=device,
                               dtype=torch.float32) * scale)
     return out
 
 
+def _init_attn(cfg: ModelConfig, ones, dense) -> dict:
+    d, hd, L = cfg.d_model, cfg.head_dim_, cfg.n_layers
+    return {"norm": ones(L, d),
+            "wq": dense(L, d, cfg.n_heads * hd),
+            "wk": dense(L, d, cfg.n_kv_heads * hd),
+            "wv": dense(L, d, cfg.n_kv_heads * hd),
+            "wo": dense(L, cfg.n_heads * hd, d)}
+
+
+def _init_mla(cfg: ModelConfig, ones, dense) -> dict:
+    m = cfg.mla
+    d, h, L = cfg.d_model, cfg.n_heads, cfg.n_layers
+    qk = m.nope_head_dim + m.rope_head_dim
+    return {"norm": ones(L, d),
+            "wq_a": dense(L, d, m.q_lora_rank),
+            "q_norm": ones(L, m.q_lora_rank),
+            "wq_b": dense(L, m.q_lora_rank, h * qk),
+            "wkv_a": dense(L, d, m.kv_lora_rank + m.rope_head_dim),
+            "kv_norm": ones(L, m.kv_lora_rank),
+            "wk_b": dense(L, m.kv_lora_rank, h * m.nope_head_dim),
+            "wv_b": dense(L, m.kv_lora_rank, h * m.v_head_dim),
+            "wo": dense(L, h * m.v_head_dim, d)}
+
+
+def _init_rwkv(cfg: ModelConfig, ones, dense, full, device) -> dict:
+    d, h, L = cfg.d_model, cfg.n_heads, cfg.n_layers
+    base = torch.linspace(-6.0, -1.0, d, dtype=torch.float32, device=device)
+    p = {"norm": ones(L, d)}
+    p.update({f"mu_{n}": full(0.5, L, d) for n in "rkvwg"})
+    p.update({f"w_{n}": dense(L, d, d) for n in "rkvgo"})
+    p.update({"decay_a": dense(L, d, 64), "decay_b": dense(L, 64, d),
+              "decay_base": base.repeat(L, 1),
+              "u": dense(L, h, d // h, scale=0.1),
+              "gn_w": ones(L, d)})
+    return p
+
+
+def _init_hymba(cfg: ModelConfig, ones, dense, device) -> dict:
+    d, L = cfg.d_model, cfg.n_layers
+    di = cfg.n_heads * cfg.head_dim_
+    n = cfg.ssm.d_state
+    r = mamba_lib._dt_rank(cfg)
+    att = _init_attn(cfg, ones, dense)
+    del att["wo"]
+    f32 = dict(dtype=torch.float32, device=device)
+    a = torch.log(torch.arange(1, n + 1, **f32))
+    mamba = {"in_proj": dense(L, d, 2 * di),
+             "conv_w": dense(L, di, cfg.ssm.d_conv, scale=0.2),
+             "x_proj": dense(L, di, r + 2 * n),
+             "dt_proj": dense(L, r, di),
+             "dt_bias": torch.full((L, di), -4.6, **f32),  # softplus^-1(0.01)
+             "a_log": a.expand(L, di, n).contiguous(),
+             "d_skip": torch.ones((L, di), **f32)}
+    return {**att, "mamba": mamba, "attn_out_norm": ones(L, di),
+            "ssm_out_norm": ones(L, di), "wo": dense(L, di, d)}
+
+
+def _init_mlp(cfg: ModelConfig, ones, dense, full) -> dict:
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.attn_type == "rwkv6":        # RWKV's channel mix
+        return {"norm": ones(L, d), "mu_k": full(0.5, L, d),
+                "mu_r": full(0.5, L, d), "w_k": dense(L, d, cfg.d_ff),
+                "w_v": dense(L, cfg.d_ff, d), "w_r": dense(L, d, d)}
+    if cfg.moe:
+        e = cfg.moe
+        p = {"norm": ones(L, d), "router": dense(L, d, e.n_experts),
+             "w_in": dense(L, e.n_experts, d, e.d_ff_expert),
+             "w_gate": dense(L, e.n_experts, d, e.d_ff_expert),
+             "w_out": dense(L, e.n_experts, e.d_ff_expert, d)}
+        if e.n_shared:
+            p["shared"] = {"w_in": dense(L, d, e.d_ff_shared),
+                           "w_gate": dense(L, d, e.d_ff_shared),
+                           "w_out": dense(L, e.d_ff_shared, d)}
+        return p
+    return {"norm": ones(L, d), "w_in": dense(L, d, cfg.d_ff),
+            "w_gate": dense(L, d, cfg.d_ff), "w_out": dense(L, cfg.d_ff, d)}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device=None) -> dict:
     """Random parameters in the reference's tree layout, shapes and
-    dtypes, drawn from ``gen`` (a ``torch.Generator`` on ``device``).
-    ``device``: ``cuda`` unless the caller asks for the CPU."""
-    _check_family(cfg)
+    dtypes (RWKV's ``decay_base`` and Mamba's ``dt_bias``, ``a_log`` and
+    ``d_skip`` stay float32), drawn from ``gen`` (a ``torch.Generator`` on
+    ``device``). ``device``: ``cuda`` unless the caller asks for the
+    CPU."""
+    family = _family(cfg)
     device = resolve_device(device)
     dt = cfg.pdtype
-    d, hd, L = cfg.d_model, cfg.head_dim_, cfg.n_layers
+    d = cfg.d_model
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
-    dense = lambda *shape: _dense(gen, shape, dt, device)
+    full = lambda value, *shape: torch.full(shape, value, dtype=dt,
+                                            device=device)
+    dense = lambda *shape, scale=0.02: _dense(gen, shape, dt, device, scale)
     embed = {"tokens": dense(cfg.vocab, d)}
     if cfg.frontend == "frames":
         embed["frames"] = dense(cfg.frame_dim, d)
-    params = {
-        "embed": embed,
-        "layers": {
-            "attn": {"norm": ones(L, d),
-                     "wq": dense(L, d, cfg.n_heads * hd),
-                     "wk": dense(L, d, cfg.n_kv_heads * hd),
-                     "wv": dense(L, d, cfg.n_kv_heads * hd),
-                     "wo": dense(L, cfg.n_heads * hd, d)},
-            "mlp": {"norm": ones(L, d),
-                    "w_in": dense(L, d, cfg.d_ff),
-                    "w_gate": dense(L, d, cfg.d_ff),
-                    "w_out": dense(L, cfg.d_ff, d)},
-        },
-        "final_norm": ones(d),
-    }
+    attn = {"gqa": lambda: _init_attn(cfg, ones, dense),
+            "mla": lambda: _init_mla(cfg, ones, dense),
+            "rwkv6": lambda: _init_rwkv(cfg, ones, dense, full, device),
+            "hymba": lambda: _init_hymba(cfg, ones, dense, device)}[family]
+    params = {"embed": embed,
+              "layers": {"attn": attn(),
+                         "mlp": _init_mlp(cfg, ones, dense, full)},
+              "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.vocab)
     return params
@@ -130,13 +210,35 @@ def _windows(cfg: ModelConfig) -> list:
 # --------------------------------------------------------------------------- #
 
 def _seq_block(cfg: ModelConfig, sh: ShardCtx, positions, p, x, window):
-    """One layer over the full sequence. Returns (x, cache_entry)."""
+    """One layer over the full sequence. Returns (x, cache_entry, aux)."""
+    family = _family(cfg)
     h = layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps)
-    a, cache = layers.gqa_attention(cfg, p["attn"], h, sh, positions, window)
+    if family == "gqa":
+        a, cache = layers.gqa_attention(cfg, p["attn"], h, sh, positions,
+                                        window)
+    elif family == "mla":
+        a, cache = mla_lib.mla_attention(cfg, p["attn"], h, sh, positions,
+                                         window)
+    elif family == "hymba":
+        a, cache = mamba_lib.hymba_block(cfg, p["attn"], h, sh, positions,
+                                         window)
+    else:
+        prev = x.new_zeros((x.shape[0], x.shape[2]))
+        a, prev_att, state = rwkv_lib.rwkv_time_mix(cfg, p["attn"], h, sh,
+                                                    prev)
+        cache = {"state": state, "prev_att": prev_att}
     x = x + a
     h2 = layers.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps)
-    x = x + layers.swiglu(h2, p["mlp"], sh, cfg.adtype)
-    return x, cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if family == "rwkv6":
+        prev = x.new_zeros((x.shape[0], x.shape[2]))
+        m, cache["prev_ffn"] = rwkv_lib.rwkv_channel_mix(cfg, p["mlp"], h2,
+                                                         sh, prev)
+    elif cfg.moe:
+        m, aux = moe_lib.moe_block(cfg, p["mlp"], h2, sh)
+    else:
+        m = layers.swiglu(h2, p["mlp"], sh, cfg.adtype)
+    return x + m, cache, aux
 
 
 def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
@@ -150,21 +252,56 @@ def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 def forward_seq(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
                 sh: ShardCtx, *, collect_cache: bool):
     """inputs: int tokens [B,S] or frames [B,S,frame_dim].
-    Returns (x_final [B,S,D], stacked cache | None, aux_mean): the cache
-    is ``{"k", "v"}`` of ``[L, B, Hkv, S, Dh]``; aux is 0 (no MoE)."""
-    _check_family(cfg)
+    Returns (x_final [B,S,D], cache | None, aux_mean): the cache is each
+    layer's entry stacked over layers (gqa ``{"k", "v"}`` of ``[L, B,
+    Hkv, S, Dh]``; mla ``{"c_kv", "k_rope"}``; rwkv6 ``{"state",
+    "prev_att", "prev_ffn"}``; hymba ``{"k", "v", "conv", "ssm"}``); aux
+    is the mean over layers of the MoE load-balance loss (0 without
+    MoE)."""
     x = _embed(cfg, params, inputs, sh, frames_ndim=3)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    caches, auxes = [], []
     for l, window in enumerate(_windows(cfg)):
-        x, kv = _seq_block(cfg, sh, positions, _layer(params, l), x, window)
+        x, c, aux = _seq_block(cfg, sh, positions, _layer(params, l), x,
+                               window)
+        auxes.append(aux)
         if collect_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+            caches.append(c)
+    cache = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
              if collect_cache else None)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, torch.stack(auxes).mean()
+
+
+def _pad_seq(c: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    """``c`` zero-padded along ``axis`` to ``size``."""
+    shape = list(c.shape)
+    shape[axis] = size
+    out = c.new_zeros(shape)
+    out.narrow(axis, 0, c.shape[axis]).copy_(c)
+    return out
+
+
+def _hymba_rings(cfg: ModelConfig, cache: dict, smax: int) -> tuple:
+    """The stacked prefill cache -> per-layer dicts whose k/v are ring
+    buffers (slot = position % size): a prompt longer than a layer's ring
+    keeps its last ``size`` rows, restacked to their slots."""
+    s = cache["k"].shape[3]
+    out = []
+    for l, size in enumerate(hymba_cache_sizes(cfg, smax)):
+        ring = {}
+        for name in ("k", "v"):
+            c = cache[name][l]                            # [B,Hkv,S,Dh]
+            if size >= s:
+                ring[name] = _pad_seq(c, 2, size)
+            else:
+                ps = torch.arange(s - size, s, device=c.device)
+                r = c.new_zeros((*c.shape[:2], size, c.shape[3]))
+                r[:, :, ps % size] = c[:, :, ps]
+                ring[name] = r
+        out.append({**ring, "conv": cache["conv"][l],
+                    "ssm": cache["ssm"][l]})
+    return tuple(out)
 
 
 @layers.fp32_accumulation
@@ -172,15 +309,17 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             sh: ShardCtx, smax: int):
     """Build a decode cache of capacity ``smax`` from a full prompt.
     Returns (last_logits [B,V], cache, pos int32 [B])."""
+    family = _family(cfg)
     x, cache, _ = forward_seq(cfg, params, inputs, sh, collect_cache=True)
     b, s = x.shape[:2]
-    if s > smax:
+    if family in ("gqa", "mla") and s > smax:
         raise ValueError(f"prompt of {s} tokens past the cache's {smax}")
-    for name in ("k", "v"):
-        c = cache[name]
-        padded = c.new_zeros((*c.shape[:3], smax, c.shape[4]))
-        padded[:, :, :, :s] = c
-        cache[name] = padded
+    if family == "gqa":
+        cache = {n: _pad_seq(c, 3, smax) for n, c in cache.items()}
+    elif family == "mla":
+        cache = {n: _pad_seq(c, 2, smax) for n, c in cache.items()}
+    elif family == "hymba":
+        cache = _hymba_rings(cfg, cache, smax)
     logits = layers.lm_logits(cfg, params, x[:, -1:], sh)[:, 0]
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, pos
@@ -190,68 +329,137 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
 # decode
 # --------------------------------------------------------------------------- #
 
+def hymba_cache_sizes(cfg: ModelConfig, smax: int) -> tuple:
+    """Per-layer KV capacities: ring buffers of the sliding window for
+    local layers, the full ``smax`` for the global-attention layers."""
+    w = cfg.window or smax
+    return tuple(smax if l in cfg.hymba_global_layers else min(w, smax)
+                 for l in range(cfg.n_layers))
+
+
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None):
-    """Empty decode cache (capacity smax), stacked over layers:
-    ``{"k", "v"}`` of ``[L, B, Hkv, smax, Dh]`` in the activation dtype."""
-    _check_family(cfg)
-    kv = (cfg.n_layers, batch, cfg.n_kv_heads, smax, cfg.head_dim_)
+    """Empty decode cache (capacity smax) in the activation dtype (RWKV's
+    and Mamba's recurrent states in float32): stacked over layers, except
+    Hymba's, a tuple of per-layer dicts (ring buffers of different
+    sizes)."""
+    family = _family(cfg)
     device = resolve_device(device)
-    return {"k": torch.zeros(kv, dtype=cfg.adtype, device=device),
-            "v": torch.zeros(kv, dtype=cfg.adtype, device=device)}
+    L, b, hd = cfg.n_layers, batch, cfg.head_dim_
+    zeros = lambda *shape, dtype=cfg.adtype: torch.zeros(
+        shape, dtype=dtype, device=device)
+    if family == "gqa":
+        return {"k": zeros(L, b, cfg.n_kv_heads, smax, hd),
+                "v": zeros(L, b, cfg.n_kv_heads, smax, hd)}
+    if family == "mla":
+        m = cfg.mla
+        return {"c_kv": zeros(L, b, smax, m.kv_lora_rank),
+                "k_rope": zeros(L, b, smax, m.rope_head_dim)}
+    if family == "rwkv6":
+        h = cfg.n_heads
+        dh = cfg.d_model // h
+        return {"state": zeros(L, b, h, dh, dh, dtype=torch.float32),
+                "prev_att": zeros(L, b, cfg.d_model),
+                "prev_ffn": zeros(L, b, cfg.d_model)}
+    di = cfg.n_heads * hd
+    return tuple({"k": zeros(b, cfg.n_kv_heads, size, hd),
+                  "v": zeros(b, cfg.n_kv_heads, size, hd),
+                  "conv": zeros(b, cfg.ssm.d_conv - 1, di),
+                  "ssm": zeros(b, di, cfg.ssm.d_state, dtype=torch.float32)}
+                 for size in hymba_cache_sizes(cfg, smax))
 
 
-def _write_token(cache: torch.Tensor, bidx: torch.Tensor, pos: torch.Tensor,
-                 x: torch.Tensor) -> None:
-    """``cache[b, :, pos[b]] = x[b]`` in place, dropped for a lane whose
-    ``pos`` is past the capacity: that lane rewrites its last slot with
-    the value it holds, so nothing reads or writes out of range."""
-    smax = cache.shape[2]
-    slot = pos.clamp(max=smax - 1)
-    keep = (pos < smax)[:, None, None]
-    cache[bidx, :, slot] = torch.where(keep, x, cache[bidx, :, slot])
+def _layer_cache(cache, l: int) -> dict:
+    """Layer ``l``'s cache: views into the stacked tensors (Hymba: the
+    layer's own dict)."""
+    return cache[l] if isinstance(cache, tuple) else _index(cache, l)
 
 
-def _decode_block(cfg: ModelConfig, sh: ShardCtx, p, x, ck, cv, pos,
-                  window, cos, sin, bidx):
-    """One layer, one token. x [B,1,D]; ck/cv: this layer's cache
-    ``[B,Hkv,smax,Dh]``, written in place; cos/sin ``[B,1,1,Dh/2]``, the
-    RoPE tables at ``pos``; bidx ``arange(B)``. Returns x."""
-    b = x.shape[0]
+def _gqa_decode(cfg: ModelConfig, sh: ShardCtx, p, h, ck, cv, pos, window,
+                cos, sin, bidx):
+    """GQA attention of one token. h [B,1,D] (normed); ck/cv: this layer's
+    cache ``[B,Hkv,smax,Dh]``, written in place; cos/sin ``[B,1,1,Dh/2]``,
+    the RoPE tables at ``pos``. Returns the attention output [B,1,D]."""
+    b = h.shape[0]
     hd = cfg.head_dim_
     adtype = cfg.adtype
-    h = layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps)
-    k = (h @ p["attn"]["wk"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
-    v = (h @ p["attn"]["wv"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
+    k = (h @ p["wk"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
+    v = (h @ p["wv"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
     k = layers.apply_rope(k[:, :, None], cos, sin)[:, :, 0]
     posl = pos.long()
-    _write_token(ck, bidx, posl, k)
-    _write_token(cv, bidx, posl, v)
-    q = (h @ p["attn"]["wq"].to(adtype)).reshape(b, cfg.n_heads, hd)
+    # the caches' position axis second: [B, smax, Hkv, Dh] views
+    layers.write_row(ck.transpose(1, 2), bidx, posl, k)
+    layers.write_row(cv.transpose(1, 2), bidx, posl, v)
+    q = (h @ p["wq"].to(adtype)).reshape(b, cfg.n_heads, hd)
     q = layers.apply_rope(q[:, :, None], cos, sin)[:, :, 0]
     o = dist_decode(q, ck, cv, pos + 1, sh=sh, window=window)
     o = o.to(adtype).reshape(b, 1, cfg.n_heads * hd)
-    x = x + o @ p["attn"]["wo"].to(adtype)
+    return o @ p["wo"].to(adtype)
+
+
+def _decode_block(cfg: ModelConfig, sh: ShardCtx, p, x, c: dict, pos,
+                  window, rope, bidx):
+    """One layer, one token. x [B,1,D]; c: this layer's cache (views),
+    written in place; rope: gqa's (cos, sin) at ``pos``; bidx
+    ``arange(B)``. Returns x."""
+    family = _family(cfg)
+    new_len = pos + 1
+    h = layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps)
+    if family == "gqa":
+        a = _gqa_decode(cfg, sh, p["attn"], h, c["k"], c["v"], pos, window,
+                        *rope, bidx)
+    elif family == "mla":
+        mla_lib.mla_write_cache(cfg, p["attn"], h, c, new_len)
+        a, _ = mla_lib.mla_decode(cfg, p["attn"], h, sh, c, new_len)
+    elif family == "hymba":
+        # The ring write: slot = pos % capacity; attention then covers
+        # min(pos + 1, capacity) slots with no further window mask (the
+        # ring is the window of a local layer).
+        size = c["k"].shape[2]
+        mamba_lib.hymba_write_kv(cfg, p["attn"], h, c, new_len,
+                                 slot=pos % size)
+        eff_len = torch.clamp(new_len, max=size)
+        a, _ = mamba_lib.hymba_decode(cfg, p["attn"], h, sh, c, new_len,
+                                      eff_len)
+    else:
+        a, prev_att, state = rwkv_lib.rwkv_decode_step(
+            cfg, p["attn"], h, sh, c["prev_att"], c["state"])
+        c["prev_att"].copy_(prev_att)
+        c["state"].copy_(state)
+    x = x + a
     h2 = layers.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps)
-    return x + layers.swiglu(h2, p["mlp"], sh, adtype)
+    if family == "rwkv6":
+        m, _ = rwkv_lib.rwkv_channel_mix(cfg, p["mlp"], h2, sh,
+                                         c["prev_ffn"])
+        c["prev_ffn"].copy_(h2[:, 0])
+    elif cfg.moe:
+        m, _ = moe_lib.moe_block(cfg, p["mlp"], h2, sh)
+    else:
+        m = layers.swiglu(h2, p["mlp"], sh, cfg.adtype)
+    return x + m
 
 
 @layers.fp32_accumulation
 def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-                cache: dict, pos: torch.Tensor, sh: ShardCtx):
+                cache, pos: torch.Tensor, sh: ShardCtx):
     """One new token for every sequence in the batch.
 
     inputs: int [B] token ids (or [B, frame_dim] frames); cache: from
     init_cache/prefill, updated in place; pos: int32 [B] tokens already
     cached. Returns (logits [B,V], cache, pos+1).
     """
-    _check_family(cfg)
+    family = _family(cfg)
     x = _embed(cfg, params, inputs[:, None], sh, frames_ndim=3)
-    cos, sin = layers.rope_tables(pos.float()[:, None], cfg.head_dim_,
-                                  cfg.rope_theta)
-    cos, sin = cos[:, None], sin[:, None]
+    rope = None
+    if family == "gqa":
+        cos, sin = layers.rope_tables(pos.float()[:, None], cfg.head_dim_,
+                                      cfg.rope_theta)
+        rope = (cos[:, None], sin[:, None])
     bidx = torch.arange(x.shape[0], device=x.device)
-    for l, window in enumerate(_windows(cfg)):
-        x = _decode_block(cfg, sh, _layer(params, l), x, cache["k"][l],
-                          cache["v"][l], pos, window, cos, sin, bidx)
+    # Hymba's local layers attend over their rings: no window mask.
+    windows = ([None] * cfg.n_layers if family == "hymba"
+               else _windows(cfg))
+    for l, window in enumerate(windows):
+        x = _decode_block(cfg, sh, _layer(params, l), x,
+                          _layer_cache(cache, l), pos, window, rope, bidx)
     logits = layers.lm_logits(cfg, params, x, sh)[:, 0]
     return logits, cache, pos + 1

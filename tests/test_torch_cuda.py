@@ -641,13 +641,17 @@ def _close(got, want, rel=1e-5):
     assert float((got - want).abs().max()) <= rel * scale
 
 
+FAMILIES = ["deepseek_v2_236b", "rwkv6_7b", "hymba_1p5b", "phi35_moe_42b"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_dense_model_on_the_card_equals_the_cpu(cuda_device, arch):
-    """The six dense smoke configurations (float32): ``forward_seq``,
-    ``prefill`` and teacher-forced ``decode_step`` on the card against
-    the port on the CPU, same parameters, within 1e-5 of each tensor's
-    largest magnitude."""
+    """The ten smoke configurations (float32; MLA, MoE, RWKV6 and Hymba
+    too): ``forward_seq``, ``prefill`` and teacher-forced ``decode_step``
+    on the card against the port on the CPU, same parameters, within 1e-5
+    of each tensor's largest magnitude (every cache leaf; MoE routing
+    must agree for that)."""
     from repro_torch import configs
     _dense_card_vs_cpu(cuda_device, configs.get_smoke(arch), 1e-5)
 
@@ -695,8 +699,16 @@ def _dense_card_vs_cpu(cuda_device, cfg, rel):
     _close(cx, x, rel)
     for a, b in zip(csteps, steps):
         _close(a, b, rel)
-    for name in ("k", "v"):
-        _close(ccache[name], cache[name], rel)
+    for a, b in zip(_leaves(ccache), _leaves(cache)):
+        _close(a, b, rel)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def _to(tree, dev):

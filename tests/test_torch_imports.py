@@ -50,14 +50,17 @@ _SERVE = ("repro_torch.serve", "repro_torch.serve.buckets",
 # The tiered KV-cache accounting (``repro_torch.memtier``) too.
 _MEMTIER = ("repro_torch.memtier", "repro_torch.memtier.tiered_cache")
 
-# The dense model path, the serving engine over it and its launcher.
+# The model path (every family), the serving engine over it and its
+# launcher.
 _MODELS = ("repro_torch.device", "repro_torch.configs",
            "repro_torch.configs.shapes", "repro_torch.configs.minitron_8b",
            "repro_torch.configs.gemma3_4b", "repro_torch.models",
            "repro_torch.models.config", "repro_torch.models.sharding",
            "repro_torch.models.chunked_attention",
            "repro_torch.models.layers", "repro_torch.models.decode",
-           "repro_torch.models.transformer", "repro_torch.memtier.engine",
+           "repro_torch.models.transformer", "repro_torch.models.rwkv",
+           "repro_torch.models.moe", "repro_torch.models.mla",
+           "repro_torch.models.mamba", "repro_torch.memtier.engine",
            "repro_torch.launch", "repro_torch.launch.serve")
 
 

@@ -1,17 +1,22 @@
-"""The port's dense model path against the JAX package's, on the CPU.
+"""The port's model path against the JAX package's, on the CPU.
 
 Both sides start from the same parameters: ``repro.models.init_params``
 drawn by JAX, carried across as numpy arrays by
-``repro_torch.convert.model_params_from_numpy``. For each of the six dense
-smoke configurations (minitron-8b, phi3-mini, gemma3-4b with its 8-token
-window, internlm2, and the two frames frontends phi3-vision and
-musicgen), ``forward_seq``, ``prefill`` (logits and cache) and a
-teacher-forced run of ``decode_step`` are held to the reference under
-``jax.jit`` in float32 within ``F32_REL`` of the largest magnitude of each
-compared tensor (the two sides sum products in different orders; XLA
-also fuses multiply-adds). One bfloat16 case is held within ``BF16_REL``.
-The port's decode path is also held to its own sequence path, and
-``layer_windows`` and the configurations to the reference's.
+``repro_torch.convert.model_params_from_numpy``. For each of the ten
+smoke configurations (the six dense ones: minitron-8b, phi3-mini,
+gemma3-4b with its 8-token window, internlm2, and the two frames
+frontends phi3-vision and musicgen; and the four other families:
+deepseek-v2's MLA + MoE with shared experts, rwkv6, hymba's attention +
+Mamba with its 8-token ring, phi3.5-moe), ``forward_seq``, ``prefill``
+(logits and cache) and a teacher-forced run of ``decode_step`` are held
+to the reference under ``jax.jit`` in float32 within ``F32_REL`` of the
+largest magnitude of each compared tensor (the two sides sum products in
+different orders; XLA also fuses multiply-adds). The bfloat16 cases are
+held within ``BF16_REL``. The port's decode path is also held to its own
+sequence path, and ``layer_windows`` and the configurations to the
+reference's. The families' own pieces (MoE routing, the Hymba ring, the
+MLA absorbed decode, the recurrent states) have tests of their own in
+``test_torch_families.py``.
 """
 import dataclasses
 
@@ -38,6 +43,8 @@ from repro_torch.models import transformer as TT
 
 DENSE = ["minitron_8b", "phi3_mini_3p8b", "gemma3_4b", "internlm2_1p8b",
          "phi3_vision_4p2b", "musicgen_medium"]
+FAMILIES = ["deepseek_v2_236b", "rwkv6_7b", "hymba_1p5b", "phi35_moe_42b"]
+ARCHS = DENSE + FAMILIES
 # float32: 1e-5 of the compared tensor's largest magnitude.
 F32_REL = 1e-5
 # bfloat16 activations: every product and layer output rounds to 8 bits
@@ -54,6 +61,34 @@ def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def leaves(tree, path=""):
+    """(path, leaf) pairs of a nested dict / tuple tree, dict keys sorted
+    (JAX hands dicts back with sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def close_tree(got, want, rel=F32_REL, what=""):
+    g, w = list(leaves(got)), list(leaves(want))
+    assert [p for p, _ in g] == [p for p, _ in w], what
+    for (path, a), (_, b) in zip(g, w):
+        _close(a, b, rel, what + path)
+
+
+def clone(tree):
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(clone(v) for v in tree)
+    return tree.clone()
 
 
 def _close(got, want, rel=F32_REL, what=""):
@@ -90,9 +125,9 @@ def _reference(arch, dtype=None):
                                               collect_cache=True))
     pre = jax.jit(lambda p, x: JT.prefill(cfg, p, x, JSH, SMAX))
     dec = jax.jit(lambda p, t, c, q: JT.decode_step(cfg, p, t, c, q, JSH))
-    x, cache, _ = fwd(params, prompt)
+    x, cache, aux = fwd(params, prompt)
     logits, c, pos = pre(params, prompt)
-    out = {"forward": (x, cache), "prefill": (logits, c, pos), "decode": []}
+    out = {"forward": (x, cache, aux), "prefill": (logits, c, pos), "decode": []}
     for t in steps:
         lg, c, pos = dec(params, t, c, pos)
         out["decode"].append(lg)
@@ -126,8 +161,7 @@ def _port_run(arch, dtype=None):
                                    collect_cache=True)
     logits, c, pos = TT.prefill(cfg, params, prompt, SH, SMAX)
     out = {"forward": (x, cache, aux),
-           "prefill": (logits, {k: v.clone() for k, v in c.items()}, pos),
-           "decode": []}
+           "prefill": (logits, clone(c), pos), "decode": []}
     for t in ref["steps"]:
         lg, c, pos = TT.decode_step(cfg, params, torch.from_numpy(t), c, pos,
                                     SH)
@@ -136,60 +170,78 @@ def _port_run(arch, dtype=None):
     return ref, out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_seq_matches_jax(arch):
+    """The final activations, every layer's cache entry (stacked) and the
+    MoE load-balance loss (0 without MoE)."""
     ref, got = _port_run(arch)
-    (x, cache, aux), (wx, wcache) = got["forward"], ref["forward"]
+    (x, cache, aux), (wx, wcache, waux) = got["forward"], ref["forward"]
     _close(x, wx, what="x")
-    for name in ("k", "v"):
-        _close(cache[name], wcache[name], what=name)
-    assert float(aux) == 0.0
+    close_tree(cache, wcache, what="cache")
+    assert aux.dtype == torch.float32
+    _close(aux, waux, what="aux")
+    assert (float(aux) == 0.0) == (ref["cfg"].moe is None)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_jax(arch):
+    """Logits, ``pos`` and the decode cache: padded to ``SMAX`` (gqa,
+    mla), recurrent states (rwkv6), Hymba's per-layer rings (the 12-token
+    prompt restacked into the local layer's 8-slot ring)."""
     ref, got = _port_run(arch)
     (logits, cache, pos), (wl, wc, wp) = got["prefill"], ref["prefill"]
     _close(logits, wl, what="logits")
-    for name in ("k", "v"):
-        assert cache[name].shape[3] == SMAX
-        _close(cache[name], wc[name], what=name)
+    close_tree(cache, wc, what="cache")
     assert pos.dtype == torch.int32
     np.testing.assert_array_equal(pos.numpy(), np.asarray(wp))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_teacher_forced_decode_matches_jax(arch):
     ref, got = _port_run(arch)
     for i, (lg, want) in enumerate(zip(got["decode"], ref["decode"])):
         _close(lg, want, what=f"step {i} logits")
     (c, pos), (wc, wp) = got["final"], ref["final"]
-    for name in ("k", "v"):
-        _close(c[name], wc[name], what=name)
+    close_tree(c, wc, what="cache")
     np.testing.assert_array_equal(pos.numpy(), np.asarray(wp))
 
 
-def test_bf16_prefill_and_decode_match_jax():
-    """minitron-8b's smoke shape in bfloat16 (parameters and activations):
-    logits and cache within ``BF16_REL``; the cache keeps bfloat16."""
-    ref, got = _port_run("minitron_8b", "bfloat16")
+@pytest.mark.parametrize("arch", ["minitron_8b", "rwkv6_7b", "hymba_1p5b"])
+def test_bf16_prefill_and_decode_match_jax(arch):
+    """A smoke shape in bfloat16 (parameters and activations): logits and
+    cache within ``BF16_REL``; the cache keeps bfloat16 (the recurrent
+    states float32, as in the reference)."""
+    ref, got = _port_run(arch, "bfloat16")
     (logits, cache, _), (wl, wc, _) = got["prefill"], ref["prefill"]
-    assert cache["k"].dtype == torch.bfloat16 and logits.dtype == \
-        torch.bfloat16
+    assert logits.dtype == torch.bfloat16
+    for (path, t), (_, w) in zip(leaves(cache), leaves(wc)):
+        assert str(t.dtype)[6:] == str(np.asarray(w).dtype), path
     _close(logits, wl, BF16_REL, "prefill logits")
-    for name in ("k", "v"):
-        _close(cache[name], wc[name], BF16_REL, name)
+    close_tree(cache, wc, BF16_REL, "prefill cache")
     for i, (lg, want) in enumerate(zip(got["decode"], ref["decode"])):
         _close(lg, want, BF16_REL, f"step {i} logits")
-    _close(got["final"][0]["k"], ref["final"][0]["k"], BF16_REL, "final k")
+    close_tree(got["final"][0], ref["final"][0], BF16_REL, "final cache")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def no_drops(cfg):
+    """``cfg`` with a MoE capacity factor of n_experts / top_k: every
+    expert holds every token of a call, so no path drops one (the
+    sequence path's capacity follows the prompt, the decode path's the
+    batch: with drops, the two route different tokens)."""
+    if cfg.moe is None:
+        return cfg
+    e = cfg.moe
+    return cfg.with_(moe=dataclasses.replace(
+        e, capacity_factor=e.n_experts / e.top_k))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_path_matches_sequence_path(arch):
     """The port alone: prefill a prompt, then decode the rest of a
     sequence token by token; each step's logits equal the full sequence's
-    at that position (float32, ``F32_REL``)."""
-    cfg = TC.get_smoke(arch)
+    at that position (float32, ``F32_REL``). MoE configurations run with
+    no capacity drops (``no_drops``)."""
+    cfg = no_drops(TC.get_smoke(arch))
     params = TT.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     rng = np.random.default_rng(4)
     full = torch.from_numpy(_inputs(cfg, rng, S + STEPS))
@@ -237,18 +289,6 @@ def test_configs_are_the_references(arch):
     assert TC.SHAPES.keys() == JC.SHAPES.keys()
 
 
-@pytest.mark.parametrize("arch, where", [
-    ("deepseek_v2_236b", "3.3"), ("rwkv6_7b", "3.2"), ("hymba_1p5b", "3.3"),
-    ("phi35_moe_42b", "3.3")])
-def test_unported_families_raise(arch, where):
-    cfg = TC.get_smoke(arch)
-    for call in (lambda: TT.init_params(cfg, torch.Generator(), "cpu"),
-                 lambda: TT.init_cache(cfg, 1, 8, "cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP §1 item {where}"):
-            call()
-
-
 def test_shard_ctx_is_one_device():
     sh = ShardCtx()
     x = torch.ones(2, 3)
@@ -258,18 +298,35 @@ def test_shard_ctx_is_one_device():
         ShardCtx(axis_sizes=(("data", 2),))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+# Leaves the reference initialises to constants (norms, lerp weights,
+# RWKV's decay base, Mamba's dt bias, A and skip).
+CONSTANT_LEAVES = {"norm", "q_norm", "kv_norm", "gn_w", "attn_out_norm",
+                   "ssm_out_norm", "mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                   "decay_base", "dt_bias", "a_log", "d_skip"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_tree_matches_jax(arch):
-    """The port's own draw has the reference's tree, shapes and dtypes,
-    N(0, 0.02^2) entries and unit norms."""
+    """The port's own draw has the reference's tree, shapes and dtypes
+    (the float32 leaves of RWKV and Mamba included), N(0, 0.02^2)
+    entries and unit norms, and the reference's constant leaves."""
     ref = reference(arch)
     got = TT.init_params(TC.get_smoke(arch),
                           torch.Generator().manual_seed(7), "cpu")
     want = jax.tree.map(lambda a: (a.shape, str(a.dtype)), ref["params"])
     have = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), got)
     assert have == want
-    w = got["layers"]["mlp"]["w_in"]
+    mlp = got["layers"]["mlp"]
+    w = mlp["w_k" if "w_k" in mlp else "w_in"]
     assert abs(float(w.std()) - 0.02) < 2e-3
+    for path, t in leaves(got["layers"]):
+        if path.rsplit("/", 1)[1] in CONSTANT_LEAVES:
+            want_t = ref["params"]["layers"]
+            for k in path.split("/")[1:]:
+                want_t = want_t[k]
+            # linspace and log may round one float32 ulp apart
+            np.testing.assert_allclose(t.float().numpy(), want_t, rtol=0,
+                                       atol=1e-6, err_msg=path)
     assert torch.equal(got["final_norm"], torch.ones_like(got["final_norm"]))
     again = TT.init_params(TC.get_smoke(arch),
                             torch.Generator().manual_seed(7), "cpu")
@@ -284,6 +341,25 @@ def test_model_params_from_numpy_keeps_bf16_bits():
     assert t.dtype == torch.bfloat16 and tuple(t.shape) == a.shape
     np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                   a.view(np.int16))
+
+
+@pytest.mark.parametrize("arch", ["hymba_1p5b", "rwkv6_7b"])
+def test_port_decodes_from_a_jax_cache(arch):
+    """The reference's prefill cache (Hymba's tuple of per-layer ring
+    dicts; RWKV's float32 states) carried across by
+    ``model_params_from_numpy`` bit for bit: the port's ``decode_step``
+    on it equals the reference's (``F32_REL``)."""
+    ref = reference(arch)
+    cfg = TC.get_smoke(arch)
+    params = model_params_from_numpy(ref["params"], "cpu")
+    _, jcache, jpos = ref["prefill"]
+    cache = model_params_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    assert isinstance(cache, tuple) == (arch == "hymba_1p5b")
+    for (path, t), (_, w) in zip(leaves(cache), leaves(jcache)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w), path)
+    lg, _, _ = TT.decode_step(cfg, params, torch.from_numpy(ref["steps"][0]),
+                              cache, torch.from_numpy(np.array(jpos)), SH)
+    _close(lg, ref["decode"][0], what="logits")
 
 
 @pytest.mark.parametrize("sq, skv, window, causal, block_q, hq, hkv", [

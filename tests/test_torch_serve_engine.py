@@ -12,6 +12,16 @@ sides' float32 difference (``test_torch_models.F32_REL``). The tier
 One run leaves a lane idle while another runs on, so its ``pos`` passes
 ``smax``: the reference drops that lane's cache writes, and the port must
 too, with no error.
+
+The MoE configurations' decode steps share a capacity over the batch,
+idle lanes included, as in the reference: routing equal there is what
+keeps their tokens equal. Hymba's caches are a tuple of per-layer dicts
+whose lane axis is 0, and the reference's ``ServeEngine`` splices them on
+axis 1 (into the heads, conv taps or channels): so hymba's tokens are
+held to the reference's ``prefill`` and ``decode_step`` driven one
+request at a time, its report to the reference's engine (the report
+depends on lengths only), and a test shows the reference misplacing an
+admitted lane where the port's equals the lane's own prefill.
 """
 import jax
 import numpy as np
@@ -23,6 +33,7 @@ import repro.core as jcore
 from repro.launch import serve as j_serve
 from repro.memtier import ServeEngine as JServe
 from repro.memtier.engine import Request as JRequest
+from repro.models import ShardCtx as JShard
 from repro.models import transformer as JT
 
 import repro_torch.configs as TC
@@ -124,7 +135,9 @@ def _assert_same_serving(je, te, logs):
 
 @pytest.mark.parametrize("arch, policy, pin", [
     ("minitron_8b", "hotness", 1), ("gemma3_4b", "static", 0),
-    ("musicgen_medium", "write_bias", 1), ("phi3_mini_3p8b", "hotness", 2)])
+    ("musicgen_medium", "write_bias", 1), ("phi3_mini_3p8b", "hotness", 2),
+    ("rwkv6_7b", "hotness", 1), ("deepseek_v2_236b", "static", 1),
+    ("phi35_moe_42b", "write_bias", 0)])
 def test_serve_engine_matches_jax(arch, policy, pin):
     """Seven requests through three lanes (slots refilled from the queue):
     tokens, steps, every request's output and the report equal."""
@@ -173,7 +186,9 @@ def test_serve_engine_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-4b",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "rwkv6-7b",
+                                  "hymba-1.5b", "deepseek-v2-236b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_launch_serve_matches_jax(arch, capsys):
     """``python -m repro_torch.launch.serve --smoke`` against ``repro``'s:
     the report depends on the requests' lengths only, not on the
@@ -184,3 +199,88 @@ def test_launch_serve_matches_jax(arch, capsys):
     got = t_serve.run(argv + ["--device", "cpu"])
     assert got == want
     assert "served 5 requests" in capsys.readouterr().out
+
+
+def _lane_by_lane(arch, lens, news, smax, seed=0):
+    """Each request through the reference's ``prefill`` and
+    ``decode_step`` on its own (batch 1, jitted): its tokens and the
+    logit rows they were read from."""
+    cfg = JC.get_smoke(arch)
+    params = JT.init_params(cfg, jax.random.PRNGKey(seed))
+    sh = JShard()
+    pre = jax.jit(lambda p, i: JT.prefill(cfg, p, i, sh, smax))
+    dec = jax.jit(lambda p, t, c, q: JT.decode_step(cfg, p, t, c, q, sh))
+    out = []
+    for rid, prompt, m in _requests(cfg, lens, news, seed + 1):
+        logits, cache, pos = pre(params, prompt[None])
+        rows = [np.asarray(logits[0], np.float32)]
+        toks = [int(np.argmax(rows[-1]))]
+        while len(toks) < m and int(pos[0]) < smax - 1:
+            logits, cache, pos = dec(params, np.array(toks[-1:], np.int32),
+                                     cache, pos)
+            rows.append(np.asarray(logits[0], np.float32))
+            toks.append(int(np.argmax(rows[-1])))
+        out.append((rid, toks, rows))
+    return out
+
+
+def test_hymba_serve_engine_matches_jax_lane_by_lane():
+    """Seven requests through three lanes of hymba's smoke model (prompts
+    past the 8-token window, so prefill restacks the local layer's ring
+    and decoding wraps it): every request's tokens equal the reference's
+    ``prefill`` / ``decode_step`` over that request alone (after the
+    top-2 margin assertion on every row), its logit rows within 1e-5, and
+    the report equal to the reference ``ServeEngine``'s."""
+    lens, news = [12, 20, 12, 28, 20, 12, 20], [6, 9, 4, 7, 5, 8, 3]
+    je, te, logs = _serve_both("hymba_1p5b", lens=lens, news=news, smax=48,
+                               batch=3)
+    want = _lane_by_lane("hymba_1p5b", lens, news, smax=48)
+    margins = [_margin(r) for _, _, rows in want for r in rows]
+    assert min(margins) > MARGIN, min(margins)
+    rows = {}
+    for rid, row in logs["port"]["rows"]:
+        rows.setdefault(rid, []).append(row)
+    for (rid, toks, wrows), req, first in zip(
+            want, logs["port"]["reqs"], logs["port"]["prefill"]):
+        assert req.out == toks, rid
+        got = [first] + rows.get(rid, [])[:len(toks) - 1]
+        assert len(got) == len(wrows)
+        for g, w in zip(got, wrows):
+            assert float(np.abs(g - w).max()) <= 1e-5 * float(
+                np.abs(w).max())
+    assert je.report() == te.report()
+
+
+def test_hymba_admission_splices_its_own_lane():
+    """Three requests admitted into three lanes: the port's lane 2 holds
+    exactly the cache of its own prefill (every layer's ring, conv and
+    SSM state); the reference's splice on axis 1 misplaces it, so its
+    lane 2 differs from its own prefill in every leaf."""
+    cfg, tcfg = JC.get_smoke("hymba_1p5b"), TC.get_smoke("hymba_1p5b")
+    jparams = JT.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = model_params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      "cpu")
+    emu = dict(n_fast_pages=4, n_slow_pages=128, chunk=16)
+    je = JServe(cfg, jparams, batch_size=3, smax=24,
+                emu_cfg=jcore.EmulatorConfig(**emu))
+    te = ServeEngine(tcfg, tparams, batch_size=3, smax=24,
+                     emu_cfg=tcore.EmulatorConfig(**emu), device="cpu")
+    reqs = _requests(tcfg, [10, 14, 12], [4, 4, 4], 5)
+    for rid, p, m in reqs:
+        je.submit(JRequest(rid=rid, prompt=p, max_new_tokens=m))
+        te.submit(Request(rid=rid, prompt=p, max_new_tokens=m))
+    je._admit()
+    te._admit()
+    prompt = reqs[2][1][None]
+    _, jown, _ = je._prefill(je.params, prompt)
+    _, town, _ = te._prefill(te.params, torch.from_numpy(prompt))
+    wrong = 0
+    for l in range(cfg.n_layers):
+        for name in ("k", "v", "conv", "ssm"):
+            assert torch.equal(te.cache[l][name][2], town[l][name][0])
+            np.testing.assert_allclose(
+                te.cache[l][name][2].numpy(), np.asarray(jown[l][name][0]),
+                rtol=0, atol=1e-5 * float(np.abs(jown[l][name]).max()))
+            wrong += not np.array_equal(np.asarray(je.cache[l][name][2]),
+                                        np.asarray(jown[l][name][0]))
+    assert wrong == 4 * cfg.n_layers
