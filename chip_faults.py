@@ -3,12 +3,13 @@
 
 Run from the root of a checkout, with one CUDA device visible:
 
-    python3 chip_faults.py
+    python3 chip_faults.py            # every fault
+    python3 chip_faults.py "train:"   # the faults whose names hold a text
 
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Thirty-one faults are planted. A fault in
+run in a process of its own. Thirty-four faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -37,8 +38,12 @@ row early, Hymba's ring length not clamped, the MoE keep mask ignored)
 run phase 11's checks at the one model that runs the code
 (``chip_smoke.check_model_serve`` over that row of
 ``FAMILY_SERVES``), whose failure must name the layer
-where the fault is. A fault
-in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
+where the fault is; the three of the training slice (dK and dV of the
+attention backward from the last query block only, AdamW's bias
+corrections one step early, the resume restarting the data at step 0)
+run phase 12's part that holds the code (``chip_smoke.check_train``),
+whose failure must hold the words of the check that names the fault. A
+fault in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
 the RWKV state scan, the a_lo b_hi term of the RWKV att product dropped)
@@ -210,6 +215,40 @@ SLICE11_FAULTS = [
 SLICE11_ARCHS = ("rwkv6-7b", "deepseek-v2-236b", "hymba-1.5b",
                  "phi3.5-moe-42b-a6.6b")
 
+# Faults in the training path, which phase 12 must name in the check that
+# holds the faulty code (``chip_smoke.check_train``, (a) the whole model or
+# (b) crash and resume): dK and dV of ``chunked_attention``'s backward
+# taken from the last query block only (the attention backward against
+# float64 on layer 0's q, k, v; 2,048 tokens make two blocks of 1,024),
+# AdamW's bias corrections at ``step`` instead of ``step + 1`` (the update
+# against its float64 formula; the CPU's ``adamw_update`` runs the same
+# faulty code, so the bitwise check alone cannot see it), and the resume
+# restarting the data iterator at step 0 (the resumed run's final loss
+# against the uninterrupted run's).
+SLICE12_FAULTS = [
+    ("train: dK and dV of chunked_attention's backward from the last query "
+     "block only", "models", "src/repro_torch/models/chunked_attention.py",
+     "        dk = dk + torch.einsum(\"bkgqt,bkgqd->bktd\", ds, qblk)\n"
+     "        dv = dv + torch.einsum(\"bkgqt,bkgqd->bktd\", p, gf)\n",
+     "        dk = torch.einsum(\"bkgqt,bkgqd->bktd\", ds, qblk)\n"
+     "        dv = torch.einsum(\"bkgqt,bkgqd->bktd\", p, gf)\n"),
+    ("train: AdamW's bias corrections at step, not step + 1", "optim",
+     "src/repro_torch/optim/adamw.py",
+     "            \"b1c\": _bias_correction(cfg.b1, step),\n"
+     "            \"b2c\": _bias_correction(cfg.b2, step),",
+     "            \"b1c\": _bias_correction(cfg.b1, step - 1),\n"
+     "            \"b2c\": _bias_correction(cfg.b2, step - 1),"),
+    ("train: the resume restarts the data iterator at step 0", "launch",
+     "src/repro_torch/launch/train.py",
+     "    it = make_batch_iterator(dcfg, start_step=start_step, "
+     "device=device)",
+     "    it = make_batch_iterator(dcfg, start_step=0, device=device)"),
+]
+# The part of phase 12 that runs each one's code, and the words its
+# failure must hold: the check that names the fault.
+SLICE12_RUNS = (("a", "attention backward"), ("a", "AdamW"),
+                ("b", "resume"))
+
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
     ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
@@ -284,12 +323,14 @@ FAULTS = [
     *SLICE9_FAULTS,
     *SLICE10_FAULTS,
     *SLICE11_FAULTS,
+    *SLICE12_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
-# chunk-step, kernel-A, serving, policy or model fault the phase whose
-# checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase 10", or
-# "phase 11 <arch>" for the one model of phase 11 that runs the fault).
+# chunk-step, kernel-A, serving, policy, model or training fault the phase
+# whose checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase
+# 10", "phase 11 <arch>" for the one model of phase 11 that runs the
+# fault, or "phase 12 <part>" with the words its failure must hold).
 CHILD = r'''
 import json, sys
 import torch
@@ -304,7 +345,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
 if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
-              "memtier"):
+              "memtier", "optim", "launch"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
@@ -312,7 +353,10 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
                "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
                "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3].startswith("phase 11"):
+        if sys.argv[3].startswith("phase 12"):
+            cs.check_train(torch, dev, kernels, "", sys.argv[3][-1])
+            torch.cuda.synchronize()
+        elif sys.argv[3].startswith("phase 11"):
             cs.check_model_serve(torch, dev, rt, kernels, "", [
                 r for r in cs.FAMILY_SERVES
                 if r.arch == sys.argv[3].split(" ", 2)[2]])
@@ -344,7 +388,8 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
             cs.check_chunk_step(torch, dev, rt, chunk_step)
         row["caught"] = False
     except cs.Mismatch as e:
-        row.update(caught=True, why=str(e))
+        # a phase-12 fault counts as caught where the check naming it failed
+        row.update(caught=sys.argv[4] in str(e), why=str(e))
     print(json.dumps(row), flush=True)
     sys.exit(0)
 for case in cs.model_cases(torch, dev, ops, fa, da, rw):
@@ -367,9 +412,12 @@ for case in cs.model_cases(torch, dev, ops, fa, da, rw):
 
 
 def main() -> int:
+    only = sys.argv[1] if len(sys.argv) > 1 else ""
     failed = []
     with tempfile.TemporaryDirectory(prefix="chip_faults_") as tmp:
         for i, (name, kernel, source, text, faulty) in enumerate(FAULTS):
+            if only not in name:
+                continue
             copy = pathlib.Path(tmp) / str(i)
             shutil.copytree(ROOT / "src", copy / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -382,7 +430,11 @@ def main() -> int:
                               f"{source} exactly once")
                 continue
             path.write_text(code.replace(text, faulty))
-            phase = ("phase 7" if FAULTS[i] in SWEEP_FAULTS else
+            expect = ""
+            if FAULTS[i] in SLICE12_FAULTS:
+                part, expect = SLICE12_RUNS[SLICE12_FAULTS.index(FAULTS[i])]
+            phase = ("phase 12 " + part if FAULTS[i] in SLICE12_FAULTS else
+                     "phase 7" if FAULTS[i] in SWEEP_FAULTS else
                      "phase 8" if FAULTS[i] in SERVE_FAULTS else
                      "phase 9" if FAULTS[i] in SLICE9_FAULTS else
                      "phase 10" if FAULTS[i] in SLICE10_FAULTS else
@@ -390,7 +442,8 @@ def main() -> int:
                          FAULTS[i])] if FAULTS[i] in SLICE11_FAULTS else
                      "phase 4")
             run = subprocess.run([sys.executable, "-c", CHILD, name, kernel,
-                                  phase], cwd=copy, capture_output=True,
+                                  phase, expect], cwd=copy,
+                                 capture_output=True,
                                  text=True, timeout=900)
             print(run.stdout, end="", flush=True)
             rows = [json.loads(ln) for ln in run.stdout.splitlines()

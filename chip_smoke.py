@@ -197,11 +197,42 @@ Phases, each printing its lines in order:
    bytes, peak memory, prefill ms and tokens/s, a decode step's wall
    split, the model's device time and kernels a step, kernel B's device
    time a step, the MoE's live slots dropped a step, the logit spread.
-12. One JSON line of per-kernel numbers (kernels A and B also carry
+12. **Training at full width** — (a) internlm2-1.8b whole
+   (``configs/internlm2_1p8b.py``: 24 layers, d 2,048, GQA 16/8 heads of
+   128, d_ff 8,192, vocab 92,544, untied head; 1.889B parameters, bf16
+   from a seed, float32 moments) on the port's Markov data
+   (``data.make_batch``) at batch 4 x 2,048 in 2 micro-batches, 8 steps
+   of ``launch.steps.make_train_step`` at lr 3e-4 (``launch/train.py``'s
+   schedule). Checks: the batches of the 8 steps on the card equal the
+   CPU's; every loss finite, the last step's below the initial model's
+   loss on the same batch and the first batch's after the 8 steps below
+   its first (a step's batch is new to the model, and batches differ by
+   more than 8 steps teach); layer 0 at the first step (its input, the
+   gradients at its output, its parameters and its input recorded by
+   hooks) recomputed in float64 from its formulas, each parameter
+   gradient and dx within ``GRAD_REL`` of it (||g - g64|| / ||g64||); on
+   layer 0's q, k, v and the gradient at its attention output,
+   ``chunked_attention``'s backward against float64 autograd
+   (``ATTN_GRAD_REL``) and ``ops.flash_attention``'s gradient (kernel 3's
+   forward, launches counted) within ``ref.kernel_error`` of it; at the
+   second step, AdamW's update of the embedding, layer 0's ``wq`` and
+   ``final_norm`` bit for bit the port's ``adamw_update`` on the CPU over
+   the same inputs, and within ``ADAMW_*_REL`` of its float64 formula.
+   Numbers: parameter bytes, peak memory, a step's wall (median of steps
+   2-7) and tokens/s, the model's FLOPs a step and their share of 989
+   TFLOP/s, the last step's device time, kernels and device share
+   (CUPTI) with its largest kernels, AdamW's part of a step. (b) crash and
+   resume: ``launch.train.run`` at internlm2-1.8b's full width, its first
+   2 of 24 layers, on the card: 8 steps with a checkpoint every 4 and
+   ``--simulate-failure-at 4``, a resume to step 8, and an uninterrupted
+   run: the final losses within rtol 1e-5 and every parameter bit for
+   bit, each checkpoint's write time and bytes.
+13. One JSON line of per-kernel numbers (kernels A and B also carry
    ``serve_launches``, ``policy_launches``, ``memtier_launches``,
    ``model_serve_launches`` and ``family_serve_launches``, the counts of
-   phases 8, 9 (a), 9 (b), 10 and 11), the card line again, and the last
-   line ``{"ok": true, "device": {...}}``.
+   phases 8, 9 (a), 9 (b), 10 and 11; every kernel ``train_launches``,
+   phase 12 (a)'s), the card line again, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -212,7 +243,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -3115,6 +3148,581 @@ def check_model_serve(torch, dev, rt, kernels, card: str, rows) -> dict:
     return {name: sum(c[name] for c in out.values()) for name in kernels}
 
 
+# --------------------------------------------------------------- phase 12
+# Training at full width: internlm2-1.8b whole (``configs/internlm2_1p8b``),
+# bfloat16 parameters from a seed with float32 moments, the port's Markov
+# data at batch 4 x 2,048 tokens in 2 micro-batches, 8 steps through
+# ``launch.steps.make_train_step`` at ``launch/train.py``'s schedule
+# (warmup min(20, steps // 5), cosine to the 8th step).
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 8
+TRAIN_LR = 3e-4
+TRAIN_SPY_STEP = 0        # layer 0's gradients, at the first step
+TRAIN_ADAMW_STEP = 1      # the AdamW holds, at the second
+# Layer 0's bfloat16 gradients (and dx) against float64 over the same
+# inputs: ||g - g64|| / ||g64||. Each product rounds to bfloat16 once
+# (2^-9 of a value at most), a few times along a gradient's path, in
+# float32 sums: 2^-5 leaves room for some ten such roundings.
+GRAD_REL = 2.0 ** -5
+# chunked_attention's bfloat16 dq, dk, dv against float64 autograd of the
+# S x S form on the same bfloat16 q, k, v and upstream gradient: one
+# rounding of float32 sums to bfloat16 each (2^-9), with 2^-3 of margin.
+ATTN_GRAD_REL = 2.0 ** -6
+# AdamW against its formula in float64 at the step's own inputs: the
+# moments within a few float32 ulps of their terms (2^-21 of b1 |mu| + (1
+# - b1) |g|, and the same for nu), a bfloat16 parameter within half a
+# bfloat16 step (2^-8 of it) plus float32 noise (2^-20 of |p| + lr |delta|).
+ADAMW_MOMENT_REL = 2.0 ** -21
+ADAMW_PARAM_REL = 2.0 ** -8
+# The crash-and-resume run: the first 2 of internlm2-1.8b's 24 layers at
+# full width, through ``launch.train.run``: 8 steps, a checkpoint every
+# 4, a crash at 4, a resume to 8, and an uninterrupted run. The final
+# losses within the reference's own bar (``tests/test_system.py``), and
+# the parameters bit for bit: the loss moves so little in 8 steps that
+# a resume replaying steps 0-3 stays within 1e-5 of it (3.5e-6 measured).
+RESUME_LAYERS = 2
+RESUME_RTOL = 1e-5
+
+
+def leaf_items(tree, path=""):
+    """(path, tensor) pairs of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_items(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def rel_norm(torch, got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def layer0_f64(torch, cfg, p, x, window, keep: dict):
+    """Layer 0 of a GQA + SwiGLU model (internlm2) written out in float64
+    from its formulas, independent of the port's layers: RMS norms, RoPE
+    on each half pair, causal (windowed) grouped attention at scale
+    D^-0.5, SwiGLU. ``keep`` gets the attention output (its gradient is
+    retained)."""
+    b, s, d = x.shape
+    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+
+    def norm(t, w):
+        return t * torch.rsqrt((t * t).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * w
+
+    def rope(t):
+        i = torch.arange(0, hd, 2, dtype=torch.float64, device=t.device)
+        ang = torch.arange(s, dtype=torch.float64, device=t.device)[:, None] \
+            * cfg.rope_theta ** (-i / hd)
+        t1, t2 = t.chunk(2, dim=-1)
+        return torch.cat([t1 * ang.cos() - t2 * ang.sin(),
+                          t2 * ang.cos() + t1 * ang.sin()], dim=-1)
+
+    a = p["attn"]
+    h = norm(x, a["norm"])
+    q = rope((h @ a["wq"]).reshape(b, s, hq, hd).transpose(1, 2))
+    k = rope((h @ a["wk"]).reshape(b, s, hkv, hd).transpose(1, 2))
+    v = (h @ a["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+    o = naive_f64(torch, q, k, v, window)
+    o.retain_grad()
+    keep["o"] = o
+    x1 = x + o.transpose(1, 2).reshape(b, s, hq * hd) @ a["wo"]
+    m = p["mlp"]
+    h2 = norm(x1, m["norm"])
+    g = h2 @ m["w_gate"]
+    return x1 + (g * torch.sigmoid(g) * (h2 @ m["w_in"])) @ m["w_out"]
+
+
+def naive_f64(torch, q, k, v, window):
+    """Causal (windowed) grouped attention of [B, Hq, S, D] over [B, Hkv,
+    S, D] in float64, S x S logits."""
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    qg = q.double().reshape(b, hkv, hq // hkv, s, hd)
+    logits = torch.einsum("bkgqd,bktd->bkgqt", qg, k.double()) * hd ** -0.5
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    ok = ki <= qi
+    if window is not None:
+        ok &= qi - ki < window
+    logits = logits.masked_fill(~ok, -math.inf)
+    out = torch.einsum("bkgqt,bktd->bkgqd", logits.softmax(-1), v.double())
+    return out.reshape(b, hq, s, v.shape[-1])
+
+
+def spy_layer0(torch, transformer, params, rec: dict):
+    """Wrap ``transformer._train_block`` so that layer 0's first call with
+    autograd recording (the first micro-batch of the step where ``rec``
+    is armed) keeps its input and hooks the gradients arriving at its
+    input, its output and each of its parameters. Returns the original."""
+    real = transformer._train_block
+    ptr = params["layers"]["attn"]["wq"].data_ptr()
+
+    def block(cfg, sh, positions, p, x, window):
+        take = rec.get("armed") and "x" not in rec and \
+            p["attn"]["wq"].data_ptr() == ptr
+        if take:
+            rec["x"] = x.detach().clone()
+            rec["grads"] = {}
+            x.register_hook(lambda g: rec.__setitem__("dx", g.detach()))
+            for path, t in leaf_items(p):
+                t.register_hook(lambda g, path=path:
+                                rec["grads"].__setitem__(path, g.detach()))
+        out, aux = real(cfg, sh, positions, p, x, window)
+        if take:
+            out.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return out, aux
+
+    transformer._train_block = block
+    return real
+
+
+def check_layer0_grads(torch, cfg, p0, rec, fails) -> dict:
+    """Layer 0 (its parameters ``p0`` as the step saw them) recomputed in
+    float64 from the recorded input and the gradient at its output: each
+    parameter gradient and dx of the step against it (``GRAD_REL``).
+    Returns the readings and what the attention check needs."""
+    from repro_torch.models import transformer
+    p64 = {k: {n: t.detach().double().requires_grad_()
+               for n, t in v.items()} for k, v in p0.items()}
+    x64 = rec["x"].double().requires_grad_()
+    keep = {}
+    window = (transformer.layer_windows(cfg) or [None])[0]
+    y = layer0_f64(torch, cfg, p64, x64, window, keep)
+    y.backward(rec["dy"].double())
+    shares = {}
+    for path, t in leaf_items(p64):
+        shares[path] = rel_norm(torch, rec["grads"][path], t.grad) / GRAD_REL
+    shares["dx"] = rel_norm(torch, rec["dx"], x64.grad) / GRAD_REL
+    for path, share in shares.items():
+        hold(fails, f"training: layer 0's gradient {path} against float64",
+             share)
+    return {"shares": shares, "d_o": keep["o"].grad, "window": window}
+
+
+def check_attention_grads(torch, ops, ref, fa, cfg, a, rec, d_o, window,
+                          fails) -> dict:
+    """On layer 0's own q, k, v (the port's projections and RoPE of the
+    recorded input, bfloat16) and the gradient at the attention output:
+    ``chunked_attention``'s backward against float64 autograd of the S x S
+    form (``ATTN_GRAD_REL``), and ``ops.flash_attention``'s gradient
+    (kernel 3's forward, the plain recompute's backward) against it
+    within ``ref.kernel_error``'s allowance. Kernel 3's launches in this
+    check are counted."""
+    from repro_torch.models import layers
+    from repro_torch.models.chunked_attention import chunked_attention
+    with torch.no_grad():
+        h = layers.rms_norm(rec["x"], a["norm"], cfg.norm_eps)
+        q, k, v = layers.gqa_project(cfg, a, h, cfg.adtype)
+        pos = torch.arange(q.shape[2], dtype=torch.float32, device=q.device)
+        cos, sin = layers.rope_tables(pos, cfg.head_dim_, cfg.rope_theta)
+        q, k = layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
+        v = v.contiguous()
+    g = d_o.to(cfg.adtype)
+
+    def grads(fn, *ins):
+        ins = [t.detach().requires_grad_() for t in ins]
+        out = fn(*ins)
+        return torch.autograd.grad(out, ins, g.to(out.dtype))
+    chunked = grads(lambda *t: chunked_attention(*t, causal=True,
+                                                 window=window), q, k, v)
+    want = grads(lambda *t: naive_f64(torch, *t, window), q.double(),
+                 k.double(), v.double())
+    out = {"chunked": {}, "flash": {}}
+    for name, a_, w in zip(("dq", "dk", "dv"), chunked, want):
+        out["chunked"][name] = hold(
+            fails, f"training: chunked_attention's attention backward "
+            f"{name} against float64", rel_norm(torch, a_, w) / ATTN_GRAD_REL)
+    before = fa.KERNEL.launches
+    flash = grads(lambda *t: ops.flash_attention(*t, causal=True,
+                                                 window=window), q, k, v)
+    torch.cuda.synchronize()
+    out["flash_launches"] = fa.KERNEL.launches - before
+    for name, a_, w in zip(("dq", "dk", "dv"), flash, chunked):
+        out["flash"][name] = hold(
+            fails, f"training: ops.flash_attention's gradient {name} "
+            f"against chunked_attention's",
+            ref.kernel_error("attention", a_, w)[1])
+    if out["flash_launches"] < 1:
+        fails.append("training: ops.flash_attention launched kernel 3 no "
+                     "time")
+    return out
+
+
+ADAMW_LEAVES = ("/embed/tokens", "/final_norm", "/layers/attn/wq")
+
+
+def adamw_leaf(tree, path: str):
+    """A leaf of ``ADAMW_LEAVES``: layer 0's slice of ``wq``."""
+    t = dict(leaf_items(tree))[path]
+    return t[0] if path.startswith("/layers") else t
+
+
+def spy_adamw(torch, steps, rec: dict):
+    """Wrap ``launch.steps.adamw_update`` so that the step where ``rec``
+    is armed keeps, for ``ADAMW_LEAVES``, the parameters, gradients and
+    moments before the update and the parameters and moments after it,
+    with the step counter and the global norm. Returns the original."""
+    real = steps.adamw_update
+
+    def update(cfg, params, grads, state):
+        armed = rec.get("armed")
+        if armed:
+            rec["before"] = {path: tuple(
+                adamw_leaf(t, path).detach().clone()
+                for t in (params, grads, state.mu, state.nu))
+                for path in ADAMW_LEAVES}
+            rec["step"] = int(state.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = real(cfg, params, grads, state)
+        if armed:
+            torch.cuda.synchronize()
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+            p, st, m = out
+            rec["after"] = {path: tuple(adamw_leaf(t, path).detach().clone()
+                                        for t in (p, st.mu, st.nu))
+                            for path in ADAMW_LEAVES}
+            rec["gn"] = m["grad_norm"].detach().clone()
+            rec["armed"] = False
+        return out
+
+    steps.adamw_update = update
+    return real
+
+
+def bits(torch, t):
+    """A float tensor's bits as integers (NaNs compare by their bits)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def adamw_f64(torch, cfg, p, g, mu, nu, gn, t: int):
+    """AdamW from its formula in float64 at step t (bias corrections
+    1 - b^t, the warmup-cosine rate at t): (p, mu, nu, lr * delta)."""
+    f = lambda x: x.double()
+    scale = min(1.0, cfg.clip_norm / max(float(gn), 1e-9))
+    gc = f(g) * scale
+    mu2 = cfg.b1 * f(mu) + (1 - cfg.b1) * gc
+    nu2 = cfg.b2 * f(nu) + (1 - cfg.b2) * gc * gc
+    if t < cfg.warmup_steps:
+        lr = cfg.lr_peak * t / max(1, cfg.warmup_steps)
+    else:
+        prog = min(1.0, max(0.0, (t - cfg.warmup_steps)
+                            / max(1, cfg.total_steps - cfg.warmup_steps)))
+        lr = cfg.lr_peak * 0.5 * (1 + math.cos(math.pi * prog))
+    delta = (mu2 / (1 - cfg.b1 ** t)) / (
+        torch.sqrt(nu2 / (1 - cfg.b2 ** t)) + cfg.eps) \
+        + cfg.weight_decay * f(p)
+    return f(p) - lr * delta, mu2, nu2, lr * delta, gc
+
+
+def check_adamw(torch, opt, opt_cfg, rec, fails) -> dict:
+    """The step's update of ``ADAMW_LEAVES``: bit for bit the port's
+    ``adamw_update`` on the CPU over the same parameters, gradients and
+    moments (the card's global norm given), and within its allowances of
+    the formula in float64 (``ADAMW_*_REL``)."""
+    from repro_torch.optim import adamw as TA
+    names = ("param", "mu", "nu")
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    before = {k: tuple(t.cpu() for t in v) for k, v in rec["before"].items()}
+    saved = TA.global_norm
+    TA.global_norm = lambda grads: rec["gn"].cpu()
+    t0 = time.perf_counter()
+    try:
+        p, st, _ = opt.adamw_update(
+            opt_cfg, {k: v[0].clone() for k, v in before.items()},
+            {k: v[1] for k, v in before.items()},
+            opt.OptState(cpu({k: v[2].clone() for k, v in before.items()}),
+                         cpu({k: v[3].clone() for k, v in before.items()}),
+                         torch.tensor(rec["step"], dtype=torch.int32)))
+    finally:
+        TA.global_norm = saved
+    cpu_s = time.perf_counter() - t0
+    out = {"cpu_s": cpu_s, "differ": {}, "shares": {}}
+    t = rec["step"] + 1
+    for path, (pa, ma, na) in rec["after"].items():
+        for name, got, want in zip(names, (pa, ma, na),
+                                   (p[path], st.mu[path], st.nu[path])):
+            n = int((bits(torch, got.cpu()) != bits(torch, want)).sum())
+            out["differ"][f"{path} {name}"] = n
+            if n:
+                fails.append(f"training: AdamW's {name} of {path} on the "
+                             f"card differs from the CPU's at {n} of "
+                             f"{got.numel()} elements")
+        pb, g, mb, nb = rec["before"][path]
+        p64, mu64, nu64, step64, gc = adamw_f64(torch, opt_cfg, pb, g, mb, nb,
+                                                rec["gn"], t)
+        allow = {
+            "mu": ADAMW_MOMENT_REL * (opt_cfg.b1 * mb.double().abs()
+                                      + (1 - opt_cfg.b1) * gc.abs()),
+            "nu": ADAMW_MOMENT_REL * (opt_cfg.b2 * nb.double()
+                                      + (1 - opt_cfg.b2) * gc * gc),
+            "param": ADAMW_PARAM_REL * p64.abs() + 2.0 ** -20 * (
+                pb.double().abs() + step64.abs())}
+        for name, got, want in zip(names, (pa, ma, na), (p64, mu64, nu64)):
+            err = (got.double() - want).abs()
+            share = float((err / allow[name].clamp_min(1e-30)).max())
+            out["shares"][f"{path} {name}"] = hold(
+                fails, f"training: AdamW's {name} of {path} against its "
+                f"float64 formula at step {t}", share)
+    return out
+
+
+def batch_losses(torch, cfg, params, dcfg, dev) -> list:
+    """The loss of each training step's batch under ``params``, without
+    autograd, micro-batch by micro-batch as the step takes it."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import ShardCtx, layers, loss_fn
+    out = []
+    n = TRAIN_BATCH // TRAIN_MICRO
+    with torch.no_grad(), layers.fp32_sums():
+        for s in range(TRAIN_STEPS):
+            b = make_batch(dcfg, s, dev)
+            out.append(sum(float(loss_fn(
+                cfg, params, {k: v[i * n:(i + 1) * n] for k, v in b.items()},
+                ShardCtx())[0]) for i in range(TRAIN_MICRO)) / TRAIN_MICRO)
+    return out
+
+
+def top_kernels(prof, n: int) -> list:
+    """The ``n`` kernels of a trace with the most device time: (name,
+    milliseconds, launches)."""
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t:
+            rows.append((ev.key, t / 1e3, ev.count))
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """The model's FLOPs a training step from its shapes: 6 x (the
+    parameters a token multiplies: every matrix but the input embedding)
+    x tokens, plus causal attention's two products, forward and backward
+    (3 x 4 x heads x head dim x query-key pairs a layer), without the
+    recompute."""
+    n = cfg.n_params() - cfg.vocab * cfg.d_model
+    pairs = seq * (seq + 1) // 2 * (tokens // seq)
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * cfg.n_heads * \
+        cfg.head_dim_ * pairs
+
+
+def check_train_whole(torch, dev, kernels, card: str) -> dict:
+    """Phase 12 (a): see the module docstring. Returns each kernel's
+    launches over the 8 steps; raises once, naming each check that
+    failed."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, optim
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import ShardCtx, init_params, transformer
+    fails: list = []
+    cfg = configs.get(TRAIN_ARCH)
+    opt_cfg = optim.AdamWConfig(lr_peak=TRAIN_LR,
+                                warmup_steps=min(20, TRAIN_STEPS // 5),
+                                total_steps=TRAIN_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    for s in range(TRAIN_STEPS):
+        a, b = make_batch(dcfg, s, dev), make_batch(dcfg, s, "cpu")
+        if not all(torch.equal(a[k].cpu(), b[k]) for k in a):
+            fails.append(f"training: the data batch of step {s} on the card "
+                         f"differs from the CPU's")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    state = optim.init_opt_state(params)
+    init_losses = batch_losses(torch, cfg, params, dcfg, dev)
+    pbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    print(f"  {TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_params() / 1e9:.3f}B parameters ({pbytes / 1e9:.2f} GB "
+          f"bf16), batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} "
+          f"micro-batches, {TRAIN_STEPS} steps, lr {TRAIN_LR}", flush=True)
+    step_fn = steps.make_train_step(cfg, opt_cfg, ShardCtx(),
+                                    micro_batches=TRAIN_MICRO)
+    spy, arec = {}, {}
+    real_block = spy_layer0(torch, transformer, params, spy)
+    real_update = spy_adamw(torch, steps, arec)
+    for k in kernels.values():
+        k.launches = 0
+    losses, walls, prof, p0 = [], [], None, None
+    try:
+        for s in range(TRAIN_STEPS):
+            spy["armed"] = s == TRAIN_SPY_STEP
+            arec["armed"] = s == TRAIN_ADAMW_STEP
+            if s == TRAIN_SPY_STEP:      # layer 0 as the step sees it
+                p0 = {k: {n: t.detach().clone() for n, t in v.items()}
+                      for k, v in transformer._layer(params, 0).items()}
+            batch = make_batch(dcfg, s, dev)
+            torch.cuda.synchronize()
+            last = s == TRAIN_STEPS - 1
+            with (profile(activities=[ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as p:
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = p if last else prof
+    finally:
+        transformer._train_block = real_block
+        steps.adamw_update = real_update
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    end_losses = batch_losses(torch, cfg, params, dcfg, dev)
+    del params, state, batch, m
+    torch.cuda.empty_cache()
+
+    print("  step losses: " + " ".join(f"{x:.4f}" for x in losses)
+          + "\n  the initial model's loss on each step's batch: "
+          + " ".join(f"{x:.4f}" for x in init_losses)
+          + "\n  the trained model's: "
+          + " ".join(f"{x:.4f}" for x in end_losses), flush=True)
+    if not all(math.isfinite(x) for x in losses + end_losses):
+        fails.append("training: a loss is not finite")
+    # A step's loss is taken on a batch the model has not seen, and
+    # batches differ by more than 8 steps teach: each is held to the
+    # initial model's loss on the same batch.
+    if not losses[-1] < init_losses[-1]:
+        fails.append(f"training: the last step's loss {losses[-1]:.4f} is "
+                     f"not below the initial model's on its batch "
+                     f"{init_losses[-1]:.4f}")
+    if not end_losses[0] < losses[0]:
+        fails.append(f"training: the first batch's loss after "
+                     f"{TRAIN_STEPS} steps {end_losses[0]:.4f} is not below "
+                     f"its loss at the first step {losses[0]:.4f}")
+    print(f"  launches over the {TRAIN_STEPS} steps: {launches}")
+    wall = statistics.median(walls[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    dev_us, n_kernels = trace_us(prof, lambda key: True)
+    each = " ".join(f"{w * 1e3:.0f}" for w in walls)
+    print(f"  a step: wall {wall * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS - 1}; each {each} ms), {tokens / wall:.0f} "
+          f"tokens/s; {flops / 1e12:.1f} TFLOP (6 N tokens + attention), "
+          f"{flops / wall / 1e12:.1f} TFLOP/s = "
+          f"{flops / wall / PEAK_FLOPS['bfloat16']:.3f} of 989 TFLOP/s "
+          f"bf16 ({card})")
+    print(f"  the last step traced: device {dev_us / 1e3:.1f} ms in "
+          f"{n_kernels} kernels, a device share of "
+          f"{dev_us / 1e3 / (walls[-1] * 1e3):.3f}; peak memory "
+          f"{(peak - held) / 1e9:.2f} GB over the {held / 1e9:.2f} GB held "
+          f"before the phase; AdamW {arec['ms']:.1f} ms of step "
+          f"{TRAIN_ADAMW_STEP + 1}'s wall; its largest kernels: " + "; ".join(
+              f"{k[:60]} {ms:.1f} ms ({c})" for k, ms, c in
+              top_kernels(prof, 6)))
+
+    l0 = check_layer0_grads(torch, cfg, p0, spy, fails)
+    print("  layer 0 at step 1 against float64 (||g - g64|| / ||g64|| as a "
+          f"share of {GRAD_REL}): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in l0["shares"].items()))
+    att = check_attention_grads(torch, ops, ref, fa, cfg, p0["attn"], spy,
+                                l0["d_o"], l0["window"], fails)
+    print(f"  attention backward on layer 0's q, k, v: chunked_attention "
+          f"against float64 (share of {ATTN_GRAD_REL}): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in att["chunked"].items())
+          + "; ops.flash_attention's gradient against it (share of "
+          "ref.kernel_error's allowance): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in att["flash"].items())
+          + f"; kernel 3 launched {att['flash_launches']} times")
+    del spy, p0, l0
+    aw = check_adamw(torch, optim, opt_cfg, arec, fails)
+    print(f"  AdamW at step {arec['step'] + 1} on {', '.join(ADAMW_LEAVES)} "
+          f"(layer 0's wq): elements that differ from the CPU's "
+          f"adamw_update ({aw['cpu_s']:.1f} s there): "
+          f"{sum(aw['differ'].values())}; against float64 (share of its "
+          f"allowance): " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in aw["shares"].items()))
+    del arec
+    torch.cuda.empty_cache()
+    if fails:
+        raise Mismatch("training: FAILED: " + "; ".join(fails))
+    return {"launches": launches}
+
+
+def check_train_resume(torch, dev, card: str) -> None:
+    """Phase 12 (b): see the module docstring. ``launch.train.run`` at
+    ``RESUME_LAYERS`` layers on the card: a crash at step 4 with a
+    checkpoint, a resume to step 8, an uninterrupted run; raises unless
+    the final losses agree within ``RESUME_RTOL``."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import train
+    writes = []
+    real_write = checkpoint._write
+
+    def timed_write(directory, step, flat, extra):
+        t0 = time.perf_counter()
+        path = real_write(directory, step, flat, extra)
+        writes.append((time.perf_counter() - t0, os.path.getsize(
+            os.path.join(path, "arrays.npz"))))
+        return path
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase12_", dir=build)
+    args = ["--arch", TRAIN_ARCH, "--layers", str(RESUME_LAYERS),
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--micro-batches", str(TRAIN_MICRO),
+            "--lr", str(TRAIN_LR), "--ckpt-every", "4", "--log-every", "4",
+            "--device", str(dev)]
+    checkpoint._write = timed_write
+    t0 = time.perf_counter()
+    try:
+        try:
+            train.run(args + ["--ckpt-dir", tmp, "--simulate-failure-at",
+                              "4"])
+            raise Mismatch("training: the run with --simulate-failure-at 4 "
+                           "did not stop")
+        except SystemExit as e:
+            print(f"  {e}")
+        torch.cuda.empty_cache()
+        p_res, loss_res = train.run(args + ["--ckpt-dir", tmp])
+        p_res = dict(leaf_items(p_res))
+        torch.cuda.empty_cache()
+        p_str, loss_str = train.run(args)
+    finally:
+        checkpoint._write = real_write
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    diff = max(float((p_res[k] - v).detach().float().abs().max())
+               for k, v in leaf_items(p_str))
+    del p_res, p_str
+    torch.cuda.empty_cache()
+    print(f"  crash at 4 and resume vs straight ({RESUME_LAYERS} of 24 "
+          f"layers, full width): final loss {loss_res:.6f} vs "
+          f"{loss_str:.6f} (rtol {RESUME_RTOL}), largest parameter "
+          f"difference {diff:g}; checkpoint writes: " + ", ".join(
+              f"{b / 1e9:.2f} GB in {t:.1f} s" for t, b in writes)
+          + f"; the three runs {wall:.1f} s ({card})")
+    if not abs(loss_res - loss_str) <= RESUME_RTOL * abs(loss_str):
+        raise Mismatch(f"training: the resume's final loss {loss_res!r} "
+                       f"differs from the uninterrupted run's {loss_str!r} "
+                       f"past rtol {RESUME_RTOL}")
+    if diff != 0:
+        raise Mismatch(f"training: the resume's parameters differ from the "
+                       f"uninterrupted run's by up to {diff:g}")
+
+
+def check_train(torch, dev, kernels, card: str, part: str = "ab") -> dict:
+    """Every check of phase 12: (a) internlm2-1.8b whole (returns each
+    kernel's launches over its steps), (b) crash and resume."""
+    out = {}
+    if "a" in part:
+        out = check_train_whole(torch, dev, kernels, card)
+    if "b" in part:
+        check_train_resume(torch, dev, card)
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 # Each model kernel is held to its plain version within
 # ``repro_torch.kernels.ref.kernel_error``'s allowance, in the working
@@ -3488,9 +4096,10 @@ def check_rwkv_split(torch, rw, case, events_ms: float) -> None:
                        f"{total:.4f} ms, the launch takes {events_ms:.4f} ms")
 
 
-def model_kernel_rows(m6) -> list:
+def model_kernel_rows(m6, train_launches: dict) -> list:
     """One ``kernels`` entry per model kernel: the times of its first case
-    (the main shape), the largest error over its cases."""
+    (the main shape), the largest error over its cases, and its launches
+    over phase 12's training steps."""
     meta = {
         "flash_attention": "src/repro/kernels/flash_attention.py:111",
         "decode_attention": "src/repro/kernels/decode_attention.py:100",
@@ -3504,6 +4113,7 @@ def model_kernel_rows(m6) -> list:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": m6["counts"][name],
+            "train_launches": train_launches[name],
             "max_abs_err": max(r["err"] for r in res), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
@@ -3512,6 +4122,7 @@ def model_kernel_rows(m6) -> list:
 
 
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3611,6 +4222,14 @@ def main() -> int:
         print(f"    phase 11 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+        print(f"[12] training internlm2-1.8b at full width ({card})",
+              flush=True)
+        t0 = time.perf_counter()
+        s12 = check_train(torch, dev, serve_kernels, card)
+        print(f"    phase 12 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        print("[13] per-kernel numbers", flush=True)
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -3622,6 +4241,7 @@ def main() -> int:
              "memtier_launches": s9["tiered"]["off_launches"],
              "model_serve_launches": s10["hmmu_lookup"],
              "family_serve_launches": s11["hmmu_lookup"],
+             "train_launches": s12["launches"]["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -3634,13 +4254,15 @@ def main() -> int:
              "memtier_launches": s9["tiered"]["auto_launches"],
              "model_serve_launches": s10["chunk_step"],
              "family_serve_launches": s11["chunk_step"],
+             "train_launches": s12["launches"]["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
-            *model_kernel_rows(m6),
+            *model_kernel_rows(m6, s12["launches"]),
         ]
         print(f"    kernel A's fused entry alone at B=1 x {CHUNK + 2} rows: "
-              f"{k_ms * 1e3:.2f} us")
+              f"{k_ms * 1e3:.2f} us; the script took "
+              f"{time.perf_counter() - start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,11 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means ``cuda``, which must
     exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the port's plain "
-                "PyTorch path on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the port's plain "
+            "PyTorch path on the CPU")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -35,13 +35,18 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # The plain version recomputed in float32 under autograd, each
+        # gradient rounded once to its input's dtype (a GQA group's dk and
+        # dv summed in float32, not head by head in bfloat16).
         causal, window, scale = ctx.mask
-        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        saved = ctx.saved_tensors
+        inputs = [x.detach().float().requires_grad_() for x in saved]
         with torch.enable_grad():
             out = ref.attention(*inputs, causal=causal, window=window,
                                 scale=scale)
-        grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None, None)
+        grads = torch.autograd.grad(out, inputs, g.float())
+        return (*(d.to(x.dtype) for d, x in zip(grads, saved)),
+                None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,6 @@
-"""Memory-bounded attention in plain PyTorch: the forward of the
-reference's ``repro.models.chunked_attention``, the attention path of the
-model's prefill.
+"""Memory-bounded attention in plain PyTorch with a flash-style backward:
+the port of the reference's ``repro.models.chunked_attention``, the
+attention path of the model's prefill and training.
 
 GQA/MQA kv heads are handled in *grouped* form: q is viewed as
 [B, Hkv, G, S, D] and every product contracts against the unexpanded
@@ -10,9 +10,13 @@ query blocks; each block computes float32 logits against the whole K
 matrix exists beyond one block. A sequence that the block size does not
 divide runs as one block, as in the reference.
 
+The backward (the reference's ``custom_vjp``, a ``torch.autograd.
+Function`` here) keeps the forward's ``out`` and logsumexp, recomputes P
+block by block and carries dK and dV in float32: O(S) residuals, and
+again no S x S matrix beyond one query block.
+
 ``window`` is None (global) or a Python int: the model's layers carry
-``Optional[int]`` windows (``transformer.layer_windows``). The backward
-(the reference's ``custom_vjp``) waits for the training slice.
+``Optional[int]`` windows (``transformer.layer_windows``).
 """
 from __future__ import annotations
 
@@ -57,6 +61,54 @@ def _fwd_blocks(q, k, v, causal, window, scale, block_q):
     return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
 
 
+def _bwd_blocks(q, k, v, out, lse, gr, causal, window, scale, block_q):
+    """The reference's ``_bwd_blocks``: (dq, dk, dv) in q's, k's and v's
+    dtypes, dK and dV summed over the query blocks in float32."""
+    s = q.shape[3]
+    skv = k.shape[2]
+    q_off = skv - s
+    delta = (gr.float() * out.float()).sum(dim=-1)
+    kf, vf = k.float(), v.float()
+    ki = torch.arange(skv, device=q.device)[None, :]
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    dqs = []
+    for start in range(0, s, block_q):
+        blk = slice(start, start + block_q)
+        qblk = q[:, :, :, blk].float()
+        logits = torch.einsum("bkgqd,bktd->bkgqt", qblk, kf) * scale
+        qi = torch.arange(start, start + block_q, device=q.device)[:, None] \
+            + q_off
+        logits = torch.where(_mask(qi, ki, causal, window), logits, NEG_INF)
+        p = torch.exp(logits - lse[:, :, :, blk, None])
+        gf = gr[:, :, :, blk].float()
+        dp = torch.einsum("bkgqd,bktd->bkgqt", gf, vf)
+        ds = p * (dp - delta[:, :, :, blk, None]) * scale
+        dqs.append(torch.einsum("bkgqt,bktd->bkgqd", ds, kf))
+        dk = dk + torch.einsum("bkgqt,bkgqd->bktd", ds, qblk)
+        dv = dv + torch.einsum("bkgqt,bkgqd->bktd", p, gf)
+    return (torch.cat(dqs, dim=3).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Chunked(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the blocked forward, saving ``out``
+    (float32) and the logsumexp, and the blocked backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_q):
+        out, lse = _fwd_blocks(q, k, v, causal, window, scale, block_q)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, block_q)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_blocks(q, k, v, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def naive_attention(q, k, v, *, causal=True, window=None, scale=None):
     """Single-shot attention (identical math, S x S logits materialized):
     the reference's cost-extraction variant (``attention_impl="naive"``)."""
@@ -88,5 +140,5 @@ def chunked_attention(q, k, v, *, causal=True, window=None, scale=None,
     if sq % block_q:                     # ragged tail: fall back to one block
         block_q = sq
     qg = q.reshape(b, hkv, g, sq, d)
-    out, _ = _fwd_blocks(qg, k, v, causal, window, scale, block_q)
-    return out.to(q.dtype).reshape(b, hq, sq, v.shape[-1])
+    out = _Chunked.apply(qg, k, v, causal, window, scale, block_q)
+    return out.reshape(b, hq, sq, v.shape[-1])

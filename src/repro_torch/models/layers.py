@@ -41,7 +41,9 @@ def fp32_sums():
 
 
 def fp32_accumulation(fn):
-    """Run ``fn`` under ``fp32_sums``."""
+    """Run ``fn`` under ``fp32_sums``. Its backward runs after ``fn`` has
+    returned, outside: a training step runs its forward and backward
+    inside ``fp32_sums`` (``launch.steps.make_train_step``)."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
         with fp32_sums():

@@ -84,10 +84,12 @@ def mamba_mix(cfg: ModelConfig, p: dict, xn: torch.Tensor, sh: ShardCtx,
     inp = (dt * xf)[..., None] * bmat[:, :, None, :]        # [B,S,di,N]
     h = (ssm_state if ssm_state is not None else
          torch.zeros((b, di, n), dtype=torch.float32, device=xn.device))
-    hs = torch.empty_like(decay)
+    hs = []
     for t in range(s):
-        h = torch.addcmul(inp[:, t], h, decay[:, t], out=hs[:, t])
-    y = torch.einsum("bsdn,bsn->bsd", hs, cmat) + xf * p["d_skip"].float()
+        h = torch.addcmul(inp[:, t], h, decay[:, t])
+        hs.append(h)
+    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, 1), cmat) \
+        + xf * p["d_skip"].float()
     y = y.to(adtype) * F.silu(z.float()).to(adtype)
     return y, new_conv, h.clone()
 

@@ -23,13 +23,18 @@ still advances) has its write dropped, as the reference's out-of-range
 scatter is, with no device assert and no host synchronisation; a Hymba
 ring wraps instead, as in the reference.
 
-Training (``loss_fn``) waits for its slice (ROADMAP §1 item 5).
+Training: ``loss_fn`` is next-token cross-entropy plus the MoE's load
+balance. With autograd recording, ``forward_seq`` recomputes each layer
+in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` over its layer scan), so only the layers' inputs are
+kept; prefill and serving run as before.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers, mamba as mamba_lib, mla as mla_lib, moe as moe_lib
@@ -241,6 +246,13 @@ def _seq_block(cfg: ModelConfig, sh: ShardCtx, positions, p, x, window):
     return x + m, cache, aux
 
 
+def _train_block(cfg: ModelConfig, sh: ShardCtx, positions, p, x, window):
+    """``_seq_block`` without its cache: the unit ``forward_seq``
+    recomputes in the backward."""
+    x, _, aux = _seq_block(cfg, sh, positions, p, x, window)
+    return x, aux
+
+
 def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
            sh: ShardCtx, frames_ndim: int) -> torch.Tensor:
     if cfg.frontend == "frames" and inputs.ndim == frames_ndim:
@@ -261,16 +273,33 @@ def forward_seq(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     x = _embed(cfg, params, inputs, sh, frames_ndim=3)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.float32, device=x.device)
+    recompute = torch.is_grad_enabled() and not collect_cache
     caches, auxes = [], []
     for l, window in enumerate(_windows(cfg)):
-        x, c, aux = _seq_block(cfg, sh, positions, _layer(params, l), x,
-                               window)
+        p = _layer(params, l)
+        if recompute:
+            x, aux = checkpoint(_train_block, cfg, sh, positions, p, x,
+                                window, use_reentrant=False)
+            c = None
+        else:
+            x, c, aux = _seq_block(cfg, sh, positions, p, x, window)
         auxes.append(aux)
         if collect_cache:
             caches.append(c)
     cache = ({k: torch.stack([c[k] for c in caches]) for k in caches[0]}
              if collect_cache else None)
     return x, cache, torch.stack(auxes).mean()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: ShardCtx
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (+ 0.01 x the MoE's aux loss). batch: {"inputs",
+    "labels"}. Returns (loss, {"ce", "aux"}), float32 scalars."""
+    x, _, aux = forward_seq(cfg, params, batch["inputs"], sh,
+                            collect_cache=False)
+    logits = layers.lm_logits(cfg, params, x, sh)
+    ce = layers.cross_entropy(logits, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def _pad_seq(c: torch.Tensor, axis: int, size: int) -> torch.Tensor:

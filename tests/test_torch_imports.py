@@ -63,6 +63,13 @@ _MODELS = ("repro_torch.device", "repro_torch.configs",
            "repro_torch.models.mamba", "repro_torch.memtier.engine",
            "repro_torch.launch", "repro_torch.launch.serve")
 
+# The training path: optimizer, data, checkpoints and the launcher.
+_TRAIN = ("repro_torch.optim", "repro_torch.optim.adamw",
+          "repro_torch.optim.compress", "repro_torch.data",
+          "repro_torch.data.pipeline", "repro_torch.ckpt",
+          "repro_torch.ckpt.checkpoint", "repro_torch.launch.steps",
+          "repro_torch.launch.train")
+
 
 def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -73,6 +80,7 @@ def test_port_imports_without_jax_or_repro():
     assert set(_SERVE) <= set(names)
     assert set(_MEMTIER) <= set(names)
     assert set(_MODELS) <= set(names)
+    assert set(_TRAIN) <= set(names)
 
 
 def _run_smoke(cwd):
