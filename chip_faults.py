@@ -9,7 +9,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Thirty-four faults are planted. A fault in
+run in a process of its own. Thirty-six faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -42,7 +42,13 @@ where the fault is; the three of the training slice (dK and dV of the
 attention backward from the last query block only, AdamW's bias
 corrections one step early, the resume restarting the data at step 0)
 run phase 12's part that holds the code (``chip_smoke.check_train``),
-whose failure must hold the words of the check that names the fault. A
+whose failure must hold the words of the check that names the fault;
+the two of the chunk-1 and large-chunk slice (every design point's
+workspace slice read at point 0's offset, and a swap committed at the
+first boundary after it starts, whatever its duration) run phase 13's
+part that holds the code: the B = 2 sweep at chunk 4096
+(``chip_smoke.check_large_chunks``) and the chunk-1 oracle
+(``chip_smoke.check_oracle``), which must stop at a mismatch. A
 fault in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -249,6 +255,33 @@ SLICE12_FAULTS = [
 SLICE12_RUNS = (("a", "attention backward"), ("a", "AdamW"),
                 ("b", "resume"))
 
+# Faults that only phase 13 shows: kernel B reading every design point's
+# workspace slice at point 0's offset (only a chunk past shared memory
+# takes the workspace, and only a launch of more than one point shares
+# it: 13 (c)'s B = 2 sweep at chunk 4096), and a swap committed at the
+# first boundary after it starts, whatever its duration (at chunk 16 and
+# more a chunk lasts longer than the paper's 768-cycle swap, so every
+# commit is due at the next boundary anyway and phases 4 and 5 pass; only
+# one-request chunks end before a swap is done: 13 (a)'s chunk-1 oracle).
+# The first stops the card at an illegal address (two points' sorts
+# index past the slice they share), which the child counts as caught,
+# as it counts phase 10's device-side assert. They run phase 13's
+# part that holds the code (``chip_smoke.check_large_chunks`` or
+# ``chip_smoke.check_oracle``), which must stop at a mismatch.
+SLICE13_FAULTS = [
+    ("chunk step (workspace): every design point's per-request arrays at "
+     "point 0's slice", "chunk_step", CSRC + "chunk_step.cu",
+     "  int* s_page = WS ? a.ws + (long long)bi * a.ws_words : smem;",
+     "  int* s_page = WS ? a.ws : smem;"),
+    ("chunk step (chunk 1): a swap committed at the first boundary after "
+     "it starts, whatever its duration", "chunk_step",
+     CSRC + "chunk_step.cu",
+     "        const int done = I[DMA_ACTIVE] == 1 && now >= I[DMA_START] + dur;",
+     "        const int done = I[DMA_ACTIVE] == 1;"),
+]
+# The part of phase 13 that runs each one's code.
+SLICE13_PARTS = ("c", "a")
+
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
     ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
@@ -324,13 +357,15 @@ FAULTS = [
     *SLICE10_FAULTS,
     *SLICE11_FAULTS,
     *SLICE12_FAULTS,
+    *SLICE13_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
 # chunk-step, kernel-A, serving, policy, model or training fault the phase
 # whose checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase
 # 10", "phase 11 <arch>" for the one model of phase 11 that runs the
-# fault, or "phase 12 <part>" with the words its failure must hold).
+# fault, "phase 12 <part>" with the words its failure must hold, or
+# "phase 13 <part>").
 CHILD = r'''
 import json, sys
 import torch
@@ -353,7 +388,21 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
                "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
                "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3].startswith("phase 12"):
+        if sys.argv[3] == "phase 13 a":
+            cs.check_oracle(torch, dev, rt, hmmu_lookup, chunk_step)
+        elif sys.argv[3] == "phase 13 c":
+            try:
+                cs.check_large_chunks(torch, dev, rt, hmmu_lookup,
+                                      chunk_step, "", parts="s")
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                # Two points on one workspace slice can index past it: an
+                # illegal address stops the run, which phase 13 reports
+                # as a failure.
+                if "illegal memory access" not in str(e):
+                    raise
+                raise cs.Mismatch(f"stopped by the device: {e}") from e
+        elif sys.argv[3].startswith("phase 12"):
             cs.check_train(torch, dev, kernels, "", sys.argv[3][-1])
             torch.cuda.synchronize()
         elif sys.argv[3].startswith("phase 11"):
@@ -433,7 +482,9 @@ def main() -> int:
             expect = ""
             if FAULTS[i] in SLICE12_FAULTS:
                 part, expect = SLICE12_RUNS[SLICE12_FAULTS.index(FAULTS[i])]
-            phase = ("phase 12 " + part if FAULTS[i] in SLICE12_FAULTS else
+            phase = ("phase 13 " + SLICE13_PARTS[SLICE13_FAULTS.index(
+                FAULTS[i])] if FAULTS[i] in SLICE13_FAULTS else
+                     "phase 12 " + part if FAULTS[i] in SLICE12_FAULTS else
                      "phase 7" if FAULTS[i] in SWEEP_FAULTS else
                      "phase 8" if FAULTS[i] in SERVE_FAULTS else
                      "phase 9" if FAULTS[i] in SLICE9_FAULTS else

@@ -227,12 +227,49 @@ Phases, each printing its lines in order:
    ``--simulate-failure-at 4``, a resume to step 8, and an uninterrupted
    run: the final losses within rtol 1e-5 and every parameter bit for
    bit, each checkpoint's write time and bytes.
-13. One JSON line of per-kernel numbers (kernels A and B also carry
+13. **The paper's oracle and Fig 7 on the card, large chunks and the
+   examples** — (a) the central correctness claim at the paper's geometry
+   (``paper_platform().with_(chunk=1, ...)``: 294,912 pages, 16 banks, 3D
+   XPoint): on the six workloads of ``benchmarks/bench_speedup.py``
+   (``WORKLOADS_SMALL``, scale 6e-9, 16,384 requests each) under
+   ``static``, ``hotness`` (``hot_threshold=2, decay_every=512``) and
+   ``write_bias`` (``hot_threshold=4, decay_every=64, write_weight=4``),
+   and once more on ``505.mcf`` with ``write_bias`` at 131,072 requests,
+   ``Engine.run`` on ``"auto"`` (ONE launch of kernel B over one-request
+   chunks) bitwise equal to the port's sequential simulators
+   (``repro_torch.sims``: ``trace_sim`` and ``cycle_sim(refresh=False)``)
+   in every request's return, latency and device, the final clock, the
+   swaps (``cycle_sim`` may lead by the swap in flight at the end), the
+   integer and byte counters, with the energy and read-latency counters
+   (float32 sums of one term a chunk) within their rounding bound; every
+   case that migrates (``ORACLE_MIGRATING``) shows swaps; then ``"off"``
+   (one launch of kernel A a chunk) on each policy's first 512 requests,
+   held the same way, and ``"auto"`` over those requests bitwise equal to
+   it, final table and state included. (b) Fig 7: ``bench_speedup``'s ``paper_platform().
+   with_(chunk=4096)`` on the same six workloads: the native time (the
+   emulated clock, 1 cycle = 1 ns), ``Engine.run``'s synchronised wall
+   (a warm-up, then the median of 3), the walls of ``trace_sim`` and of
+   ``cycle_sim(refresh=True, cpu_model=True)``, the three slowdowns and
+   two speedups and their geometric means, beside the card's name and
+   power limit; kernel B on its workspace layout. (c) Kernel B past its
+   shared-memory ceiling: chunk 2048 keeps the per-request arrays in
+   shared memory, chunk 4096 in a global workspace; at chunk 4096 on
+   phase 5's trace ``"auto"`` bitwise equal to ``"off"``; at 2048 and 4096
+   a B = 2 ``Engine.sweep`` (``hotness``, ``write_bias``) in one launch,
+   each point equal to its own run; the layout each launch took and
+   kernel B's us per chunk at both sizes. (d) The five ported examples
+   (``examples/{quickstart, policy_exploration, serve_continuous,
+   wear_leveling, endurance_lifetime}_torch.py``, the last two with
+   ``--quick --check``) run in this process on the card, each to its end
+   with its own assertions (``serve_continuous``'s flat
+   ``compile_count`` among them), their rows printed.
+14. One JSON line of per-kernel numbers (kernels A and B also carry
    ``serve_launches``, ``policy_launches``, ``memtier_launches``,
-   ``model_serve_launches`` and ``family_serve_launches``, the counts of
-   phases 8, 9 (a), 9 (b), 10 and 11; every kernel ``train_launches``,
-   phase 12 (a)'s), the card line again, and the last line ``{"ok": true,
-   "device": {...}}``.
+   ``model_serve_launches``, ``family_serve_launches``,
+   ``oracle_launches``, ``fig7_launches`` and ``example_launches``, the
+   counts of phases 8, 9 (a), 9 (b), 10, 11 and 13 (a), (b), (d); every
+   kernel ``train_launches``, phase 12 (a)'s), the card line again, and
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -1527,8 +1564,8 @@ def check_serve_contracts(torch, dev, rt) -> None:
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=where)
         st = st._replace(table=tab, dma=st.dma._replace(
             active=i32(1), page_a=i32(page_a), page_b=i32(page_b)))
-        start = st.table[:, tl.FLAGS].cpu().numpy()
-        lane = st.table[:, tl.DEVICE].cpu().numpy()
+        start = tl.flags(st.table).cpu().numpy()
+        lane = tl.device(st.table).cpu().numpy()
         st = stamp_pin_pages(st, pages, width=width)
         st = release_pin_pages(st, release, width=width)
         tables[str(where)] = st.table.cpu()
@@ -1536,7 +1573,7 @@ def check_serve_contracts(torch, dev, rt) -> None:
     if not torch.equal(tables["cpu"], tables[str(dev)]):
         raise Mismatch("pin contracts on the card differ from the CPU")
     want = plain_contracts(start, lane, (1, page_a, page_b), pages, release)
-    got = tables[str(dev)][:, tl.FLAGS].numpy()
+    got = tl.flags(tables[str(dev)]).numpy()
     if not np.array_equal(got, want):
         bad = np.flatnonzero(got != want)[:5].tolist()
         raise Mismatch(f"pin contracts differ from the plain loop at pages "
@@ -3731,6 +3768,419 @@ def check_train(torch, dev, kernels, card: str, part: str = "ab") -> dict:
 # largest magnitude (~5e2 at these shapes).
 
 
+# --------------------------------------------------------------- phase 13
+# bench_speedup.WORKLOADS_SMALL (benchmarks/bench_speedup.py:25), its scale
+# and its least trace length: 16,384 requests each.
+ORACLE_WORKLOADS = ("505.mcf", "519.lbm", "538.imagick", "520.omnetpp",
+                    "508.namd", "541.leela")
+ORACLE_SCALE = 6e-9
+ORACLE_REQUESTS = 16_384
+# The three policies the sequential simulators model, at settings that
+# migrate on the paper's geometry (at bench_speedup's own hot_threshold 8
+# and decay_every 16 it makes no swap in 16,384 requests).
+ORACLE_SETTINGS = (("static", {}),
+                   ("hotness", dict(hot_threshold=2, decay_every=512)),
+                   ("write_bias", dict(hot_threshold=4, decay_every=64,
+                                       write_weight=4)))
+# The (workload, policy) cases that must migrate: on 519.lbm, 508.namd and
+# 541.leela these settings make few swaps or none.
+ORACLE_MIGRATING = (("505.mcf", "hotness"), ("505.mcf", "write_bias"),
+                    ("520.omnetpp", "hotness"), ("520.omnetpp", "write_bias"))
+ORACLE_DEEP = ("505.mcf", "write_bias", 131_072)
+ORACLE_OFF_REQUESTS = 512      # "off" is one kernel-A launch a request here
+FIG7_CHUNK = 4096              # benchmarks/bench_speedup.py:37
+LARGE_CHUNKS = (2048, 4096)    # the shared-memory and the workspace layout
+EXAMPLES = (("quickstart_torch", ()),
+            ("policy_exploration_torch", ()),
+            ("serve_continuous_torch", ()),
+            ("wear_leveling_torch", ("--quick", "--check")),
+            ("endurance_lifetime_torch", ("--quick", "--check")))
+U32 = 2.0 ** -24               # float32's unit roundoff
+
+
+def sim_pair(cfg, arrays):
+    """The port's ``trace_sim`` and ``cycle_sim(refresh=False)`` on one
+    trace, with their walls (s)."""
+    from repro_torch.sims import cycle_sim, trace_sim
+    t0 = time.perf_counter()
+    r1 = trace_sim.simulate(cfg, *arrays)
+    t1 = time.perf_counter()
+    r2 = cycle_sim.simulate(cfg, *arrays, refresh=False)
+    return r1, r2, t1 - t0, time.perf_counter() - t1
+
+
+SIM_INT_COUNTERS = ("reads_fast", "writes_fast", "reads_slow",
+                    "writes_slow", "reorder_held")
+
+
+def hold_oracle(where: str, res, r1, r2, n_chunks: int) -> dict:
+    """Hold an ``Engine.run`` at chunk 1 to both simulators: returns,
+    latency and device bitwise, the final clock, the swaps (``cycle_sim``
+    may lead by the one swap in flight at the end), the integer counters
+    and the byte counters exactly; the two float32 counters that sum a
+    term a chunk (energy, read latency) within the bound of a float32
+    sum of ``n_chunks`` positive terms, ``n_chunks * 2^-22`` relative
+    (the term's coefficient and product roundings, the fold's).
+    Returns each float counter's share of its bound."""
+    import numpy as np
+    o, st = res.outs, res.state
+    for name, sim in (("trace_sim", r1), ("cycle_sim", r2)):
+        for k in ("returns", "latency", "device"):
+            got = o[k].cpu().numpy().astype(np.int64)
+            want = getattr(sim, k)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = np.flatnonzero(got != want)
+                raise Mismatch(
+                    f"{where}: {k} differs from {name} at {bad.size} of "
+                    f"{want.size} requests, first request {bad[0]}: "
+                    f"{got[bad[0]]} against {want[bad[0]]}")
+        if int(st.clock) != sim.clock:
+            raise Mismatch(f"{where}: clock {int(st.clock)}, {name} "
+                           f"{sim.clock}")
+        c = st.counters
+        for k in SIM_INT_COUNTERS:
+            if int(getattr(c, k)) != sim.counters[k]:
+                raise Mismatch(f"{where}: counter {k} {int(getattr(c, k))},"
+                               f" {name} {sim.counters[k]}")
+        for k, parts in (("bytes_read", ("bytes_read_fast",
+                                         "bytes_read_slow")),
+                         ("bytes_written", ("bytes_write_fast",
+                                            "bytes_write_slow"))):
+            got = sum(float(getattr(c, f)) for f in parts)
+            if got != sim.counters[k]:
+                raise Mismatch(f"{where}: {k} {got}, {name} "
+                               f"{sim.counters[k]}")
+    swaps = int(st.dma.swaps_done)
+    if swaps != r1.swaps or r2.swaps - r1.swaps not in (0, 1):
+        raise Mismatch(f"{where}: swaps {swaps}, trace_sim {r1.swaps}, "
+                       f"cycle_sim {r2.swaps}")
+    c = st.counters
+    bound = n_chunks * 2.0 ** -22
+    reads = int(c.n_reads)
+    mean = float(c.sum_read_latency) / max(reads, 1)
+    shares = {}
+    for k, got, want in (
+            ("energy_pj", float(c.energy_pj), r1.counters["energy_pj"]),
+            ("mean_read_latency", mean,
+             r1.counters["mean_read_latency_cyc"])):
+        rel = abs(got - want) / abs(want) if want else abs(got)
+        shares[k] = rel / bound
+        if rel > bound:
+            raise Mismatch(f"{where}: {k} {got} against the simulators' "
+                           f"{want}: {rel:.3g} relative, past {bound:.3g}")
+    return shares
+
+
+def check_oracle(torch, dev, rt, hl, cs) -> dict:
+    """Phase 13 (a): kernel B at chunk 1 on the paper's geometry held to
+    the sequential simulators, bit for bit (see the module docstring);
+    returns the launches of kernels A and B."""
+    from repro_torch.trace import workload_trace
+    launches = {"hmmu_lookup": 0, "chunk_step": 0}
+
+    def run(cfg, trace, route, want):
+        hl.KERNEL.launches = 0
+        cs.KERNEL.reset()
+        t0 = time.perf_counter()
+        res = rt.Engine(cfg.with_(chunk_step_kernel=route)).run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"hmmu_lookup": hl.KERNEL.launches,
+               "chunk_step": cs.KERNEL.launches}
+        if got != want:
+            raise Mismatch(f"chunk 1 on {route!r}: launches {got}, not "
+                           f"{want}")
+        if route == "auto" and cs.KERNEL.variant_launches["shared"] != 1:
+            raise Mismatch(f"chunk 1: layouts {cs.KERNEL.variant_launches}")
+        for k in launches:
+            launches[k] += got[k]
+        return res, wall
+
+    settings = dict(ORACLE_SETTINGS)
+    cases = [(w, [p for p, _ in ORACLE_SETTINGS], ORACLE_REQUESTS)
+             for w in ORACLE_WORKLOADS]
+    cases.append((ORACLE_DEEP[0], [ORACLE_DEEP[1]], ORACLE_DEEP[2]))
+    for name, policies, m in cases:
+        trace, _, n = workload_trace(name, scale=ORACLE_SCALE,
+                                     min_requests=m, device=dev)
+        arrays = [x.cpu().numpy() for x in trace]
+        for policy in policies:
+            cfg = rt.paper_platform().with_(chunk=1, policy=policy,
+                                            **settings[policy])
+            res, wall = run(cfg, trace, "auto", {"hmmu_lookup": 0,
+                                                 "chunk_step": 1})
+            r1, r2, ts, cy = sim_pair(cfg, arrays)
+            shares = hold_oracle(f"{name}/{policy} at chunk 1", res, r1, r2,
+                                 n)
+            swaps = int(res.state.dma.swaps_done)
+            print(f"  {name:11s} {policy:10s} {n:6d} requests in {n} "
+                  f"chunks (one launch of kernel B, {wall:.3f} s, "
+                  f"{wall / n * 1e6:.2f} us/chunk wall): clock "
+                  f"{int(res.state.clock)}, swaps {swaps} (cycle_sim "
+                  f"{r2.swaps}); equal to trace_sim ({ts:.2f} s) and "
+                  f"cycle_sim ({cy:.2f} s); energy at "
+                  f"{shares['energy_pj']:.3f}, mean read latency at "
+                  f"{shares['mean_read_latency']:.3f} of their float32 "
+                  "bound", flush=True)
+            if (name, policy) in ORACLE_MIGRATING and swaps == 0:
+                raise Mismatch(f"{name}/{policy}: no swap: the DMA path is "
+                               "not exercised")
+    # "off": one launch of kernel A a chunk, on each policy's first
+    # requests of the first workload; "auto" over the same requests must
+    # equal it in every field of the final state too (the table's EPOCH
+    # stamps show when each swap committed, which the simulators keep to
+    # themselves).
+    name = ORACLE_WORKLOADS[0]
+    trace, _, _ = workload_trace(name, scale=ORACLE_SCALE,
+                                 min_requests=ORACLE_REQUESTS, device=dev)
+    m = ORACLE_OFF_REQUESTS
+    sub = rt.core.Trace(*(x[:m] for x in trace))
+    arrays = [x.cpu().numpy() for x in sub]
+    for policy, kw in ORACLE_SETTINGS:
+        cfg = rt.paper_platform().with_(chunk=1, policy=policy, **kw)
+        res, wall = run(cfg, sub, "off", {"hmmu_lookup": m,
+                                          "chunk_step": 0})
+        r1, r2, _, _ = sim_pair(cfg, arrays)
+        hold_oracle(f"{name}/{policy} at chunk 1 on 'off'", res, r1, r2, m)
+        auto, _ = run(cfg, sub, "auto", {"hmmu_lookup": 0, "chunk_step": 1})
+        same_runs(torch, f"{name}/{policy}, the first {m} requests at chunk "
+                  "1: 'auto' against 'off'", tuple(auto), tuple(res))
+        print(f"  {name} {policy:10s} first {m} requests on 'off' ({m} "
+              f"launches of kernel A, {wall:.2f} s): equal to trace_sim "
+              f"and cycle_sim, and 'auto' equal to it (final state "
+              f"included); swaps {int(res.state.dma.swaps_done)}",
+              flush=True)
+    return launches
+
+
+def check_fig7(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Phase 13 (b): the paper's Fig 7 on the card (see the module
+    docstring); returns the launches of kernels A and B and the rows."""
+    import numpy as np
+    from repro_torch.sims import cycle_sim, trace_sim
+    from repro_torch.trace import workload_trace
+    cfg = rt.paper_platform().with_(chunk=FIG7_CHUNK)
+    eng = rt.Engine(cfg)
+    rows = []
+    hl.KERNEL.launches = 0
+    cs.KERNEL.reset()
+    for name in ORACLE_WORKLOADS:
+        trace, _, n = workload_trace(name, scale=ORACLE_SCALE,
+                                     min_requests=ORACLE_REQUESTS,
+                                     device=dev)
+        arrays = [x.cpu().numpy() for x in trace]
+
+        def emu():
+            r = eng.run(trace)
+            torch.cuda.synchronize()
+            return r
+        res = emu()                       # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = emu()
+            walls.append(time.perf_counter() - t0)
+        check_outputs(torch, rt, cfg, res, n)
+        emu_s = statistics.median(walls)
+        native_s = int(res.state.clock) * 1e-9      # 1 cycle == 1 ns
+        t0 = time.perf_counter()
+        trace_sim.simulate(cfg, *arrays)
+        ts_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cycle_sim.simulate(cfg, *arrays, refresh=True, cpu_model=True)
+        cy_s = time.perf_counter() - t0
+        row = {"workload": name, "requests": n, "native_s": native_s,
+               "emu_s": emu_s, "trace_sim_s": ts_s, "cycle_sim_s": cy_s,
+               "emu_slowdown": emu_s / native_s,
+               "tracesim_slowdown": ts_s / native_s,
+               "cyclesim_slowdown": cy_s / native_s,
+               "speedup_vs_tracesim": ts_s / emu_s,
+               "speedup_vs_cyclesim": cy_s / emu_s}
+        rows.append(row)
+        print(f"  {name:11s} n={n} native {native_s * 1e3:.4f} ms; "
+              f"emulator {emu_s * 1e3:.3f} ms (median of 3: "
+              + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+              + f"), trace_sim {ts_s:.3f} s, cycle_sim {cy_s:.3f} s; "
+              f"slowdowns {row['emu_slowdown']:.2f}x / "
+              f"{row['tracesim_slowdown']:.1f}x / "
+              f"{row['cyclesim_slowdown']:.1f}x; speedups "
+              f"{row['speedup_vs_tracesim']:.1f}x / "
+              f"{row['speedup_vs_cyclesim']:.1f}x", flush=True)
+
+    def geomean(key):
+        return float(np.exp(np.mean(np.log([r[key] for r in rows]))))
+    print(f"  Fig 7 geomeans over {len(rows)} workloads: slowdowns emulator "
+          f"{geomean('emu_slowdown'):.3f}x, trace_sim "
+          f"{geomean('tracesim_slowdown'):.1f}x, cycle_sim "
+          f"{geomean('cyclesim_slowdown'):.1f}x; speedups "
+          f"{geomean('speedup_vs_tracesim'):.1f}x over trace_sim, "
+          f"{geomean('speedup_vs_cyclesim'):.1f}x over cycle_sim "
+          f"[{card}]", flush=True)
+    layouts = dict(cs.KERNEL.variant_launches)
+    if layouts["shared"] or not layouts["workspace"]:
+        raise Mismatch(f"Fig 7 at chunk {FIG7_CHUNK}: layouts {layouts}")
+    return {"launches": {"hmmu_lookup": hl.KERNEL.launches,
+                         "chunk_step": cs.KERNEL.launches}, "rows": rows}
+
+
+def chunk_layout_line(cs) -> str:
+    v = cs.KERNEL.variant_launches
+    return f"layouts {{'shared': {v['shared']}, 'workspace': {v['workspace']}}}"
+
+
+def check_large_chunks(torch, dev, rt, hl, cs, card: str,
+                       parts: str = "rs") -> dict:
+    """Phase 13 (c): kernel B past its shared-memory chunk ceiling (see the
+    module docstring); ``parts`` "r" the routes at chunk 4096, "s" the
+    B = 2 sweeps and the times. Returns us per chunk by chunk size."""
+    from repro_torch.sweep import SweepSpec, build_points
+    from repro_torch.trace import workload_trace
+    trace, _, n = workload_trace("520.omnetpp", scale=1e-4, device=dev)
+    paper = rt.paper_platform()
+    for chunk in LARGE_CHUNKS:
+        layout, words = cs.chunk_layout(str(dev), chunk, paper.n_banks)
+        print(f"  chunk {chunk}: {layout} layout, {words * 4} B a design "
+              "point", flush=True)
+    if "r" in parts:
+        cfg = paper.with_(chunk=FIG7_CHUNK, policy="hotness",
+                          hot_threshold=4)
+        n_chunks = -(-n // cfg.chunk)
+        got = {}
+        for route, want in (("auto", {"hmmu_lookup": 0, "chunk_step": 1}),
+                            ("off", {"hmmu_lookup": n_chunks,
+                                     "chunk_step": 0})):
+            hl.KERNEL.launches = 0
+            cs.KERNEL.reset()
+            t0 = time.perf_counter()
+            res = rt.Engine(cfg.with_(chunk_step_kernel=route)).run(trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {"hmmu_lookup": hl.KERNEL.launches,
+                      "chunk_step": cs.KERNEL.launches}
+            print(f"  chunk {cfg.chunk} on {route!r} over {n} requests "
+                  f"({n_chunks} chunks): launches {counts}, "
+                  f"{chunk_layout_line(cs)}; wall {wall:.3f} s", flush=True)
+            if counts != want:
+                raise Mismatch(f"chunk {cfg.chunk} on {route!r}: launches "
+                               f"{counts}, not {want}")
+            got[route] = (res.state, res.outs)
+        if cs.KERNEL.variant_launches["workspace"] != 0:
+            raise Mismatch("'off' launched kernel B")
+        same_runs(torch, f"chunk {cfg.chunk}: 'auto' against 'off'",
+                  got["auto"], got["off"])
+        check_outputs(torch, rt, cfg, rt.RunResult(*got["auto"]), n)
+        print(f"  chunk {cfg.chunk}: 'auto' (kernel B, workspace layout) "
+              "bitwise equal to 'off'", flush=True)
+        del got, res
+    us = {}
+    if "s" in parts:
+        for chunk in LARGE_CHUNKS:
+            base = paper.with_(chunk=chunk, hot_threshold=4)
+            spec = SweepSpec(base, policies=("hotness", "write_bias"))
+            eng = rt.Engine(base)
+            cs.KERNEL.reset()
+            res = eng.sweep(spec, trace)
+            torch.cuda.synchronize()
+            layout = chunk_layout_line(cs)
+            if cs.KERNEL.launches != 1:
+                raise Mismatch(f"chunk {chunk} sweep: {cs.KERNEL.launches} "
+                               "launches")
+            want_layout = cs.chunk_layout(str(dev), chunk, base.n_banks)[0]
+            if cs.KERNEL.variant_launches[want_layout] != 1:
+                raise Mismatch(f"chunk {chunk} sweep: {layout}, not the "
+                               f"{want_layout} layout")
+            for i, p in enumerate(build_points(spec)):
+                same_runs(torch, f"chunk {chunk}, B = 2, point {i} "
+                          f"({p.label}) against its Engine.run",
+                          point_run(res, i, n),
+                          eng.run(trace, params=p.params(dev)))
+            n_chunks = -(-n // chunk)
+            runs = [device_and_wall_ms(torch, lambda: eng.run(trace), 1,
+                                       "chunk_step_kernel")
+                    for _ in range(3)]
+            k_ms, w_ms = sorted(runs)[1]
+            us[chunk] = k_ms / n_chunks * 1e3
+            print(f"  chunk {chunk}: B = 2 sweep (hotness, write_bias) in "
+                  f"one launch, {layout}: each point bitwise equal to its "
+                  f"own Engine.run; kernel B {us[chunk]:.3f} us/chunk at "
+                  f"B = 1 (median of 3 traced runs: " + ", ".join(
+                      f"{d / n_chunks * 1e3:.3f}" for d, _ in runs)
+                  + f"), {k_ms * 1e3 / n:.5f} us/request, device share "
+                  f"{k_ms / w_ms:.3f} [{card}]", flush=True)
+            del res
+    return us
+
+
+def load_example(name: str):
+    """Import ``examples/<name>.py`` as a module (the examples directory
+    on ``sys.path``, for the ones that import each other)."""
+    import importlib.util
+    examples = str(ROOT / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_examples(torch, dev, hl, cs) -> dict:
+    """Phase 13 (d): the five ported examples on the card, in this process
+    (their launches counted), each run to its end with its own
+    assertions; returns the launches of kernels A and B."""
+    import contextlib
+    import io
+    import tempfile
+    launches = {"hmmu_lookup": 0, "chunk_step": 0}
+    with tempfile.TemporaryDirectory(prefix="phase13_", dir=ROOT / "build"
+                                     if (ROOT / "build").is_dir() else None
+                                     ) as tmp:
+        for name, args in EXAMPLES:
+            argv = ["--device", str(dev), *args]
+            if name == "policy_exploration_torch":
+                argv += ["--out", str(pathlib.Path(tmp) / "heatmap.csv")]
+            hl.KERNEL.launches = 0
+            cs.KERNEL.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    load_example(name).main(argv)
+                torch.cuda.synchronize()
+            except Exception as e:
+                print(buf.getvalue())
+                raise Mismatch(f"example {name} {' '.join(args)}: "
+                               f"{type(e).__name__}: {e}") from e
+            counts = {"hmmu_lookup": hl.KERNEL.launches,
+                      "chunk_step": cs.KERNEL.launches}
+            for k in launches:
+                launches[k] += counts[k]
+            print(f"  examples/{name}.py {' '.join(argv)}: "
+                  f"{time.perf_counter() - t0:.2f} s, launches {counts}:")
+            for line in buf.getvalue().splitlines():
+                print(f"    | {line}")
+            if counts["chunk_step"] == 0:
+                raise Mismatch(f"example {name} never launched kernel B")
+    return launches
+
+
+def check_slice13(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Phase 13 (a)-(d); returns the launches of each part."""
+    print("  (a) chunk 1 against the sequential simulators, paper geometry",
+          flush=True)
+    oracle = check_oracle(torch, dev, rt, hl, cs)
+    print(f"  (b) Fig 7 at chunk {FIG7_CHUNK} ({card})", flush=True)
+    fig7 = check_fig7(torch, dev, rt, hl, cs, card)
+    print("  (c) large chunks: the shared-memory and workspace layouts",
+          flush=True)
+    us = check_large_chunks(torch, dev, rt, hl, cs, card)
+    print("  (d) the five examples on the card", flush=True)
+    examples = check_examples(torch, dev, hl, cs)
+    return {"oracle": oracle, "fig7": fig7["launches"], "us": us,
+            "examples": examples}
+
+
 def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
     """Device milliseconds per call of ``fn``: CUDA events around a run of
     calls after one warm-up call, as many calls as fit ``budget_ms``
@@ -4229,7 +4679,14 @@ def main() -> int:
         print(f"    phase 12 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        print("[13] per-kernel numbers", flush=True)
+        print(f"[13] the chunk-1 oracle, Fig 7, large chunks and the "
+              f"examples ({card})", flush=True)
+        t0 = time.perf_counter()
+        s13 = check_slice13(torch, dev, rt, hl, cs, card)
+        print(f"    phase 13 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        print("[14] per-kernel numbers", flush=True)
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -4241,6 +4698,9 @@ def main() -> int:
              "memtier_launches": s9["tiered"]["off_launches"],
              "model_serve_launches": s10["hmmu_lookup"],
              "family_serve_launches": s11["hmmu_lookup"],
+             "oracle_launches": s13["oracle"]["hmmu_lookup"],
+             "fig7_launches": s13["fig7"]["hmmu_lookup"],
+             "example_launches": s13["examples"]["hmmu_lookup"],
              "train_launches": s12["launches"]["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
@@ -4254,6 +4714,9 @@ def main() -> int:
              "memtier_launches": s9["tiered"]["auto_launches"],
              "model_serve_launches": s10["chunk_step"],
              "family_serve_launches": s11["chunk_step"],
+             "oracle_launches": s13["oracle"]["chunk_step"],
+             "fig7_launches": s13["fig7"]["chunk_step"],
+             "example_launches": s13["examples"]["chunk_step"],
              "train_launches": s12["launches"]["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],

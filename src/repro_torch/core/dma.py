@@ -170,6 +170,8 @@ def maybe_complete(cfg: EmulatorConfig, dma: DMAState, now: torch.Tensor,
     flat = plan.rows.to(torch.int64) * table.shape[-1] + plan.lanes
     pre = table.reshape(*lead, -1).gather(-1, flat)
     delta = torch.where(
+        # reprolint: allow[lanes] the commit's lane ids come from
+        # table.swap_commit_lanes; only its WEAR charge saturates
         plan.lanes == table_lib.WEAR,
         torch.minimum(plan.delta, (table_lib.WEAR_CAP - pre).clamp_min(0)),
         plan.delta)

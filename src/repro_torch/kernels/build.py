@@ -167,6 +167,22 @@ class CudaKernel:
             self._fns[symbol] = fn
         return self._fns[symbol]
 
+    def query(self, device: torch.device, symbol: str, *args) -> int:
+        """Call the C entry point ``symbol``, which launches nothing, on
+        ``device``; raise if it returns an error. Returns the int that a
+        kernel with ``variants`` reports through its ``int*`` (-1 for
+        one without). Counts no launch."""
+        fn = self._load(symbol)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        which = ctypes.c_int(-1)
+        extra = (ctypes.byref(which),) if self.variants else ()
+        with torch.cuda.device(device):
+            err = fn(*args, *extra, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"CUDA kernel {self.name}: {symbol} failed: cudaError {err}")
+        return which.value
+
     def launch(self, device: torch.device, *args,
                symbol: str | None = None) -> None:
         """Launch on ``device``'s current PyTorch stream; raise if the

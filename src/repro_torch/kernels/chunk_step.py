@@ -47,6 +47,7 @@ it): callers that need the pre-step table keep a clone.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import inspect
 from typing import NamedTuple
@@ -561,13 +562,53 @@ CLUSTER = 8
 
 _I32 = torch.int32
 
+# Where a launch keeps the per-request arrays of a chunk: the block's
+# shared memory, or (a chunk too wide for it) a global workspace the
+# wrapper allocates. ``KERNEL.variant_launches`` counts the launches of
+# each; :func:`chunk_layout` says which a chunk takes.
+LAYOUTS = ("shared", "workspace")
+_ENTRIES = {"chunk_step_layout": (INT, INT, ctypes.POINTER(ctypes.c_longlong))}
+
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
-    (PTR,) * 25 + (INT,) * 13)
+    (PTR,) * 26 + (INT,) * 13, variants=LAYOUTS, entries=_ENTRIES)
 # The same source with clock64() stamps per phase: measurement only.
 KERNEL_STAMPED = CudaKernel(
-    "chunk_step", "chunk_step_launch", KERNEL.argtypes,
-    defines=("-DREPRO_PHASE_STAMPS",))
+    "chunk_step", "chunk_step_launch", KERNEL.argtypes, variants=LAYOUTS,
+    defines=("-DREPRO_PHASE_STAMPS",), entries=_ENTRIES)
+
+
+class WorkspaceError(RuntimeError):
+    """Kernel B cannot run this chunk: its workspace would not fit int32
+    indices, or the card could not allocate it."""
+
+
+def chunk_words(chunk: int, n_banks: int) -> int:
+    """int32 words of a chunk's per-request arrays, bank registers and
+    sort counts, a design point (the .cu's ``smem_words``)."""
+    return (15 * chunk + 5 * (chunk + 10)
+            + 2 * n_banks * (1 + (chunk + 31) // 32))
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_layout(device: str, chunk: int, n_banks: int) -> tuple[str, int]:
+    """(layout, words): where kernel B keeps a chunk's per-request arrays
+    on ``device`` — ``"shared"`` when they fit in a block's opt-in shared
+    memory there, else ``"workspace"`` — and how many int32 words
+    (:func:`chunk_words`) they take a design point. Raises
+    :class:`WorkspaceError` where those words pass int32 indices."""
+    words = chunk_words(chunk, n_banks)
+    if chunk <= 0 or words >= 2 ** 31:
+        raise WorkspaceError(
+            f"chunk {chunk} at {n_banks} banks needs {words} int32 words a "
+            "design point: outside kernel B's int32 indices")
+    c_words = ctypes.c_longlong(0)
+    which = KERNEL.query(torch.device(device), "chunk_step_layout", chunk,
+                         n_banks, ctypes.byref(c_words))
+    if c_words.value != words:
+        raise RuntimeError(f"kernel B sizes chunk {chunk} at "
+                           f"{c_words.value} words, the wrapper at {words}")
+    return LAYOUTS[which], words
 
 
 class KernelOut(NamedTuple):
@@ -645,6 +686,10 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
     int32[B, 10] and float32[B, 6]. ``phases``, when given, is an
     int64[B, 9] to which the leading block's thread 0 adds the cycles of
     each of PHASES: the launch then goes to :data:`KERNEL_STAMPED`.
+
+    A chunk whose per-request arrays do not fit in a block's shared
+    memory (:func:`chunk_layout`) runs on a workspace int32[B, words]
+    that this call allocates; :class:`WorkspaceError` when it cannot.
     """
     dev = table.device
     if not table.is_cuda:
@@ -685,6 +730,15 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
             raise ValueError(f"{name} must be contiguous")
     if n_pages * table_lib.ROW_W >= 2 ** 31:
         raise ValueError("table too large for int32 flat indices")
+    layout, words = chunk_layout(str(dev), chunk, cfg.n_banks)
+    workspace = None
+    if layout == "workspace":
+        try:
+            workspace = torch.empty(b, words, dtype=_I32, device=dev)
+        except torch.cuda.OutOfMemoryError as e:
+            raise WorkspaceError(
+                f"kernel B's workspace for chunk {chunk} at {b} points "
+                f"({b * words * 4} B) could not be allocated") from e
     wb = registry.index("write_bias") if "write_bias" in registry else -1
     reg = _registry_map(registry.builtin_ids, str(dev))
 
@@ -703,6 +757,7 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         transient.data_ptr(), deaths.data_ptr(), reg.data_ptr(),
         counters_int.data_ptr(), counters_float.data_ptr(),
         *(t.data_ptr() for t in res),
+        0 if workspace is None else workspace.data_ptr(),
         0 if phases is None else phases.data_ptr(),
         b, cluster, n_pages, chunk, n // chunk, cfg.n_banks, nt, nd,
         len(registry), wb, cfg.subblock, cfg.subblocks_per_page,

@@ -13,7 +13,18 @@
 // cluster = 8 CTAs or 1). The cluster's leading CTA runs the chunk loop:
 // the chunk's requests and every per-request intermediate live in its
 // shared memory, and the state scalars, the bank registers and the
-// counters stay there from one chunk to the next. The packed table
+// counters stay there from one chunk to the next. Where those per-request
+// arrays and the bank registers and counts (smem_words below: 20 words a
+// request, 2 n_banks (1 + chunk / 32) more) do not fit in the block's
+// opt-in shared memory (the paper's 16 banks pass 227 KB near chunk
+// 2,763), the same arrays live in a global-memory workspace instead,
+// int32[B, words], one slice a design point, which the caller allocates
+// (chunk_step_layout says which layout a chunk takes): the kernel is one
+// template, instantiated once per layout, so the shared layout keeps its
+// shared-memory loads and stores. __syncthreads orders the leader's
+// workspace writes between stages as it orders its shared ones; the
+// scalars, the scan scratch and the cluster's partials (DSMEM) stay in
+// static shared memory in both layouts. The packed table
 // int32[n_pages, 8] (294,912 x 32 B = 9.4 MB at the paper's geometry,
 // inside the 50 MB L2) is updated IN PLACE in global memory, through L2
 // (ld.cg / st.cg, where the commit's atomics land). The other CTAs of the
@@ -154,6 +165,8 @@ struct Args {
   int* lat_out;
   int* poi_out;
   int* inj_out;
+  int* ws;               // int32[B, ws_words]: the workspace layout only
+  long long ws_words;
   long long* phases;     // int64[B, N_PHASES] cycles per phase (stamped
                          // build only)
   int n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index, subblock,
@@ -431,6 +444,17 @@ struct Shared {
   Sums sums;
 };
 
+// The per-request arrays, bank registers and sort counts of one design
+// point, in int32 words: what the dynamic shared memory (or a workspace
+// slice) holds.
+__host__ __device__ inline long long smem_words(long long chunk,
+                                                long long n_banks) {
+  return 15 * chunk + 5 * (chunk + 10) + 2 * n_banks * (1 + (chunk + 31) / 32);
+}
+
+// WS: the per-request arrays live in the global workspace a.ws (one slice
+// of a.ws_words a point) instead of the dynamic shared memory.
+template <bool WS>
 __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   extern __shared__ int smem[];
   __shared__ Shared sh;
@@ -455,7 +479,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   int* table = a.table + (long long)bi * NP * W;
   const long long n_all = (long long)a.n_chunks * n;
 
-  int* s_page = smem;
+  int* s_page = WS ? a.ws + (long long)bi * a.ws_words : smem;
   int* s_off = s_page + n;
   int* s_iw = s_off + n;
   int* s_size = s_iw + n;
@@ -484,7 +508,8 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   if (tid < N_COUNTER_INTS) ci[tid] = a.ctr_int[bi * N_COUNTER_INTS + tid];
   if (tid < N_COUNTER_FLOATS)
     cf[tid] = a.ctr_float[bi * N_COUNTER_FLOATS + tid];
-  for (int k = tid; k < NB; k += nth) s_bank[k] = a.bank_free[bi * NB + k];
+  if (lead)   // only the leader reads and writes the per-request arrays
+    for (int k = tid; k < NB; k += nth) s_bank[k] = a.bank_free[bi * NB + k];
   __syncthreads();
   // Every CTA reads the same schedule: chunk_idx counts up by one a chunk.
   const int chunk0 = I[CHUNK_IDX];
@@ -1271,8 +1296,44 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
 #undef STAMP
 }
 
+// The dynamic shared memory that the shared layout needs for a chunk, and
+// whether the block's opt-in limit (less the kernel's static shared
+// memory) holds it on the current device.
+cudaError_t layout_of(int chunk, int n_banks, size_t* bytes, bool* fits) {
+  *bytes = sizeof(int) * (size_t)smem_words(chunk, n_banks);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, chunk_step_kernel<false>);
+  if (e != cudaSuccess) return e;
+  *fits = fa.sharedSizeBytes + *bytes <= (size_t)optin;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// Which layout a chunk takes on the current device: *layout 0 (shared
+// memory) or 1 (the global workspace, of *words int32 a design point).
+extern "C" int chunk_step_layout(int chunk, int n_banks, long long* words,
+                                 int* layout, cudaStream_t) {
+  if (chunk <= 0 || n_banks <= 0) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  bool fits = false;
+  const cudaError_t e = layout_of(chunk, n_banks, &bytes, &fits);
+  if (e != cudaSuccess) return (int)e;
+  *words = smem_words(chunk, n_banks);
+  *layout = fits ? 0 : 1;
+  return 0;
+}
+
+// workspace: null for the shared layout, else int32[batch, words] with
+// words = smem_words(chunk, n_banks) (chunk_step_layout's); a null
+// workspace for a chunk whose arrays do not fit is refused. *layout
+// reports the layout the launch took (0 shared, 1 workspace).
 extern "C" int chunk_step_launch(
     void* table, const void* page, const void* offset, const void* is_write,
     const void* size, const void* valid, const void* ints, const void* floats,
@@ -1280,10 +1341,11 @@ extern "C" int chunk_step_launch(
     const void* reg_map, const void* ctr_int, const void* ctr_float,
     void* sc_out, void* bank_out, void* chunk_out, void* ret_out,
     void* dev_out, void* lat_out, void* poi_out, void* inj_out,
-    void* ctr_int_out, void* ctr_float_out, void* phases, int batch,
+    void* ctr_int_out, void* ctr_float_out, void* workspace, void* phases,
+    int batch,
     int cluster,
     int n_pages, int chunk, int n_chunks, int n_banks, int nt, int nd,
-    int n_reg, int wb_index, int subblock, int spp, int charge,
+    int n_reg, int wb_index, int subblock, int spp, int charge, int* layout,
     cudaStream_t stream) {
   if (batch <= 0 || cluster <= 0 || cluster > MAX_CLUSTER || n_pages <= 0 ||
       chunk <= 0 || n_chunks <= 0 || n_banks <= 0 || 2 * n_banks > 0xffff ||
@@ -1294,12 +1356,18 @@ extern "C" int chunk_step_launch(
 #else
   if (phases != nullptr) return (int)cudaErrorInvalidValue;
 #endif
-  const size_t smem =
-      sizeof(int) * ((size_t)15 * chunk + 5 * ((size_t)chunk + 10) +
-                     2 * (size_t)n_banks * (1 + ((size_t)chunk + 31) / 32));
+  const bool ws = workspace != nullptr;
+  size_t smem = 0;
+  bool fits = false;
+  {
+    const cudaError_t e = layout_of(chunk, n_banks, &smem, &fits);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!ws && !fits) return (int)cudaErrorInvalidValue;
+  if (ws) smem = 0;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        chunk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chunk_step_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -1327,6 +1395,8 @@ extern "C" int chunk_step_launch(
          static_cast<int*>(lat_out),
          static_cast<int*>(poi_out),
          static_cast<int*>(inj_out),
+         static_cast<int*>(workspace),
+         smem_words(chunk, n_banks),
          static_cast<long long*>(phases),
          n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index,
          subblock, spp, charge};
@@ -1342,7 +1412,9 @@ extern "C" int chunk_step_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, chunk_step_kernel, a);
+  const cudaError_t e = ws ? cudaLaunchKernelEx(&cfg, chunk_step_kernel<true>, a)
+                           : cudaLaunchKernelEx(&cfg, chunk_step_kernel<false>, a);
   if (e != cudaSuccess) return (int)e;
+  *layout = ws ? 1 : 0;
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ import torch
 from ..core import FAST, SLOW
 from ..core import table as table_lib
 from ..core.emulator import EmulatorState
+from ..core.indexing import take_lane
 from .staging import to_device
 
 
@@ -41,6 +42,8 @@ def _merge_flags(table: torch.Tensor, rows: torch.Tensor,
     """Write ``vals`` into the FLAGS lane of ``rows`` (all inside the
     table), lanes aimed at one row merged by ``reduce``."""
     flat = table.view(-1)
+    # reprolint: allow[lanes] no lane accessor merges lanes aimed at one
+    # row by amax/amin: the flat FLAGS-lane scatter is the write itself
     flat.scatter_reduce_(0, rows * table_lib.ROW_W + table_lib.FLAGS,
                          vals.to(table.dtype), reduce=reduce)
 
@@ -48,12 +51,12 @@ def _merge_flags(table: torch.Tensor, rows: torch.Tensor,
 def _stamp(table, active, page_a, page_b, pages, live) -> None:
     n_pages = table.shape[0]
     rows = pages.clamp(0, n_pages - 1).to(torch.int64)
-    dev = table[rows, table_lib.DEVICE]
+    dev = take_lane(table, rows, table_lib.DEVICE)
     in_swap_a = (active != 0) & (pages == page_a)
     in_swap_b = (active != 0) & (pages == page_b)
     dev = torch.where(in_swap_a, FAST, torch.where(in_swap_b, SLOW, dev))
     bit = torch.where(dev == FAST, table_lib.PIN_FAST, table_lib.PIN_SLOW)
-    cur = table[rows, table_lib.FLAGS]
+    cur = take_lane(table, rows, table_lib.FLAGS)
     # Never pin a page whose frame is dying or dead: a pin on a POISONED
     # page would both violate the table invariant and veto its own
     # rescue. The scheduler re-places such contracts on healthy pages.
@@ -64,7 +67,7 @@ def _stamp(table, active, page_a, page_b, pages, live) -> None:
 
 def _release(table, pages, live) -> None:
     rows = pages.clamp(0, table.shape[0] - 1).to(torch.int64)
-    cur = table[rows, table_lib.FLAGS]
+    cur = take_lane(table, rows, table_lib.FLAGS)
     _merge_flags(table, rows,
                  torch.where(live, cur & ~table_lib.PINNED, cur), "amin")
 

@@ -759,3 +759,82 @@ def test_serve_engine_idle_lane_on_the_card_equals_the_cpu(cuda_device):
     assert float((top2[..., 0] - top2[..., 1]).min()) > 1e-4
     assert [r.out for r in reqs] == [r.out for r in creqs]
     assert rep == crep and mx == cmax > 40
+
+
+# ------------------------------------------- kernel B past shared memory
+def test_chunk_words_and_the_named_refusal():
+    """Kernel B's per-point words (20 a request, the bank counts): at the
+    paper's 16 banks chunk 4096 needs 344,392 B, past a block's 227 KB;
+    a chunk whose words pass int32 is refused by name before any card
+    is asked."""
+    assert t_cs.chunk_words(4096, 16) * 4 == 344_392
+    assert t_cs.chunk_words(2048, 16) * 4 == 172_360
+    with pytest.raises(t_cs.WorkspaceError, match="int32"):
+        t_cs.chunk_layout("cpu", 2 ** 27, 16)
+    with pytest.raises(t_cs.WorkspaceError):
+        t_cs.chunk_layout("cpu", 0, 16)
+
+
+def _paper_trace(cfg, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    nf = cfg.n_fast_pages
+    page = np.where(rng.random(n) < 0.5, nf + rng.integers(0, 64, n),
+                    rng.integers(0, nf + 4096, n)).astype(np.int32)
+    return tcore.Trace(*(torch.as_tensor(a, device=dev) for a in (
+        page, (rng.integers(0, cfg.page_size // 64, n) * 64).astype(np.int32),
+        rng.random(n) < 0.4, np.full(n, 64, np.int32))))
+
+
+@pytest.mark.cuda
+def test_chunk_step_workspace_layout_equals_the_scan_path(cuda_device):
+    """Chunk 4096 at the paper's geometry: kernel B on its global
+    workspace, one launch, bitwise equal to "off"; a B = 2 sweep in one
+    launch, each point equal to its own run; chunk 2048 on shared
+    memory."""
+    from repro_torch.sweep import SweepSpec, build_points
+    base = tcore.paper_platform().with_(chunk=4096, hot_threshold=2)
+    trace = _paper_trace(base, 3 * 4096 - 5, 3, cuda_device)
+    assert t_cs.chunk_layout(str(cuda_device), 4096, 16)[0] == "workspace"
+    assert t_cs.chunk_layout(str(cuda_device), 2048, 16)[0] == "shared"
+    t_cs.KERNEL.reset()
+    got = repro_torch.Engine(base).run(trace)
+    torch.cuda.synchronize()
+    assert t_cs.KERNEL.variant_launches == {"shared": 0, "workspace": 1}
+    want = repro_torch.Engine(base.with_(chunk_step_kernel="off")).run(trace)
+    _assert_equal(tuple(_leaves(got)), tuple(_leaves(want)))
+    for chunk, layout in ((4096, "workspace"), (2048, "shared")):
+        cfg = base.with_(chunk=chunk)
+        spec = SweepSpec(cfg, policies=("hotness", "write_bias"))
+        eng = repro_torch.Engine(cfg)
+        t_cs.KERNEL.reset()
+        res = eng.sweep(spec, trace)
+        torch.cuda.synchronize()
+        assert t_cs.KERNEL.variant_launches[layout] == 1
+        assert t_cs.KERNEL.launches == 1
+        n = len(trace)
+        for i, p in enumerate(build_points(spec)):
+            one = eng.run(trace, params=p.params(cuda_device))
+            _assert_equal((_point(res.states, i),
+                           {k: v[:n] for k, v in _point(res.outs,
+                                                         i).items()}),
+                          tuple(one))
+
+
+@pytest.mark.cuda
+def test_chunk_one_on_the_card_equals_trace_sim(cuda_device):
+    """The paper's geometry at chunk 1 (one launch over 2,000 one-request
+    chunks) against the port's sequential simulator."""
+    from repro_torch.sims import trace_sim
+    cfg = tcore.paper_platform().with_(chunk=1, policy="write_bias",
+                                       hot_threshold=4, decay_every=64,
+                                       write_weight=4)
+    trace = _paper_trace(cfg, 2000, 4, cuda_device)
+    before = t_cs.KERNEL.launches
+    res = repro_torch.Engine(cfg).run(trace)
+    torch.cuda.synchronize()
+    assert t_cs.KERNEL.launches == before + 1
+    oracle = trace_sim.simulate(cfg, *(x.cpu().numpy() for x in trace))
+    for k in ("returns", "latency", "device"):
+        assert np.array_equal(res.outs[k].cpu().numpy(), getattr(oracle, k))
+    assert int(res.state.clock) == oracle.clock
+    assert int(res.state.dma.swaps_done) == oracle.swaps > 0

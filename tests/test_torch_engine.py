@@ -1,6 +1,7 @@
 """The slice as a whole: ``repro_torch.Engine(cfg, device="cpu").run``
 against ``repro.Engine(cfg).run``, the golden digests, and the
-sequential ``chunk=1`` oracle — all bit for bit."""
+sequential ``chunk=1`` oracle (the port's own ``repro_torch.sims``) —
+all bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -8,12 +9,12 @@ import torch
 import repro
 import repro.core as jcore
 from repro.core import faults as j_faults
-from repro.sims import trace_sim
 
 import repro_torch
 import repro_torch.core as tcore
 from repro_torch.convert import state_to_numpy
 from repro_torch.core.emulator import clone_state
+from repro_torch.sims import trace_sim
 
 from conftest import make_trace_arrays
 from test_endurance import (_GOLDEN, _adversarial_state, _digest_run,
@@ -103,7 +104,7 @@ def test_chunk1_matches_trace_sim_oracle(policy, seed):
     arrays = make_trace_arrays(cfg_j, 120, np.random.default_rng(seed))
     state, outs = repro_torch.Engine(cfg, device="cpu").run(
         tcore.Trace(*map(T, arrays)))
-    oracle = trace_sim.simulate(cfg_j, *arrays)
+    oracle = trace_sim.simulate(cfg, *arrays)
     np.testing.assert_array_equal(outs["returns"].numpy(), oracle.returns)
     np.testing.assert_array_equal(outs["device"].numpy(), oracle.device)
     assert int(state.clock) == oracle.clock

@@ -2,9 +2,11 @@
 
 Every module of ``repro_torch``, the serving front end
 ``repro_torch.serve``, ``repro_torch.memtier``, ``repro_torch.models``,
-``repro_torch.configs`` and ``repro_torch.launch`` included (and the card
-scripts ``chip_smoke.py``, ``chip_faults.py``, ``chip_sweep_clusters.py``
-and ``chip_compare_off.py``) imports with ``jax`` and ``repro`` made
+``repro_torch.configs``, ``repro_torch.launch``, the simulator baselines
+``repro_torch.sims`` and the port's reprolint ``repro_torch.analysis``
+included (and the card scripts ``chip_smoke.py``, ``chip_faults.py``,
+``chip_sweep_clusters.py`` and ``chip_compare_off.py``, and the port's
+examples ``examples/*_torch.py``) imports with ``jax`` and ``repro`` made
 unimportable; ``chip_smoke.py`` exits nonzero
 and prints no result where there is no CUDA device, or when it stands
 alone without the repository.
@@ -70,6 +72,32 @@ _TRAIN = ("repro_torch.optim", "repro_torch.optim.adamw",
           "repro_torch.ckpt.checkpoint", "repro_torch.launch.steps",
           "repro_torch.launch.train")
 
+# The software-simulator baselines and the port's reprolint.
+_SLICE13 = ("repro_torch.sims", "repro_torch.sims.trace_sim",
+            "repro_torch.sims.cycle_sim", "repro_torch.analysis",
+            "repro_torch.analysis.common", "repro_torch.analysis.lanes",
+            "repro_torch.analysis.staticness",
+            "repro_torch.analysis.tripwire", "repro_torch.analysis.docrefs",
+            "repro_torch.analysis.__main__")
+
+_IMPORT_EXAMPLES = r"""
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, "src")
+sys.path.insert(0, "examples")
+names = sys.argv[1:]
+for name in names:
+    spec = importlib.util.spec_from_file_location(name,
+                                                  f"examples/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))
+       or m == "repro"]
+bad = [m for m in bad if sys.modules[m] is not None]
+assert not bad, bad
+print(" ".join(names))
+"""
+
 
 def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -81,6 +109,20 @@ def test_port_imports_without_jax_or_repro():
     assert set(_MEMTIER) <= set(names)
     assert set(_MODELS) <= set(names)
     assert set(_TRAIN) <= set(names)
+    assert set(_SLICE13) <= set(names)
+
+
+def test_examples_import_without_jax_or_repro():
+    """The port's examples with a ``main`` import only ``repro_torch``
+    (and each other) and run nothing on import."""
+    names = [f"{n}_torch" for n in ("quickstart", "policy_exploration",
+                                    "serve_continuous", "wear_leveling",
+                                    "endurance_lifetime")]
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES, *names],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == names
 
 
 def _run_smoke(cwd):

@@ -30,6 +30,7 @@ from repro.trace import TraceSpec as JTraceSpec, generate as j_generate
 
 import repro_torch
 import repro_torch.core as tcore
+from repro_torch.analysis.tripwire import RecompileError, assert_compile_flat
 from repro_torch.core import emulator as t_emu, table as t_table
 from repro_torch.serve import (BucketSpec, ContinuousBatchingScheduler,
                                PagedKVMap, ServeConfig, release_pin_pages,
@@ -436,8 +437,10 @@ def test_compile_count_flat_after_warmup_and_raised_by_an_off_bucket_length():
     c0 = engine.compile_count
     sched.warmup()
     assert engine.compile_count == c0 + 3
-    sched.submit(*_workload(140, seed=3))
-    sched.run()
+    with assert_compile_flat(engine, msg="the scheduled run") as cc:
+        sched.submit(*_workload(140, seed=3))
+        sched.run()
+    assert cc.count == 0
     assert engine.compile_count == c0 + 3
     assert sched.report().compile_count == c0 + 3
     assert any(n < s for s, n in sched.dispatch_log)
@@ -445,8 +448,10 @@ def test_compile_count_flat_after_warmup_and_raised_by_an_off_bucket_length():
     other = repro_torch.Engine(cfg_t, device="cpu")
     assert other.compile_count == c0 + 3
     z = torch.zeros(48, dtype=torch.int32)
-    st = other.run(tcore.Trace(z, z, z.bool(), z + 64),
-                   state=other.init_state()).state
+    with pytest.raises(RecompileError, match="1 new dispatch key"):
+        with assert_compile_flat(other):
+            st = other.run(tcore.Trace(z, z, z.bool(), z + 64),
+                           state=other.init_state()).state
     assert engine.compile_count == c0 + 4
     other.run(tcore.Trace(z, z, z.bool(), z + 64), state=st)
     assert engine.compile_count == c0 + 4
