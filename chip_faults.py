@@ -9,7 +9,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Thirty-six faults are planted. A fault in
+run in a process of its own. Forty-five faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -48,7 +48,19 @@ workspace slice read at point 0's offset, and a swap committed at the
 first boundary after it starts, whatever its duration) run phase 13's
 part that holds the code: the B = 2 sweep at chunk 4096
 (``chip_smoke.check_large_chunks``) and the chunk-1 oracle
-(``chip_smoke.check_oracle``), which must stop at a mismatch. A
+(``chip_smoke.check_oracle``), which must stop at a mismatch; the three
+of the other families' training (RWKV's chunked scan carrying its state
+undecayed, the Mamba scan's decay dropped, the MoE gates' normalisation
+left out of the backward) run phase 12 (c) at their one family
+(``chip_smoke.check_train_families``), whose failure must name that
+family; the six of the multi-device paths (the split sweep's gather
+trimming the first points instead of the padding, its shares gathered
+out of order, context-parallel attention without the rank's row offset,
+the expert-parallel capacity from the global token count,
+``dist_decode``'s offset one shard off, its combine without the
+exp(m - m_g) correction) run phase 14 (a) (``chip_smoke.
+check_split_sweep``) or the one case of 14 (b) that runs the code
+(``chip_smoke.check_sharded_models``), which must stop at a mismatch. A
 fault in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -255,6 +267,71 @@ SLICE12_FAULTS = [
 SLICE12_RUNS = (("a", "attention backward"), ("a", "AdamW"),
                 ("b", "resume"))
 
+# Faults in the other families' training, which phase 12 (c) must name in
+# that family's check (``chip_smoke.check_train_families`` over its one
+# row: layer 0's gradients against float64): RWKV's chunked scan carrying
+# the state into the next chunk undecayed (four 128-token chunks), the
+# Mamba scan's per-token decay dropped, and the MoE gates' normalisation
+# left out of the backward (the forward unchanged: only the router's
+# gradient shows it).
+SLICE12C_FAULTS = [
+    ("train family: RWKV's chunked scan carries the state undecayed",
+     "models", "src/repro_torch/models/rwkv.py",
+     "        state = state * torch.exp(lw_tot[:, :, i])[..., None] + \\\n",
+     "        state = state + \\\n"),
+    ("train family: the Mamba scan's decay dropped", "models",
+     "src/repro_torch/models/mamba.py",
+     "        h = torch.addcmul(inp[:, t], h, decay[:, t])",
+     "        h = inp[:, t] + h"),
+    ("train family: the MoE gates' normalisation left out of the backward",
+     "models", "src/repro_torch/models/moe.py",
+     "    gates = vals / torch.clamp(total, min=1e-9)[:, None]",
+     "    gates = vals / torch.clamp(total, min=1e-9).detach()[:, None]"),
+]
+# The family of phase 12 (c) that runs each one's code.
+SLICE12C_ARCHS = ("rwkv6-7b", "hymba-1.5b", "phi3.5-moe-42b-a6.6b")
+
+# Faults in the multi-device paths, which phase 14 must catch: the split
+# sweep's gather dropping the first points instead of the padding (3
+# shares pad 16 points to 18), and its shares' states gathered in reverse
+# (14 (a), ``chip_smoke.check_split_sweep``); context-parallel attention
+# masking a rank's rows as if they were the sequence's tail (hymba), the
+# expert-parallel capacity taken from the global token count (phi3.5-moe
+# at the binding factor: fewer slots dropped than the per-rank
+# composition), ``dist_decode``'s offset one shard off and its combine
+# summing the partials without the exp(m - m_g) correction (minitron-8b)
+# (14 (b), ``chip_smoke.check_sharded_models`` over the one case).
+SLICE14_FAULTS = [
+    ("mesh: the split sweep's gather trims the first points, not the "
+     "padding", "engine", "src/repro_torch/engine.py",
+     "        cat = lambda *xs: torch.cat([x.to(self.device) for x in xs])"
+     "[:n]",
+     "        cat = lambda *xs: torch.cat([x.to(self.device) for x in xs])"
+     "[-n:]"),
+    ("mesh: the split sweep's shares gathered out of point order",
+     "engine", "src/repro_torch/engine.py",
+     "        flat = [_tensors(st) for st, _ in shares]",
+     "        flat = [_tensors(st) for st, _ in reversed(shares)]"),
+    ("mesh: context-parallel attention without the rank's row offset",
+     "models", "src/repro_torch/models/layers.py",
+     "                        window=window, scale=scale, q_offset=lo)",
+     "                        window=window, scale=scale)"),
+    ("mesh: the expert-parallel capacity from the global token count",
+     "models", "src/repro_torch/models/moe.py",
+     "    c_dev = capacity(cfg, b * sl)\n",
+     "    c_dev = capacity(cfg, b * s * sh.batch_size)\n"),
+    ("mesh: dist_decode's offset one shard off", "models",
+     "src/repro_torch/models/decode.py",
+     "    off = sh.coord(\"model\") * sl if",
+     "    off = (sh.coord(\"model\") + 1) * sl if"),
+    ("mesh: the decode combine sums without the exp(m - m_g) correction",
+     "models", "src/repro_torch/models/decode.py",
+     "        corr = torch.exp(m - m_g)\n",
+     "        corr = torch.ones_like(m)\n"),
+]
+# The part of phase 14 that runs each one's code.
+SLICE14_PARTS = ("a", "a", "b hymba", "b moe", "b decode", "b decode")
+
 # Faults that only phase 13 shows: kernel B reading every design point's
 # workspace slice at point 0's offset (only a chunk past shared memory
 # takes the workspace, and only a launch of more than one point shares
@@ -358,14 +435,17 @@ FAULTS = [
     *SLICE11_FAULTS,
     *SLICE12_FAULTS,
     *SLICE13_FAULTS,
+    *SLICE12C_FAULTS,
+    *SLICE14_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
 # chunk-step, kernel-A, serving, policy, model or training fault the phase
 # whose checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase
 # 10", "phase 11 <arch>" for the one model of phase 11 that runs the
-# fault, "phase 12 <part>" with the words its failure must hold, or
-# "phase 13 <part>").
+# fault, "phase 12 <part>" or "phase 12 c <arch>" with the words its
+# failure must hold, "phase 13 <part>", "phase 14 a" or "phase 14 b
+# <case>").
 CHILD = r'''
 import json, sys
 import torch
@@ -380,7 +460,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
 if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
-              "memtier", "optim", "launch"):
+              "memtier", "optim", "launch", "engine"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
@@ -388,7 +468,19 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
                "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
                "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3] == "phase 13 a":
+        if sys.argv[3] == "phase 14 a":
+            base, spec = cs.sweep_grid(rt)
+            trace = cs.sweep_trace(torch, dev, rt)
+            cs.check_split_sweep(torch, dev, rt, hmmu_lookup, chunk_step,
+                                 base, spec, trace, "")
+        elif sys.argv[3].startswith("phase 14 b"):
+            cs.check_sharded_models(torch, "", (sys.argv[3].split()[-1],))
+        elif sys.argv[3].startswith("phase 12 c "):
+            cs.check_train_families(torch, dev, kernels, "", [
+                r for r in cs.TRAIN_FAMILIES
+                if r.arch == sys.argv[3].split(" ", 3)[3]])
+            torch.cuda.synchronize()
+        elif sys.argv[3] == "phase 13 a":
             cs.check_oracle(torch, dev, rt, hmmu_lookup, chunk_step)
         elif sys.argv[3] == "phase 13 c":
             try:
@@ -482,8 +574,15 @@ def main() -> int:
             expect = ""
             if FAULTS[i] in SLICE12_FAULTS:
                 part, expect = SLICE12_RUNS[SLICE12_FAULTS.index(FAULTS[i])]
-            phase = ("phase 13 " + SLICE13_PARTS[SLICE13_FAULTS.index(
-                FAULTS[i])] if FAULTS[i] in SLICE13_FAULTS else
+            if FAULTS[i] in SLICE12C_FAULTS:
+                arch = SLICE12C_ARCHS[SLICE12C_FAULTS.index(FAULTS[i])]
+                expect = f"training {arch}"
+            phase = ("phase 14 " + SLICE14_PARTS[SLICE14_FAULTS.index(
+                FAULTS[i])] if FAULTS[i] in SLICE14_FAULTS else
+                     "phase 12 c " + arch if FAULTS[i] in SLICE12C_FAULTS
+                     else
+                     "phase 13 " + SLICE13_PARTS[SLICE13_FAULTS.index(
+                         FAULTS[i])] if FAULTS[i] in SLICE13_FAULTS else
                      "phase 12 " + part if FAULTS[i] in SLICE12_FAULTS else
                      "phase 7" if FAULTS[i] in SWEEP_FAULTS else
                      "phase 8" if FAULTS[i] in SERVE_FAULTS else

@@ -226,7 +226,17 @@ Phases, each printing its lines in order:
    2 of 24 layers, on the card: 8 steps with a checkpoint every 4 and
    ``--simulate-failure-at 4``, a resume to step 8, and an uninterrupted
    run: the final losses within rtol 1e-5 and every parameter bit for
-   bit, each checkpoint's write time and bytes.
+   bit, each checkpoint's write time and bytes. (c) The other families at
+   full width, each cut to its first 2 layers (``TRAIN_FAMILIES``), two
+   steps of ``make_train_step`` on their Markov data: rwkv6-7b (batch 2 x
+   512, the chunked scan's backward over four 128-token chunks),
+   hymba-1.5b (2 x 512, the per-token Mamba loop under autograd) and
+   phi3.5-moe-42b (2 x 1,024, the dense dispatch's backward and the aux
+   loss, at its capacity factor 1.25); each loss finite, layer 0's
+   gradients at the first step (and dx) within ``GRAD_REL`` of layer 0
+   written out in float64 from its formulas (RWKV's time mix as the
+   per-token recurrence, Mamba's scan a token at a time, the MoE at the
+   step's own routing), peak memory.
 13. **The paper's oracle and Fig 7 on the card, large chunks and the
    examples** — (a) the central correctness claim at the paper's geometry
    (``paper_platform().with_(chunk=1, ...)``: 294,912 pages, 16 banks, 3D
@@ -263,13 +273,44 @@ Phases, each printing its lines in order:
    ``--quick --check``) run in this process on the card, each to its end
    with its own assertions (``serve_continuous``'s flat
    ``compile_count`` among them), their rows printed.
-14. One JSON line of per-kernel numbers (kernels A and B also carry
+14. **The multi-device paths** — (a) phase 7's 16-point grid and trace
+   through ``Engine.sweep(mesh=...)`` over 2 and 3 shares of the card
+   (``(cuda:0,) * 2``: 8 + 8 points; ``* 3``: padded to 18), one launch
+   of kernel B a share, each bitwise equal to phase 7's single launch,
+   with each share's launch time (CUDA events); a split
+   ``continue_sweep`` over the second half equal to the whole sweep;
+   ``"off"`` over 3 shares on the first 64 chunks (one chunk loop a
+   share, kernel A once a chunk in each) equal to ``"auto"``; a CPU mesh
+   refused by a CUDA engine; ``sweep_mesh()``'s device count. One card:
+   scaling over cards is not measured. (b) The models' sharded paths in
+   2 ``gloo`` ranks sharing the card (data 1 x model 2, one process a
+   rank, ``launch.mesh.run_ranks``), each at full width with its depth
+   cut and held to the same model unsharded on the card in the same
+   rank: hymba-1.5b (2 layers; 25 heads divide no even model axis) with
+   a 2,048-token prefill on the context-parallel path and 2 decode steps
+   over rings split on their slots (layer 0's attention rows and layer
+   1's ring within ``CACHE_REL``, the logits within ``LOGIT_TOL``);
+   phi3.5-moe-42b (2 layers, 8 of 16 experts a rank) forward and
+   backward through the expert-parallel path at capacity factor 8
+   (nothing dropped) against the dense path, and at 1.0 (every rank
+   drops) against the per-rank composition of the port's own
+   ``_route_scatter``, ``_expert_ffn`` and ``_combine`` (layer 0's MoE
+   output within ``CACHE_REL``, the loss within 2^-9, layer 0's
+   gradients within ``GRAD_REL``); minitron-8b (2 layers) a 1,024-token
+   prefill and 4 decode steps over a cache split on its sequence axis
+   (layer 0's ``dist_decode`` within the float32 attention allowance,
+   the cache slices within ``CACHE_REL``, the logits within
+   ``LOGIT_TOL``). Each rank prints its device time, the bytes of each
+   collective, the host round trips (gloo's all-gather of CUDA tensors,
+   ``dist.HOST_TRANSPORT``) and their bytes, and its peak memory.
+15. One JSON line of per-kernel numbers (kernels A and B also carry
    ``serve_launches``, ``policy_launches``, ``memtier_launches``,
    ``model_serve_launches``, ``family_serve_launches``,
    ``oracle_launches``, ``fig7_launches`` and ``example_launches``, the
    counts of phases 8, 9 (a), 9 (b), 10, 11 and 13 (a), (b), (d); every
-   kernel ``train_launches``, phase 12 (a)'s), the card line again, and
-   the last line ``{"ok": true, "device": {...}}``.
+   kernel ``train_launches``, phase 12 (a) and (c)'s, and
+   ``mesh_launches``, phase 14's), the card line again, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -3236,40 +3277,55 @@ def rel_norm(torch, got, want) -> float:
     return float((got.double() - want).norm() / want.norm().clamp_min(1e-300))
 
 
+def norm_f64(cfg, t, w):
+    """RMS norm in float64."""
+    return t * (t * t).mean(-1, keepdim=True).add(cfg.norm_eps).rsqrt() * w
+
+
+def rope_f64(torch, cfg, t):
+    """RoPE on each half pair at positions 0..S-1, in float64."""
+    hd, s = t.shape[-1], t.shape[-2]
+    i = torch.arange(0, hd, 2, dtype=torch.float64, device=t.device)
+    ang = torch.arange(s, dtype=torch.float64, device=t.device)[:, None] \
+        * cfg.rope_theta ** (-i / hd)
+    t1, t2 = t.chunk(2, dim=-1)
+    return torch.cat([t1 * ang.cos() - t2 * ang.sin(),
+                      t2 * ang.cos() + t1 * ang.sin()], dim=-1)
+
+
+def gqa_f64(torch, cfg, a, h, window):
+    """Grouped attention of the normed input ``h`` [B, S, D] in float64:
+    the projections, RoPE and causal (windowed) attention at scale
+    D^-0.5; the heads' outputs [B, Hq, S, D] (before ``wo``)."""
+    b, s, _ = h.shape
+    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    q = rope_f64(torch, cfg, (h @ a["wq"]).reshape(b, s, hq, hd)
+                 .transpose(1, 2))
+    k = rope_f64(torch, cfg, (h @ a["wk"]).reshape(b, s, hkv, hd)
+                 .transpose(1, 2))
+    v = (h @ a["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+    return naive_f64(torch, q, k, v, window)
+
+
+def swiglu_f64(torch, m, h):
+    g = h @ m["w_gate"]
+    return (g * torch.sigmoid(g) * (h @ m["w_in"])) @ m["w_out"]
+
+
 def layer0_f64(torch, cfg, p, x, window, keep: dict):
     """Layer 0 of a GQA + SwiGLU model (internlm2) written out in float64
     from its formulas, independent of the port's layers: RMS norms, RoPE
     on each half pair, causal (windowed) grouped attention at scale
     D^-0.5, SwiGLU. ``keep`` gets the attention output (its gradient is
     retained)."""
-    b, s, d = x.shape
-    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-
-    def norm(t, w):
-        return t * torch.rsqrt((t * t).mean(-1, keepdim=True)
-                               + cfg.norm_eps) * w
-
-    def rope(t):
-        i = torch.arange(0, hd, 2, dtype=torch.float64, device=t.device)
-        ang = torch.arange(s, dtype=torch.float64, device=t.device)[:, None] \
-            * cfg.rope_theta ** (-i / hd)
-        t1, t2 = t.chunk(2, dim=-1)
-        return torch.cat([t1 * ang.cos() - t2 * ang.sin(),
-                          t2 * ang.cos() + t1 * ang.sin()], dim=-1)
-
+    b, s, _ = x.shape
     a = p["attn"]
-    h = norm(x, a["norm"])
-    q = rope((h @ a["wq"]).reshape(b, s, hq, hd).transpose(1, 2))
-    k = rope((h @ a["wk"]).reshape(b, s, hkv, hd).transpose(1, 2))
-    v = (h @ a["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
-    o = naive_f64(torch, q, k, v, window)
+    o = gqa_f64(torch, cfg, a, norm_f64(cfg, x, a["norm"]), window)
     o.retain_grad()
     keep["o"] = o
-    x1 = x + o.transpose(1, 2).reshape(b, s, hq * hd) @ a["wo"]
-    m = p["mlp"]
-    h2 = norm(x1, m["norm"])
-    g = h2 @ m["w_gate"]
-    return x1 + (g * torch.sigmoid(g) * (h2 @ m["w_in"])) @ m["w_out"]
+    x1 = x + o.transpose(1, 2).reshape(b, s, -1) @ a["wo"]
+    return x1 + swiglu_f64(torch, p["mlp"], norm_f64(cfg, x1,
+                                                     p["mlp"]["norm"]))
 
 
 def naive_f64(torch, q, k, v, window):
@@ -3293,13 +3349,14 @@ def spy_layer0(torch, transformer, params, rec: dict):
     """Wrap ``transformer._train_block`` so that layer 0's first call with
     autograd recording (the first micro-batch of the step where ``rec``
     is armed) keeps its input and hooks the gradients arriving at its
-    input, its output and each of its parameters. Returns the original."""
+    input, its output (and its MoE aux loss) and each of its parameters;
+    a MoE layer's routing is kept too. Returns the original."""
     real = transformer._train_block
-    ptr = params["layers"]["attn"]["wq"].data_ptr()
+    ptr = params["layers"]["attn"]["norm"].data_ptr()
 
     def block(cfg, sh, positions, p, x, window):
         take = rec.get("armed") and "x" not in rec and \
-            p["attn"]["wq"].data_ptr() == ptr
+            p["attn"]["norm"].data_ptr() == ptr
         if take:
             rec["x"] = x.detach().clone()
             rec["grads"] = {}
@@ -3307,10 +3364,31 @@ def spy_layer0(torch, transformer, params, rec: dict):
             for path, t in leaf_items(p):
                 t.register_hook(lambda g, path=path:
                                 rec["grads"].__setitem__(path, g.detach()))
-        out, aux = real(cfg, sh, positions, p, x, window)
+        if take and cfg.moe:
+            out, aux = routed(cfg, sh, positions, p, x, window)
+        else:
+            out, aux = real(cfg, sh, positions, p, x, window)
         if take:
             out.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+            if aux.requires_grad:
+                aux.register_hook(
+                    lambda g: rec.__setitem__("daux", g.detach()))
         return out, aux
+
+    def routed(*args):
+        # the MoE's routing of layer 0 (expert, gate, slot, kept)
+        from repro_torch.models import moe
+        dispatch = moe._top_k_dispatch
+
+        def recorded(probs, k, cap):
+            out = dispatch(probs, k, cap)
+            rec["route"] = tuple(t.detach() for t in out)
+            return out
+        moe._top_k_dispatch = recorded
+        try:
+            return real(*args)
+        finally:
+            moe._top_k_dispatch = dispatch
 
     transformer._train_block = block
     return real
@@ -3749,14 +3827,319 @@ def check_train_resume(torch, dev, card: str) -> None:
                        f"uninterrupted run's by up to {diff:g}")
 
 
-def check_train(torch, dev, kernels, card: str, part: str = "ab") -> dict:
-    """Every check of phase 12: (a) internlm2-1.8b whole (returns each
-    kernel's launches over its steps), (b) crash and resume."""
-    out = {}
+# Phase 12 (c): the other families, each at full width with its depth
+# cut, two steps of ``launch.steps.make_train_step`` on its Markov data.
+# The sequence is a multiple of the config's ``seq_multiple`` (RWKV's
+# 128-token chunk) and short enough for the per-token loops: Hymba's
+# Mamba scan runs a step a token, three times a layer under the recompute.
+class TrainFamily(NamedTuple):
+    arch: str
+    layers: int       # the first N of the config's layers, widths unchanged
+    batch: int
+    seq: int
+    what: str         # the path its training exercises
+
+
+TRAIN_FAMILIES = (
+    TrainFamily("rwkv6-7b", 2, 2, 512, "the chunked scan's backward"),
+    TrainFamily("hymba-1.5b", 2, 2, 512,
+                "the per-token Mamba loop under autograd"),
+    TrainFamily("phi3.5-moe-42b-a6.6b", 2, 2, 1024,
+                "the dense dispatch's backward and the aux loss"),
+)
+FAMILY_STEPS = 2
+
+
+def shift_f64(torch, x):
+    """Token shift: each row's previous row, zeros before the first."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def rwkv_layer0_f64(torch, cfg, p, x, rec, plain: bool = False):
+    """RWKV6 layer 0 in float64 from its formulas: the time mix as the
+    per-token recurrence out_t = r_t (S + diag(u) k_t v_t^T), S <- diag(w_t)
+    S + k_t v_t^T, the per-head RMS group norm and gate, then the channel
+    mix (relu^2, sigmoid receptance). Unless ``plain``, each value is
+    rounded to the activation type where the model rounds it (``act``):
+    the norms' outputs, each step of the token-shift lerp, the
+    projections, the log-decay, the gated output and the residuals. The r
+    and k paths' gradients (``u``'s most) are ill-conditioned in those
+    roundings: at rwkv6-7b's width, the plain formulas miss the bfloat16
+    gradients by up to 7.7 x ``GRAD_REL``. So the bfloat16 step is held
+    to the rounded formulas (the rounding points are JAX's:
+    ``tests/test_torch_train_families.py``), and the layer run in float32
+    to the plain ones (``check_rwkv_f32``)."""
+    b, s, d = x.shape
+    h, a, m = cfg.n_heads, p["attn"], p["mlp"]
+    dh = d // h
+    act = (lambda t: t) if plain else lambda t: t.to(cfg.adtype).double()
+
+    def shifted(xn):
+        xs = shift_f64(torch, xn)
+        return lambda mu: act(xn + act(act(xs - xn) * mu))
+    mix = shifted(act(norm_f64(cfg, x, a["norm"])))
+    r, k, v, g = (act(mix(a["mu_" + n]) @ a["w_" + n]) for n in "rkvg")
+    dd = act(act(torch.tanh(act(mix(a["mu_w"]) @ a["decay_a"])))
+             @ a["decay_b"])
+    logw = -torch.exp(torch.clamp(a["decay_base"] + dd, -8.0, 6.0))
+    w = torch.exp(act(logw))
+    heads = lambda t: t.reshape(b, s, h, dh)
+    r, k, v, w = map(heads, (r, k, v, w))
+    state = x.new_zeros((b, h, dh, dh))
+    outs = []
+    for t in range(s):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 state + a["u"][None, :, :, None] * kv))
+        state = state * w[:, t, :, :, None] + kv
+    out = torch.stack(outs, 1)                          # [B, S, H, Dh]
+    out = out * (out * out).mean(-1, keepdim=True).add(cfg.norm_eps).rsqrt()
+    out = act(act(out.reshape(b, s, d) * a["gn_w"])
+              * act(g * torch.sigmoid(g)))
+    x1 = act(x + act(out @ a["w_o"]))
+    mix = shifted(act(norm_f64(cfg, x1, m["norm"])))
+    kk = act(torch.relu(act(mix(m["mu_k"]) @ m["w_k"])) ** 2)
+    rr = act(torch.sigmoid(act(mix(m["mu_r"]) @ m["w_r"])))
+    return act(x1 + act(act(kk @ m["w_v"]) * rr)), None
+
+
+def hymba_layer0_f64(torch, cfg, p, x, rec):
+    """Hymba layer 0 in float64: attention and the Mamba path on the same
+    normed input (the causal depthwise conv, the selective scan a token at
+    a time, the skip and the SiLU gate), each path RMS-normed, averaged
+    and projected, then the SwiGLU."""
+    b, s, _ = x.shape
+    a, mb = p["attn"], p["attn"]["mamba"]
+    window = None if 0 in cfg.hymba_global_layers else cfg.window
+    xn = norm_f64(cfg, x, a["norm"])
+    att = gqa_f64(torch, cfg, a, xn, window).transpose(1, 2).reshape(
+        b, s, -1)
+    xz = xn @ mb["in_proj"]
+    di = xz.shape[-1] // 2
+    xm, z = xz[..., :di], xz[..., di:]
+    kw = mb["conv_w"].shape[1]
+    xp = torch.cat([xm.new_zeros((b, kw - 1, di)), xm], dim=1)
+    xm = sum(xp[:, i:i + s] * mb["conv_w"][:, i] for i in range(kw))
+    xm = xm * torch.sigmoid(xm)
+    n = cfg.ssm.d_state
+    r = mb["x_proj"].shape[1] - 2 * n
+    proj = xm @ mb["x_proj"]
+    dt = torch.nn.functional.softplus(proj[..., :r] @ mb["dt_proj"]
+                                      + mb["dt_bias"])
+    bm, cm = proj[..., r:r + n], proj[..., r + n:]
+    amat = -torch.exp(mb["a_log"])
+    hs = x.new_zeros((b, di, n))
+    ys = []
+    for t in range(s):
+        hs = torch.exp(dt[:, t, :, None] * amat) * hs \
+            + (dt[:, t] * xm[:, t])[..., None] * bm[:, t, None, :]
+        ys.append((hs * cm[:, t, None, :]).sum(-1))
+    y = (torch.stack(ys, 1) + xm * mb["d_skip"]) * (z * torch.sigmoid(z))
+    pn = lambda t, w: t * (t * t).mean(-1, keepdim=True).add(
+        cfg.norm_eps).rsqrt() * w
+    fused = (pn(att, a["attn_out_norm"]) + pn(y, a["ssm_out_norm"])) * 0.5
+    x1 = x + fused @ a["wo"]
+    return x1 + swiglu_f64(torch, p["mlp"], norm_f64(cfg, x1,
+                                                     p["mlp"]["norm"])), None
+
+
+def moe_layer0_f64(torch, cfg, p, x, rec):
+    """A GQA + MoE layer 0 in float64: the router's probabilities, each
+    token's gates at the experts and slots the step's routing took (its
+    top k; a slot past capacity dropped), every expert's SwiGLU on its
+    tokens, and the switch loss from the probabilities. Returns (y, aux)."""
+    b, s, d = x.shape
+    a, m, e = p["attn"], p["mlp"], cfg.moe
+    o = gqa_f64(torch, cfg, a, norm_f64(cfg, x, a["norm"]), None)
+    x1 = x + o.transpose(1, 2).reshape(b, s, -1) @ a["wo"]
+    xt = norm_f64(cfg, x1, m["norm"]).reshape(b * s, d)
+    idx, _, _, keep = rec["route"]
+    probs = torch.softmax(xt @ m["router"], dim=-1)
+    vals = probs.gather(1, idx)
+    gates = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9) * keep
+    out = torch.zeros_like(xt)
+    for ex in range(e.n_experts):
+        w = (gates * (idx == ex)).sum(-1)
+        tok = ((idx == ex) & keep).any(-1).nonzero()[:, 0]
+        if len(tok):
+            ffn = swiglu_f64(torch, {n: m[n][ex] for n in
+                                     ("w_in", "w_gate", "w_out")}, xt[tok])
+            out = out.index_add(0, tok, ffn * w[tok, None])
+    ce = torch.nn.functional.one_hot(idx, e.n_experts).double().sum(1) \
+        .mean(0) / e.top_k
+    aux = e.n_experts * (probs.mean(0) * ce).sum()
+    return x1 + out.reshape(b, s, d), aux
+
+
+FAMILY_F64 = {"rwkv6": rwkv_layer0_f64, "hymba": hymba_layer0_f64,
+              "gqa": moe_layer0_f64}
+
+
+def nested_f64(torch, tree, dtype=None):
+    """A nested dict of tensors as float64 (or ``dtype``) leaves that take
+    gradients."""
+    if isinstance(tree, dict):
+        return {k: nested_f64(torch, v, dtype) for k, v in tree.items()}
+    return tree.detach().to(dtype or torch.float64).requires_grad_()
+
+
+def nested_clone(tree):
+    """A nested dict of tensors, each detached and copied."""
+    if isinstance(tree, dict):
+        return {k: nested_clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def check_family_grads(torch, cfg, p0, rec, fails, name: str) -> dict:
+    """Layer 0 of a family (its parameters ``p0`` as the step saw them)
+    recomputed in float64 from its formulas on the recorded input, with
+    the gradients at its output (and at its aux loss) the step saw: each
+    parameter gradient and dx against it (``GRAD_REL``)."""
+    p64 = nested_f64(torch, p0)
+    x64 = rec["x"].double().requires_grad_()
+    y, aux = FAMILY_F64[cfg.attn_type](torch, cfg, p64, x64, rec)
+    outs, seeds = [y], [rec["dy"].double()]
+    if aux is not None:
+        outs.append(aux)
+        seeds.append(rec["daux"].double())
+    torch.autograd.backward(outs, seeds)
+    shares = {}
+    for path, t in leaf_items(p64):
+        # a parameter the step's backward never reached has no gradient
+        got = rec["grads"].get(path, torch.zeros_like(t))
+        shares[path] = rel_norm(torch, got, t.grad) / GRAD_REL
+    shares["dx"] = rel_norm(torch, rec["dx"], x64.grad) / GRAD_REL
+    for path, share in shares.items():
+        hold(fails, f"training {name}: layer 0's gradient {path} against "
+             "float64", share)
+    return shares
+
+
+def check_rwkv_f32(torch, cfg, p0, rec, fails, name: str) -> dict:
+    """rwkv6's layer 0 run by the port in float32 (its parameters ``p0``
+    and the step's recorded input and output gradient, cast) against the
+    plain float64 formulas, with no rounding: each parameter gradient and
+    dx within ``GRAD_REL``."""
+    from repro_torch.models import ShardCtx, layers, transformer
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    p32 = nested_f64(torch, p0, torch.float32)
+    x32 = rec["x"].float().requires_grad_()
+    positions = torch.arange(x32.shape[1], dtype=torch.float32,
+                             device=x32.device)
+    y32, _ = layers.fp32_accumulation(transformer._train_block)(
+        cfg32, ShardCtx(), positions, p32, x32, None)
+    y32.backward(rec["dy"].float())
+    p64 = nested_f64(torch, p0)
+    x64 = rec["x"].double().requires_grad_()
+    y64, _ = rwkv_layer0_f64(torch, cfg, p64, x64, rec, plain=True)
+    y64.backward(rec["dy"].double())
+    shares = {path: rel_norm(torch, t32.grad, t.grad) / GRAD_REL
+              for (path, t), (_, t32) in zip(leaf_items(p64),
+                                             leaf_items(p32))}
+    shares["dx"] = rel_norm(torch, x32.grad, x64.grad) / GRAD_REL
+    for path, share in shares.items():
+        hold(fails, f"training {name}: layer 0 in float32, gradient {path} "
+             "against the plain float64 formulas", share)
+    return shares
+
+
+def check_train_family(torch, dev, kernels, row: TrainFamily, card: str,
+                       fails: list) -> dict:
+    """Two steps of one family (``row``), layer 0's gradients at the first
+    against float64; returns the kernels' launches over the steps."""
+    from repro_torch import configs, optim
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import ShardCtx, init_params, transformer
+    full = configs.get(row.arch)
+    cfg = full.with_(n_layers=row.layers)
+    opt_cfg = optim.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=1,
+                                total_steps=FAMILY_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=row.seq,
+                      global_batch=row.batch, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    state = optim.init_opt_state(params)
+    p0 = nested_clone(transformer._layer(params, 0))
+    step_fn = steps.make_train_step(cfg, opt_cfg, ShardCtx())
+    spy = {}
+    real_block = spy_layer0(torch, transformer, params, spy)
+    for k in kernels.values():
+        k.launches = 0
+    losses, walls = [], []
+    try:
+        for s in range(FAMILY_STEPS):
+            spy["armed"] = s == 0
+            batch = make_batch(dcfg, s, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        transformer._train_block = real_block
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _tensors(params))
+    del params, state, batch, m
+    torch.cuda.empty_cache()
+    name = row.arch
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"training {name}: a loss is not finite: {losses}")
+    shares = check_family_grads(torch, cfg, p0, spy, fails, name)
+    plain = ""
+    if cfg.attn_type == "rwkv6":
+        s32 = check_rwkv_f32(torch, cfg, p0, spy, fails, name)
+        w32 = max(s32, key=s32.get)
+        plain = (f"; layer 0 in float32 against the plain float64 formulas:"
+                 f" the largest {w32} {s32[w32]:.4f}")
+    del spy, p0
+    torch.cuda.empty_cache()
+    worst = max(shares, key=shares.get)
+    print(f"  {name} ({row.what}): {row.layers} of {full.n_layers} layers "
+          f"at full width (d {cfg.d_model}), {n_params / 1e9:.3f}B "
+          f"parameters, batch {row.batch} x {row.seq}, {FAMILY_STEPS} "
+          f"steps: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; walls " + " ".join(f"{w * 1e3:.0f}" for w in walls)
+          + f" ms; peak memory {(peak - held) / 1e9:.2f} GB; layer 0 "
+          f"against float64 (share of {GRAD_REL}): {len(shares)} "
+          f"gradients, the largest {worst} {shares[worst]:.3f}{plain}; "
+          f"launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def check_train_families(torch, dev, kernels, card: str,
+                         rows=TRAIN_FAMILIES) -> dict:
+    """Phase 12 (c): each family of ``rows``; raises once, naming each
+    check that failed. Returns the kernels' launches summed over them."""
+    fails: list = []
+    total = {n: 0 for n in kernels}
+    for row in rows:
+        for n, c in check_train_family(torch, dev, kernels, row, card,
+                                       fails).items():
+            total[n] += c
+    if fails:
+        raise Mismatch("training: FAILED: " + "; ".join(fails))
+    return total
+
+
+def check_train(torch, dev, kernels, card: str, part: str = "abc") -> dict:
+    """Every check of phase 12: (a) internlm2-1.8b whole, (b) crash and
+    resume, (c) rwkv6, hymba and phi3.5-moe. Returns each kernel's
+    launches over the steps of (a) and (c)."""
+    out = {"launches": {n: 0 for n in kernels}}
     if "a" in part:
         out = check_train_whole(torch, dev, kernels, card)
     if "b" in part:
         check_train_resume(torch, dev, card)
+    if "c" in part:
+        for n, c in check_train_families(torch, dev, kernels,
+                                         card).items():
+            out["launches"][n] += c
     return out
 
 
@@ -4181,6 +4564,493 @@ def check_slice13(torch, dev, rt, hl, cs, card: str) -> dict:
             "examples": examples}
 
 
+# --------------------------------------------------------------- phase 14
+# (a) The split sweep: phase 7's grid and trace over shares of the one
+# card. 16 points on 2 shares are 8 + 8; on 3 they pad to 18 (6 + 6 + 6).
+SPLIT_SHARES = (2, 3)
+SPLIT_OFF_CHUNKS = 64
+
+
+def check_split_sweep(torch, dev, rt, hl, cs, base, spec, trace,
+                      card: str) -> dict:
+    """Phase 14 (a): ``Engine.sweep(mesh=...)`` over 2 and 3 shares of the
+    card bitwise equal to phase 7's single launch (one launch of kernel B
+    a share); a split ``continue_sweep`` equal to the whole sweep; the
+    ``"off"`` route split over 3 shares on a cut trace equal to ``"auto"``;
+    a CPU mesh refused by a CUDA engine. Returns the kernels' launches."""
+    import dataclasses
+    from repro_torch.engine import sweep_mesh
+    Trace = rt.core.Trace
+    eng = rt.Engine(base)
+    n, chunk = len(trace), base.chunk
+    whole = eng.sweep(spec, trace)
+    torch.cuda.synchronize()
+    launches = {"hmmu_lookup": 0, "chunk_step": 0}
+    real = rt.engine._emulate_batch_impl
+    events = []
+
+    def timed(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def split(what, fn, want_counts):
+        events.clear()
+        hl.KERNEL.launches = cs.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"hmmu_lookup": hl.KERNEL.launches,
+                  "chunk_step": cs.KERNEL.launches}
+        for k in launches:
+            launches[k] += counts[k]
+        if counts != want_counts:
+            raise Mismatch(f"split sweep: {what}: launches {counts}, not "
+                           f"{want_counts}")
+        return res, wall, [a.elapsed_time(b) for a, b in events], counts
+
+    rt.engine._emulate_batch_impl = timed
+    try:
+        for shares in SPLIT_SHARES:
+            mesh = (dev,) * shares
+            res, wall, ms, counts = split(
+                f"{shares} shares", lambda: eng.sweep(spec, trace, mesh=mesh),
+                {"hmmu_lookup": 0, "chunk_step": shares})
+            same_runs(torch, f"{shares} shares of {dev} against the single "
+                      "launch", (res.states, res.outs),
+                      (whole.states, whole.outs))
+            per = -(-len(res.points) // shares)
+            print(f"  {len(res.points)} points over {shares} shares of {dev} "
+                  f"({per} points a share, {per * shares - len(res.points)} "
+                  f"padding): launches {counts}; each share's launch "
+                  + ", ".join(f"{m:.3f}" for m in ms) + f" ms (device, CUDA "
+                  f"events); wall {wall:.3f} s; bitwise equal to phase 7's "
+                  f"single launch [{card}]", flush=True)
+            del res
+        half = (n // chunk // 2) * chunk
+        mesh = (dev,) * SPLIT_SHARES[-1]
+        first = eng.sweep(spec, Trace(*(x[:half] for x in trace)), mesh=mesh)
+        cont = eng.continue_sweep(first, Trace(*(x[half:] for x in trace)),
+                                  mesh=mesh)
+        same_runs(torch, "a split continue_sweep against the whole sweep",
+                  (cont.states, {k: torch.cat([first.outs[k], cont.outs[k]],
+                                              dim=1) for k in whole.outs}),
+                  (whole.states, whole.outs))
+        print(f"  continue_sweep over {len(mesh)} shares, requests {half}.."
+              f"{n} after a split sweep of the first half: equal to the one "
+              "sweep", flush=True)
+        del first, cont, whole
+        m = SPLIT_OFF_CHUNKS * chunk
+        sub = Trace(*(x[:m] for x in trace))
+        off = base.with_(chunk_step_kernel="off")
+        got, wall, ms, counts = split(
+            f"'off' over {len(mesh)} shares",
+            lambda: rt.Engine(off).sweep(dataclasses.replace(spec, base=off),
+                                         sub, mesh=mesh),
+            {"hmmu_lookup": SPLIT_OFF_CHUNKS * len(mesh), "chunk_step": 0})
+    finally:
+        rt.engine._emulate_batch_impl = real
+    want = eng.sweep(spec, sub)
+    same_runs(torch, f"'off' over {len(mesh)} shares against 'auto'",
+              (got.states, got.outs), (want.states, want.outs))
+    print(f"  route 'off' over the first {SPLIT_OFF_CHUNKS} chunks on "
+          f"{len(mesh)} shares: launches {counts} (one chunk loop a share); "
+          f"wall {wall:.3f} s; equal to 'auto'", flush=True)
+    del got, want
+    try:
+        eng.sweep(spec, sub, mesh=(torch.device("cpu"),))
+        raise Mismatch("split sweep: a CPU mesh on a CUDA engine ran")
+    except ValueError as e:
+        if "engine's type" not in str(e):
+            raise Mismatch(f"split sweep: a CPU mesh refused with {e!r}")
+        refused = str(e)
+    print(f"  sweep_mesh(): {len(sweep_mesh())} device(s) ({card}); a CPU "
+          f"mesh on a CUDA engine: {refused}. One card: scaling over cards "
+          "is not measured here", flush=True)
+    return launches
+
+
+# (b) The sharded models: 2 gloo ranks sharing the card (data 1 x model 2;
+# NCCL takes no two ranks on one device), each model at full width with
+# its depth cut, held to the same model unsharded on the card.
+SHARD_RANKS = 2
+SHARD_HYMBA = dict(layers=2, batch=1, seq=2048, smax=4096, steps=2)
+SHARD_MOE = dict(layers=2, batch=2, seq=512)
+SHARD_MOE_BINDING = 1.0         # a capacity factor at which capacity binds
+SHARD_DECODE = dict(layers=2, batch=2, seq=1024, smax=2048, steps=4)
+# dist_decode's float32 output sharded against unsharded: the float32
+# attention allowance (``ref.kernel_error``).
+
+
+def _rank_setup(torch):
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import ShardCtx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev, ShardCtx.from_mesh(make_dev_mesh(model=SHARD_RANKS))
+
+
+def _spy_first(module, name, store: list):
+    """Wrap ``module.name`` so that every call's output (its first item for
+    a tuple) is kept in ``store``; returns the original."""
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        store.append((out[0] if isinstance(out, tuple) else out).detach()
+                     .clone())
+        return out
+    setattr(module, name, spy)
+    return real
+
+
+def _timed(torch, fn):
+    """(fn's result, device milliseconds between two CUDA events around
+    it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _shard_hymba(torch, dev, sh, fails) -> dict:
+    """hymba-1.5b (25 heads: no even model axis divides them), a prefill
+    past the window on the context-parallel path, then decode steps over
+    rings split on their slot axis: layer 0's attention rows (the CP
+    all-gather) and layer 1's ring slice within ``CACHE_REL``, every
+    logit within ``LOGIT_TOL`` of the unsharded run."""
+    from repro_torch import configs
+    from repro_torch.models import (ShardCtx, decode_step, init_params,
+                                    layers, prefill)
+    c = SHARD_HYMBA
+    cfg = configs.get("hymba-1.5b").with_(n_layers=c["layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (c["batch"], c["seq"]),
+                           generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (c["steps"], c["batch"]),
+                         generator=gen, device=dev)
+    if not layers.use_context_parallel(cfg, sh, c["batch"], c["seq"]):
+        fails.append("hymba: the context-parallel path is not taken")
+
+    def run(ctx):
+        rows = []
+        real = _spy_first(layers, "attend", rows)
+        try:
+            with torch.no_grad():
+                lg, cache, pos = prefill(cfg, params, prompt, ctx, c["smax"])
+                out = [lg]
+                for t in toks:
+                    lg, cache, pos = decode_step(cfg, params, t, cache, pos,
+                                                 ctx)
+                    out.append(lg)
+        finally:
+            layers.attend = real
+        return out, cache, rows[0]
+    (ref, ref_cache, ref_rows) = run(ShardCtx())
+    sh.traffic.reset()
+    (got, cache, rows), ms = _timed(torch, lambda: run(sh))
+    out = {"device_ms": ms}
+    out["attention"] = hold(fails, "hymba: layer 0's context-parallel "
+                            "attention rows", rel_share(torch, rows, ref_rows,
+                                                        CACHE_REL))
+    n = cache[1]["k"].shape[2]
+    lo = sh.coord("model") * n
+    out["ring"] = hold(fails, "hymba: layer 1's ring slice", max(
+        rel_share(torch, cache[1][k], ref_cache[1][k][:, :, lo:lo + n],
+                  CACHE_REL) for k in ("k", "v")))
+    out["logits"] = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, ref))
+    hold(fails, "hymba: the logits", out["logits"] / LOGIT_TOL)
+    out["what"] = (f"hymba-1.5b, {c['layers']} of 32 layers at full width, "
+                   f"prefill {c['batch']} x {c['seq']} on the CP path "
+                   f"(window {cfg.window}), {c['steps']} decode steps, rings "
+                   f"of {n} slots a rank")
+    return out
+
+
+def _composed_moe(torch, moe, tp: int):
+    """The reference's ``_moe_shard_map`` on one device from the port's own
+    per-shard functions: each model rank's sequence slice routed with its
+    own capacity through every expert and combined; the switch
+    statistics averaged over the ranks."""
+    def moe_block(cfg, p, x, sh):
+        b, s, d = x.shape
+        sl = s // tp
+        c_dev = moe.capacity(cfg, b * sl)
+        cols, mes, ces = [], [], []
+        for j in range(tp):
+            xt = x[:, j * sl:(j + 1) * sl].reshape(b * sl, d)
+            buf, idx, gates, pos, keep, me, ce = moe._route_scatter(
+                cfg, p["router"], xt, c_dev)
+            eo = moe._expert_ffn(p, buf, cfg.adtype)
+            cols.append(moe._combine(eo, idx, gates, pos, keep, cfg.adtype)
+                        .reshape(b, sl, d))
+            mes.append(me)
+            ces.append(ce)
+        aux = moe._aux_loss(cfg, sum(mes) / tp, sum(ces) / tp)
+        return torch.cat(cols, 1), aux
+    return moe_block
+
+
+def _shard_moe(torch, dev, sh, fails) -> dict:
+    """phi3.5-moe (16 experts, 8 a rank) through the expert-parallel
+    forward and backward: at capacity factor E / k (nothing dropped)
+    against the unsharded dense path, and at ``SHARD_MOE_BINDING``, where
+    every rank drops slots, against the per-rank composition; layer 0's
+    MoE output within ``CACHE_REL``, the loss within 2^-9 of it, and
+    layer 0's gradients (the rank's experts' slice) within ``GRAD_REL``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import (ShardCtx, init_params, loss_fn, moe,
+                                    reduce_grads, shard_params, transformer)
+    from repro_torch.models.layers import fp32_sums
+    from repro_torch.tree import leaves as tree_leaves, tree_map
+    c = SHARD_MOE
+    base = configs.get("phi3.5-moe-42b-a6.6b").with_(n_layers=c["layers"])
+    e = base.moe
+    dcfg = DataConfig(vocab=base.vocab, seq_len=c["seq"],
+                      global_batch=c["batch"], seed=0)
+    batch = make_batch(dcfg, 0, dev)
+    out = {"device_ms": 0.0}
+
+    def run(cfg, params, ctx, block=None):
+        outs, dropped = [], []
+        real = _spy_first(moe, "moe_block", outs)
+        route = moe._route_scatter
+
+        def counting(*a):
+            r = route(*a)
+            dropped.append(int((~r[4]).sum()))
+            return r
+        moe._route_scatter = counting
+        if block is not None:
+            moe.moe_block = _wrap_out(block, outs)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            with fp32_sums():
+                loss, _ = loss_fn(cfg, params, batch, ctx)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+        finally:
+            moe.moe_block, moe._route_scatter = real, route
+        for t in leaves:
+            t.requires_grad_(False)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        return float(loss.detach()), grads, outs[0], sum(dropped)
+
+    for label, factor in (("no drop", e.n_experts / e.top_k),
+                          ("binding", SHARD_MOE_BINDING)):
+        cfg = base.with_(moe=dataclasses.replace(e, capacity_factor=factor))
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        block = None if label == "no drop" else _composed_moe(
+            torch, moe, sh.size("model"))
+        ref_loss, ref_grads, ref_out, ref_drop = run(cfg, params, ShardCtx(),
+                                                     block)
+        local = shard_params(cfg, params, sh)
+        del params
+        sh.traffic.reset()
+        (loss, grads, got, drop), ms = _timed(
+            torch, lambda: run(cfg, local, sh))
+        grads = reduce_grads(cfg, grads, sh)
+        out["device_ms"] += ms
+        e_loc = e.n_experts // sh.size("model")
+        lo = sh.coord("model") * e_loc
+        shares = {}
+        for path, g in leaf_items(transformer._layer(grads, 0)):
+            want = transformer._layer(ref_grads, 0)
+            for k in path.strip("/").split("/"):
+                want = want[k]
+            if path.startswith("/mlp/w_"):
+                want = want[lo:lo + e_loc]
+            shares[path] = rel_norm(torch, g, want) / GRAD_REL
+            hold(fails, f"phi3.5-moe ({label}): layer 0's gradient {path}",
+                 shares[path])
+        worst = max(shares, key=shares.get)
+        out[label] = {
+            "loss": (loss, ref_loss), "dropped": (drop, ref_drop),
+            "moe_out": hold(fails, f"phi3.5-moe ({label}): layer 0's MoE "
+                            "output", rel_share(torch, got, ref_out,
+                                                CACHE_REL)),
+            "grad": (worst, shares[worst]), "traffic": sh.traffic.as_dict()}
+        hold(fails, f"phi3.5-moe ({label}): the loss",
+             abs(loss - ref_loss) / abs(ref_loss) / 2.0 ** -9)
+        if (drop > 0) != (label == "binding"):
+            fails.append(f"phi3.5-moe ({label}): {drop} slots dropped")
+        del local, grads, ref_grads
+        torch.cuda.empty_cache()
+    out["what"] = (f"phi3.5-moe-42b, {c['layers']} of 32 layers at full "
+                   f"width, {e.n_experts} experts ({e.n_experts // 2} a "
+                   f"rank), batch {c['batch']} x {c['seq']}, forward and "
+                   "backward")
+    return out
+
+
+def _wrap_out(fn, store: list):
+    def spy(*a, **kw):
+        out = fn(*a, **kw)
+        store.append(out[0].detach().clone())
+        return out
+    return spy
+
+
+def _shard_decode(torch, dev, sh, fails) -> dict:
+    """minitron-8b: a prefill, then decode steps with the KV cache split on
+    its sequence axis (each rank writes only the rows it holds): layer
+    0's ``dist_decode`` output within the float32 attention allowance of
+    the unsharded one, the cache slices within ``CACHE_REL`` and every
+    logit within ``LOGIT_TOL``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import (ShardCtx, decode_step, init_params,
+                                    prefill, transformer)
+    c = SHARD_DECODE
+    cfg = configs.get("minitron-8b").with_(n_layers=c["layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (c["batch"], c["seq"]),
+                           generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (c["steps"], c["batch"]),
+                         generator=gen, device=dev)
+
+    def run(ctx):
+        attn = []
+        real = _spy_first(transformer, "dist_decode", attn)
+        try:
+            with torch.no_grad():
+                lg, cache, pos = prefill(cfg, params, prompt, ctx, c["smax"])
+                out = [lg]
+                for t in toks:
+                    lg, cache, pos = decode_step(cfg, params, t, cache, pos,
+                                                 ctx)
+                    out.append(lg)
+        finally:
+            transformer.dist_decode = real
+        return out, cache, attn[::cfg.n_layers]
+    ref, ref_cache, ref_attn = run(ShardCtx())
+    sh.traffic.reset()
+    (got, cache, attn), ms = _timed(torch, lambda: run(sh))
+    out = {"device_ms": ms}
+    out["dist_decode"] = hold(fails, "minitron-8b: layer 0's sharded "
+                              "dist_decode", max(
+                                  kref.kernel_error("attention", a, b)[1]
+                                  for a, b in zip(attn, ref_attn)))
+    n = cache["k"].shape[3]
+    lo = sh.coord("model") * n
+    out["cache"] = hold(fails, "minitron-8b: the cache slice", max(
+        rel_share(torch, cache[k], ref_cache[k][:, :, :, lo:lo + n],
+                  CACHE_REL) for k in ("k", "v")))
+    out["logits"] = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, ref))
+    hold(fails, "minitron-8b: the logits", out["logits"] / LOGIT_TOL)
+    out["what"] = (f"minitron-8b, {c['layers']} of 32 layers at full width, "
+                   f"prefill {c['batch']} x {c['seq']}, {c['steps']} decode "
+                   f"steps over a cache of {c['smax']} rows split "
+                   f"{n} a rank")
+    return out
+
+
+SHARD_CASES = {"hymba": _shard_hymba, "moe": _shard_moe,
+               "decode": _shard_decode}
+
+
+def sharded_rank(rank: int, world: int, case: str) -> dict:
+    """One rank of phase 14 (b) (``launch.mesh.run_ranks``): the case's
+    checks, its device time, traffic and peak memory."""
+    import torch
+    dev, sh = _rank_setup(torch)
+    from repro_torch.kernels import (chunk_step, decode_attention,
+                                     flash_attention, hmmu_lookup, rwkv_scan)
+    fails: list = []
+    torch.cuda.reset_peak_memory_stats()
+    out = SHARD_CASES[case](torch, dev, sh, fails)
+    out.update(rank=rank, fails=fails, traffic=sh.traffic.as_dict(),
+               peak=torch.cuda.max_memory_allocated(),
+               launches={m.KERNEL.name: m.KERNEL.launches for m in (
+                   hmmu_lookup, chunk_step, flash_attention,
+                   decode_attention, rwkv_scan)})
+    return out
+
+
+def check_sharded_models(torch, card: str, cases=tuple(SHARD_CASES)
+                         ) -> dict:
+    """Phase 14 (b): each case of ``SHARD_CASES`` in ``SHARD_RANKS`` gloo
+    ranks on the card; raises once, naming each check that failed.
+    Returns the kernels' launches summed over the ranks."""
+    from repro_torch.launch.mesh import run_ranks
+    fails = []
+    launches: dict = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for case in cases:
+        t0 = time.perf_counter()
+        res = run_ranks(sharded_rank, SHARD_RANKS, (case,), timeout_s=600,
+                        work_dir=ROOT / "build")
+        print(f"  {res[0]['what']} ({time.perf_counter() - t0:.1f} s with "
+              "the ranks' start):", flush=True)
+        for r in res:
+            fails += [f"rank {r['rank']}: {f}" for f in r["fails"]]
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            t = r["traffic"]
+            nums = {k: v for k, v in r.items() if k not in (
+                "what", "rank", "fails", "traffic", "peak", "device_ms",
+                "launches")}
+            print(f"    rank {r['rank']}: device {r['device_ms']:.1f} ms; "
+                  f"bytes a collective {t['bytes']} in {t['calls']} calls; "
+                  f"host round trips {t['round_trips']} moving "
+                  f"{t['round_trip_bytes']} B; peak memory "
+                  f"{r['peak'] / 1e9:.2f} GB; {_fmt(nums)} [{card}]",
+                  flush=True)
+    print(f"  the ranks' kernel launches: {launches}", flush=True)
+    if fails:
+        raise Mismatch("sharded models: FAILED: " + "; ".join(fails))
+    return launches
+
+
+def _fmt(x) -> str:
+    if isinstance(x, float):
+        return f"{x:.4g}"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{k}: {_fmt(v)}" for k, v in x.items()
+                               if k != "traffic") + "}"
+    if isinstance(x, (tuple, list)):
+        return "(" + ", ".join(_fmt(v) for v in x) + ")"
+    return str(x)
+
+
+def check_slice14(torch, dev, rt, hl, cs, card: str) -> dict:
+    """Phase 14 (a) and (b); returns each kernel's launches over both."""
+    print("  (a) the split sweep", flush=True)
+    base, spec = sweep_grid(rt)
+    trace = sweep_trace(torch, dev, rt)
+    launches = check_split_sweep(torch, dev, rt, hl, cs, base, spec, trace,
+                                 card)
+    del trace
+    torch.cuda.empty_cache()
+    print(f"  (b) the sharded models: {SHARD_RANKS} gloo ranks on {dev}",
+          flush=True)
+    for k, v in check_sharded_models(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
     """Device milliseconds per call of ``fn``: CUDA events around a run of
     calls after one warm-up call, as many calls as fit ``budget_ms``
@@ -4546,10 +5416,11 @@ def check_rwkv_split(torch, rw, case, events_ms: float) -> None:
                        f"{total:.4f} ms, the launch takes {events_ms:.4f} ms")
 
 
-def model_kernel_rows(m6, train_launches: dict) -> list:
+def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict
+                      ) -> list:
     """One ``kernels`` entry per model kernel: the times of its first case
     (the main shape), the largest error over its cases, and its launches
-    over phase 12's training steps."""
+    over phase 12's training steps and phase 14."""
     meta = {
         "flash_attention": "src/repro/kernels/flash_attention.py:111",
         "decode_attention": "src/repro/kernels/decode_attention.py:100",
@@ -4564,6 +5435,7 @@ def model_kernel_rows(m6, train_launches: dict) -> list:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": m6["counts"][name],
             "train_launches": train_launches[name],
+            "mesh_launches": mesh_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in res), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
@@ -4672,8 +5544,8 @@ def main() -> int:
         print(f"    phase 11 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        print(f"[12] training internlm2-1.8b at full width ({card})",
-              flush=True)
+        print(f"[12] training internlm2-1.8b, rwkv6, hymba and phi3.5-moe "
+              f"at full width ({card})", flush=True)
         t0 = time.perf_counter()
         s12 = check_train(torch, dev, serve_kernels, card)
         print(f"    phase 12 took {time.perf_counter() - t0:.1f} s",
@@ -4686,7 +5558,14 @@ def main() -> int:
         print(f"    phase 13 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        print("[14] per-kernel numbers", flush=True)
+        print(f"[14] the multi-device paths: the split sweep and the "
+              f"sharded models ({card})", flush=True)
+        t0 = time.perf_counter()
+        s14 = check_slice14(torch, dev, rt, hl, cs, card)
+        print(f"    phase 14 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        print("[15] per-kernel numbers", flush=True)
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -4702,6 +5581,7 @@ def main() -> int:
              "fig7_launches": s13["fig7"]["hmmu_lookup"],
              "example_launches": s13["examples"]["hmmu_lookup"],
              "train_launches": s12["launches"]["hmmu_lookup"],
+             "mesh_launches": s14["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -4718,10 +5598,11 @@ def main() -> int:
              "fig7_launches": s13["fig7"]["chunk_step"],
              "example_launches": s13["examples"]["chunk_step"],
              "train_launches": s12["launches"]["chunk_step"],
+             "mesh_launches": s14["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
-            *model_kernel_rows(m6, s12["launches"]),
+            *model_kernel_rows(m6, s12["launches"], s14),
         ]
         print(f"    kernel A's fused entry alone at B=1 x {CHUNK + 2} rows: "
               f"{k_ms * 1e3:.2f} us; the script took "

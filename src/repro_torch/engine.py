@@ -19,7 +19,10 @@ quietly. On a CUDA device the chunk step is the hand-written CUDA kernel
 is the CUDA lookup kernel). A sweep runs every design point in ONE
 launch of the chunk-step kernel; on ``"off"`` or the CPU, in one chunk
 loop over the point axis with ONE lookup launch a chunk for all points.
-The multi-card sweep (``mesh=``) is not ported yet and raises.
+``mesh=`` splits a sweep's point axis over a sequence of devices (the
+reference's 1-D mesh), one process driving them all: each share runs
+from one launch (or one chunk loop) on its device, every share launched
+before any is waited on, and the results come back in point order.
 
 Every dispatch records its signature (``core.emulator.record_dispatch``,
 the JAX package's entry-point key); :attr:`Engine.compile_count` counts
@@ -56,6 +59,7 @@ from .core.emulator import (EmulatorState, Trace, _emulate_batch_impl,
 from .core.faults import FaultPlan
 from .core.policies import PolicyRegistry
 from .device import resolve_device
+from .launch.mesh import local_devices
 from .sweep.results import SweepResult
 from .sweep.spec import DesignPoint, SweepSpec, build_points
 
@@ -79,6 +83,28 @@ def stack_params(points: list[DesignPoint], device=None) -> RuntimeParams:
     point axis) on ``device``."""
     ps = [p.params() for p in points]
     return RuntimeParams(*(torch.stack(xs).to(device) for xs in zip(*ps)))
+
+
+def sweep_mesh(device=None) -> tuple:
+    """The sweep's mesh over every local device of ``device``'s type:
+    each CUDA device for a CUDA engine, ``(cpu,)`` for a CPU one."""
+    return local_devices(resolve_device(device).type)
+
+
+def _map_state(fn, x):
+    """``fn`` over every tensor of a (nested) state tuple."""
+    return type(x)(*(_map_state(fn, y) for y in x)) \
+        if isinstance(x, tuple) else fn(x)
+
+
+def _pad_points(tree, pad: int):
+    """The leading (point) axis of every tensor of ``tree`` padded by
+    ``pad`` copies of the last point (the reference's
+    ``_pad_to_multiple``)."""
+    if not pad:
+        return tree
+    return _map_state(lambda x: torch.cat(
+        [x, x[-1:].expand(pad, *x.shape[1:])]), tree)
 
 
 def _prefetched(segments: Iterable[Trace], depth: int,
@@ -441,8 +467,15 @@ class Engine:
         engine's static geometry. The trace is padded to a chunk multiple;
         the outputs keep the padding, [B, N] each.
 
-        ``mesh``: only None; the multi-card sweep is not ported yet
-        (ROADMAP.md §1) and raises rather than running on one card.
+        ``mesh``: None runs every point on the engine's device;
+        ``"auto"`` is :func:`sweep_mesh` of it; a sequence of devices of
+        the engine's type (repeats allowed: ``(cuda:0, cuda:0)`` is two
+        shares of one card) splits the point axis into equal contiguous
+        shares, one a device, the last point repeated to pad the count to
+        a multiple (states and a stacked fault plan likewise). Every
+        share is launched before any is waited on; states and outputs
+        are gathered onto the engine's device in point order and the
+        padding dropped. Bitwise equal to ``mesh=None``.
 
         ``states``: stacked per-point ``EmulatorState`` (a previous
         ``SweepResult.states``) to continue from, donated (updated in
@@ -458,16 +491,80 @@ class Engine:
                                 states=states, donate=donate, faults=faults,
                                 selected=selected)
 
+    def _mesh(self, mesh) -> tuple:
+        """``mesh=`` as a tuple of devices of the engine's type (None is
+        the engine's device alone); anything else raises."""
+        if mesh is None:
+            return (self.device,)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh={mesh!r}: only 'auto' is a name")
+            mesh = sweep_mesh(self.device)
+        if not isinstance(mesh, (list, tuple)):
+            raise TypeError(
+                f"mesh= takes None, 'auto' or a sequence of devices, not "
+                f"{type(mesh).__name__}")
+        if not mesh:
+            raise ValueError("mesh=(): an empty mesh has no device to run "
+                             "the sweep on")
+        devices = tuple(torch.device(d) for d in mesh)
+        for d in devices:
+            if d.type != self.device.type:
+                raise ValueError(
+                    f"mesh device {d} is not of the engine's type "
+                    f"({self.device}): a sweep runs where its engine does")
+        return tuple(resolve_device(d) for d in devices)
+
+    def _sweep_shares(self, registry, mesh, trace, valid, states, params,
+                      faults, selected):
+        """The point axis split into ``len(mesh)`` equal contiguous shares
+        (padded by repeating the last point), each run on its device, all
+        launched before any is read; returns each share's (states,
+        outs)."""
+        n = len(params.policy_id)
+        pad = (-n) % len(mesh)
+        per = (n + pad) // len(mesh)
+        params = _pad_points(params, pad)
+        if states is not None:
+            states = _pad_points(states, pad)
+        batched = faults is not None and faults.is_batched
+        if batched:
+            faults = _pad_points(faults, pad)
+        shares = []
+        for i, dev in enumerate(mesh):
+            share = lambda x: x[i * per:(i + 1) * per].to(dev)
+            p = _map_state(share, params)
+            st = (init_states(self.cfg, p) if states is None
+                  else _map_state(share, states))
+            f = (_map_state(share, faults) if batched else
+                 None if faults is None else faults.to(dev))
+            shares.append(_emulate_batch_impl(
+                self.cfg, registry, trace.to(dev), valid.to(dev), st, p, f,
+                selected=selected))
+        return shares
+
+    def _gather(self, shares, n: int):
+        """The shares' states and outputs on the engine's device, in point
+        order, the padding dropped. One share has no padding and is
+        returned as it is (moved home), not copied."""
+        if len(shares) == 1:
+            st, outs = shares[0]
+            home = lambda x: x.to(self.device)
+            return (_map_state(home, st),
+                    {k: home(v) for k, v in outs.items()})
+        cat = lambda *xs: torch.cat([x.to(self.device) for x in xs])[:n]
+        flat = [_tensors(st) for st, _ in shares]
+        it = iter([cat(*col) for col in zip(*flat)])
+        states = _map_state(lambda _: next(it), shares[0][0])
+        outs = {k: cat(*(o[k] for _, o in shares)) for k in shares[0][1]}
+        return states, outs
+
     def _sweep_exec(self, points, registry, params, trace, *, mesh, states,
                     donate, faults=None, selected=None) -> SweepResult:
         """Run an already normalised (points, registry, stacked params)
         batch: shared by :meth:`sweep` and :meth:`continue_sweep`. Donated
         ``states`` are consumed; the result holds new objects."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-card sweep (torch.distributed over the "
-                "point axis) is not ported yet; pass mesh=None to run every "
-                "point on this engine's device")
+        devices = self._mesh(mesh)
         if donate is None:
             donate = states is not None
         if donate and states is None:
@@ -483,19 +580,19 @@ class Engine:
         padded, valid = pad_trace(self.cfg, trace.to(self.device))
         record_dispatch(self.cfg, registry, batch=True, donate=donate,
                         shape_sig=(len(padded), len(points), states is None,
-                                   None, self._fault_sig(faults)))
-        if states is None:
-            states = init_states(self.cfg, params)
-        elif not donate:
+                                   None if mesh is None else devices,
+                                   self._fault_sig(faults)))
+        if carried and not donate:
             states = clone_state(states)
         if faults is not None:
             faults = faults.to(self.device)
-        states, outs = _emulate_batch_impl(self.cfg, registry, padded, valid,
-                                           states, params, faults,
-                                           selected=selected)
+        gathered, outs = self._gather(self._sweep_shares(
+            registry, devices, padded, valid, states, params, faults,
+            selected),
+            len(points))
         if carried and donate:
-            states = _renew(states)
-        return SweepResult(points=points, states=states, outs=outs,
+            _renew(states)      # consumed; the shares are other objects
+        return SweepResult(points=points, states=gathered, outs=outs,
                            params=params, registry=registry)
 
     def continue_sweep(self, result: SweepResult, trace: Trace, *,
@@ -512,4 +609,4 @@ class Engine:
 
 
 __all__ = ["Engine", "RunResult", "PolicyRegistry", "resolve_device",
-           "stack_params"]
+           "stack_params", "sweep_mesh"]

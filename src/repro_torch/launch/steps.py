@@ -2,9 +2,12 @@
 with gradient accumulation over micro-batches, and the prefill and decode
 steps the serving launcher runs.
 
-The reference also takes ``grad_specs`` (ZeRO-sharded gradient layouts);
-on the port's one device there is nothing to shard, and the sharded
-paths wait for ROADMAP §1 item 1.
+The prefill and decode steps take any ``ShardCtx``: on a mesh they run
+the models' sharded paths (each rank its batch rows and its slice of the
+cache). The training step runs on one device: training over a mesh (the
+reference's ZeRO ``grad_specs``, the weights' specs, compressed
+reductions) is ROADMAP §1's next item, and a context with a mesh
+raises.
 """
 from __future__ import annotations
 
@@ -32,6 +35,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, sh: ShardCtx,
     moments updated in place. Forward and backward sum bfloat16 products
     in float32 (``layers.fp32_sums``). metrics: loss (the micro-batches'
     mean), the last micro-batch's ce and aux, lr and grad_norm."""
+    if sh.mesh is not None:
+        raise NotImplementedError(
+            "make_train_step on a mesh: training over a mesh (weight "
+            "specs, ZeRO-1/2, compressed reductions) is the next item of "
+            "ROADMAP §1; models.loss_fn and models.reduce_grads give a "
+            "sharded gradient")
 
     def grads_of(params, leaves, batch):
         loss, metrics = loss_fn(cfg, params, batch, sh)

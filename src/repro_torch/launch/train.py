@@ -8,8 +8,9 @@ straggler watchdog, with the reference's options and ``--device``.
   * straggler watchdog: flags a step slower than ``--straggler-factor``
     times the running median.
 
-``--mesh`` other than ``none`` raises: the sharded paths wait for
-ROADMAP §1 item 1.
+``--mesh`` other than ``none`` raises: training over a mesh (the weights'
+specs, ZeRO-1/2, the compressed reduction, the elastic restart) is the
+next item of ROADMAP §1.
 
 Usage (the CPU; on a card, leave out ``--device``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
@@ -66,8 +67,9 @@ def run(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; the "
-            "sharded paths wait for ROADMAP §1 item 1")
+            f"--mesh {args.mesh}: the port trains on one device; training "
+            "over a mesh (weight specs, ZeRO-1/2, compressed reductions, "
+            "the elastic restart) is the next item of ROADMAP §1")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))

@@ -109,16 +109,21 @@ class _Chunked(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def naive_attention(q, k, v, *, causal=True, window=None, scale=None):
+def naive_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    q_offset=None):
     """Single-shot attention (identical math, S x S logits materialized):
-    the reference's cost-extraction variant (``attention_impl="naive"``)."""
+    the reference's cost-extraction variant (``attention_impl="naive"``)
+    and its context-parallel form. ``q_offset`` is the position of q's
+    first row among k's (default: q is the tail of k)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = float(scale if scale is not None else d ** -0.5)
+    if q_offset is None:
+        q_offset = skv - sq
     qg = q.reshape(b, hkv, g, sq, d)
     logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * scale
-    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
     ki = torch.arange(skv, device=q.device)[None, :]
     logits = torch.where(_mask(qi, ki, causal, window), logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)

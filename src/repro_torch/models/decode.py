@@ -1,16 +1,21 @@
-"""Decode attention over a KV cache: the single-shard path of the
-reference's ``repro.models.decode.dist_decode``.
+"""Distributed flash-decode: partial softmax over a KV cache and, on a
+mesh, the combine over a cache split on its sequence axis (the port's
+counterpart of ``repro.models.decode``).
 
-The reference shards the cache on its sequence axis over a mesh and
-combines each shard's partial softmax with two collectives; with no mesh
-it computes the one partial below over the whole cache and normalises it.
-The port runs on one device, so that is the whole path here; the
-sharded combine waits with the multi-card work (ROADMAP §1 item 1).
+Decode caches are split on their *sequence* axis over ``"model"``: each
+model rank holds rows ``[r Smax/tp, (r+1) Smax/tp)`` and computes a
+partial (max, sum, weighted accumulator) over them; the combine is three
+small collectives (``dist``):
+
+    m* = max(m);  l* = sum(l e^{m - m*});  acc* = sum(acc e^{m - m*})
+
+With no mesh the one partial covers the whole cache and is normalised.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import dist
 from .sharding import ShardCtx
 
 NEG_INF = -1e30
@@ -49,9 +54,18 @@ def dist_decode(q: torch.Tensor, k_cache: torch.Tensor,
                 scale: float | None = None) -> torch.Tensor:
     """q:[B,Hq,Dk]; k_cache:[B,Hkv,Smax,Dk]; v_cache:[B,Hkv,Smax,Dv];
     kv_len:int[B] -> [B,Hq,Dv] (fp32, caller casts). ``window`` is None
-    (global) or a Python int."""
+    (global) or a Python int. On a mesh with a model axis the caches are
+    this rank's sequence slice (``Smax`` rows of ``Smax * tp``), starting
+    at global row ``r * Smax``."""
     dk = q.shape[-1]
     scale = scale if scale is not None else dk ** -0.5
-    offset = torch.zeros((1, 1, 1), dtype=torch.int32, device=q.device)
+    sl = k_cache.shape[2]
+    off = sh.coord("model") * sl if sh.seq_shards > 1 else 0
+    offset = torch.full((1, 1, 1), off, dtype=torch.int32, device=q.device)
     m, l, acc = _partial(q, k_cache, v_cache, kv_len, offset, window, scale)
+    if sh.seq_shards > 1:
+        m_g = dist.all_reduce(m, sh, "model", op="max")
+        corr = torch.exp(m - m_g)
+        l = dist.all_reduce(l * corr, sh, "model")
+        acc = dist.all_reduce(acc * corr[..., None], sh, "model")
     return acc / torch.where(l == 0., 1., l)[..., None]

@@ -17,6 +17,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import dist
 from .chunked_attention import chunked_attention, naive_attention
 from .config import ModelConfig
 from .sharding import ShardCtx
@@ -110,13 +111,48 @@ def gqa_project(cfg: ModelConfig, p: dict, x: torch.Tensor, adtype):
     return q, k, v
 
 
+def use_context_parallel(cfg: ModelConfig, sh: ShardCtx, b: int, s: int,
+                         budget_bytes: float = 4e9) -> bool:
+    """The reference's predicate for context-parallel attention: head
+    counts that do not divide the model axis (musicgen 24, gemma3 8,
+    hymba 25) split the *queries* on the sequence axis instead, when a
+    rank's logits ``[b_loc, H, S/tp, S]`` in float32 fit
+    ``budget_bytes``. On a mesh ``b`` is the rank's own rows, ``b_loc``;
+    without one it is the global batch, whose share of the batch axes
+    ``b_loc`` is where they divide it, as in the reference."""
+    if not (sh.model_axis is not None and not sh.divides(cfg.n_heads)
+            and s % sh.size("model") == 0 and s > 1):
+        return False
+    dp = sh.batch_size
+    b_loc = b if sh.mesh is not None or b % dp else b / dp
+    logits = b_loc * cfg.n_heads * (s / sh.size("model")) * s * 4.0
+    return logits <= budget_bytes
+
+
+def attention_seq_sharded(cfg: ModelConfig, sh: ShardCtx, q, k, v, window,
+                          scale=None):
+    """Context-parallel attention, the reference's single-shot form: each
+    model rank takes its query rows ``[r S/tp, (r+1) S/tp)`` against the
+    whole K/V (naive attention, logits ``[B, H, S/tp, S]``; the causal and
+    window masks at the rows' global positions) and the ranks' outputs
+    are all-gathered on the sequence axis (with their gradient). Without
+    a mesh, every row at once."""
+    if sh.mesh is None:
+        return naive_attention(q, k, v, causal=True, window=window,
+                               scale=scale)
+    rows = q.shape[2] // sh.size("model")
+    lo = sh.coord("model") * rows
+    o = naive_attention(q[:, :, lo:lo + rows], k, v, causal=True,
+                        window=window, scale=scale, q_offset=lo)
+    return dist.all_gather(o, 2, sh)
+
+
 @fp32_accumulation
 def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: ShardCtx,
                   positions: torch.Tensor, window) -> tuple[torch.Tensor,
                                                             dict]:
-    """Full-sequence GQA attention (prefill). Returns (out, kv). The
-    reference's context-parallel branch needs a mesh's model axis, so on
-    the port's one device it is never taken."""
+    """Full-sequence GQA attention (prefill and training). Returns (out,
+    kv); context-parallel where ``use_context_parallel`` holds."""
     adtype = cfg.adtype
     b, s, _ = x.shape
     hd = cfg.head_dim_
@@ -124,12 +160,21 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: ShardCtx,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn_fn = (naive_attention if cfg.attention_impl == "naive"
-               else chunked_attention)
-    o = attn_fn(q, k, v, causal=True, window=window)
+    o = attend(cfg, sh, q, k, v, window)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     out = o @ p["wo"].to(adtype)
     return out, {"k": k, "v": v}
+
+
+def attend(cfg: ModelConfig, sh: ShardCtx, q, k, v, window):
+    """Causal (windowed) attention of [B, H, S, D] q over its k/v: the
+    context-parallel form where ``use_context_parallel`` holds, else the
+    configured one (``chunked`` or ``naive``)."""
+    if use_context_parallel(cfg, sh, q.shape[0], q.shape[2]):
+        return attention_seq_sharded(cfg, sh, q, k, v, window)
+    attn_fn = (naive_attention if cfg.attention_impl == "naive"
+               else chunked_attention)
+    return attn_fn(q, k, v, causal=True, window=window)
 
 
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor,

@@ -20,7 +20,6 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
-from .chunked_attention import chunked_attention, naive_attention
 from .config import ModelConfig
 from .decode import dist_decode
 from .layers import fp32_accumulation
@@ -111,18 +110,17 @@ def hymba_block(cfg: ModelConfig, p: dict, xn: torch.Tensor, sh: ShardCtx,
                 positions: torch.Tensor, window) -> tuple[torch.Tensor,
                                                           dict]:
     """Parallel attention + Mamba on the normed input xn [B,S,D]. Returns
-    (out [B,S,D], {k, v [B,Hkv,S,Dh], conv, ssm}). The reference's
-    context-parallel branch needs a mesh's model axis, so on the port's
-    one device it is never taken."""
+    (out [B,S,D], {k, v [B,Hkv,S,Dh], conv, ssm}). The attention is
+    context-parallel where ``layers.use_context_parallel`` holds (Hymba's
+    25 heads divide no even model axis); the Mamba path runs whole on
+    every model rank."""
     b, s, _ = xn.shape
     hd = cfg.head_dim_
     q, k, v = layers.gqa_project(cfg, p, xn, cfg.adtype)
     cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
-    attn_fn = (naive_attention if cfg.attention_impl == "naive"
-               else chunked_attention)
-    attn = attn_fn(q, k, v, causal=True, window=window)
+    attn = layers.attend(cfg, sh, q, k, v, window)
     attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     ssm_y, conv_state, ssm_state = mamba_mix(cfg, p["mamba"], xn, sh)
     out = _fuse(cfg, p, attn, ssm_y)
@@ -159,10 +157,13 @@ def hymba_decode(cfg: ModelConfig, p: dict, xn: torch.Tensor, sh: ShardCtx,
 
 @fp32_accumulation
 def hymba_write_kv(cfg: ModelConfig, p: dict, xn: torch.Tensor, cache: dict,
-                   kv_len: torch.Tensor, slot=None) -> dict:
+                   kv_len: torch.Tensor, slot=None,
+                   sh: ShardCtx = ShardCtx()) -> dict:
     """Project the new token's k/v (RoPE at its absolute position
     kv_len - 1) and write them, in place, into ring slot ``slot``
-    (default kv_len - 1: a cache that does not wrap)."""
+    (default kv_len - 1: a cache that does not wrap). On a cache whose
+    slots are split over the model axis, only the rank holding the slot
+    writes it."""
     b = xn.shape[0]
     hd = cfg.head_dim_
     adtype = cfg.adtype
@@ -172,7 +173,9 @@ def hymba_write_kv(cfg: ModelConfig, p: dict, xn: torch.Tensor, cache: dict,
                                   cfg.rope_theta)
     k = layers.apply_rope(k[:, :, None], cos[:, None], sin[:, None])[:, :, 0]
     slot = (kv_len - 1 if slot is None else slot).long()
+    slot = sh.cache_slot(slot, cache["k"].shape[2])
     bidx = torch.arange(b, device=xn.device)
-    cache["k"][bidx, :, slot] = k
-    cache["v"][bidx, :, slot] = v
+    # the caches' slot axis second: [B, size, Hkv, Dh] views
+    layers.write_row(cache["k"].transpose(1, 2), bidx, slot, k)
+    layers.write_row(cache["v"].transpose(1, 2), bidx, slot, v)
     return cache

@@ -112,15 +112,17 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: ShardCtx,
 
 @fp32_accumulation
 def mla_write_cache(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                    kv_len: torch.Tensor) -> dict:
+                    kv_len: torch.Tensor, sh: ShardCtx = ShardCtx()) -> dict:
     """Project the new token's latent and write it at ``kv_len - 1``, in
-    place. x [B,1,D]."""
+    place. x [B,1,D]. On a cache split over the model axis only the rank
+    holding that row writes it."""
     m = cfg.mla
     c_kv, k_rope = _project_kv_latent(cfg, p, x)     # [B,1,R], [B,1,1,rope]
     pos = kv_len.long() - 1
     cos, sin = layers.rope_tables(pos.float()[:, None], m.rope_head_dim,
                                   cfg.rope_theta)
     k_rope = layers.apply_rope(k_rope[:, 0], cos, sin)      # [B,1,rope]
+    pos = sh.cache_slot(pos, cache["c_kv"].shape[1])
     bidx = torch.arange(x.shape[0], device=x.device)
     write_row(cache["c_kv"], bidx, pos, c_kv[:, 0])
     write_row(cache["k_rope"], bidx, pos, k_rope[:, 0])

@@ -14,15 +14,28 @@ Returns the output and the switch-style load-balance auxiliary loss.
 ``capacity = max(4, int(T * k / E * capacity_factor))`` for the T tokens
 of the call, so it follows the batch: at decode, idle lanes compete for
 it as live ones do, and the sequence path and the decode path can drop
-different tokens. The reference's expert-parallel path (``shard_map``
-over a mesh's model axis) waits for the multi-card work (ROADMAP §1
-item 1): ``ShardCtx`` with axes raises.
+different tokens.
+
+On a mesh (``ShardCtx.from_mesh``) whose model axis divides the experts,
+each rank holds only its ``E / tp`` experts' weights
+(``transformer.shard_params``). A full sequence that the model axis
+divides takes the expert-parallel path, the reference's ``shard_map``:
+every rank routes its own tokens (its batch rows, its sequence slice)
+with the capacity of its *local* token count (``c_dev``), two all-to-alls
+over ``"model"`` move the token blocks to their experts' ranks and back,
+and the outputs are all-gathered on the sequence axis; the load-balance
+statistics are averaged over every axis first. Once capacity binds this
+drops other tokens than the dense path. Anything else on a mesh (a
+decode step) takes the dense path over the whole batch: the batch
+gathered, the global capacity, each rank's experts on its slice of the
+buffer, the outputs gathered, exactly the reference's dense values.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import dist
 from .config import ModelConfig
 from .layers import fp32_accumulation, swiglu
 from .sharding import ShardCtx
@@ -96,22 +109,83 @@ def _combine(eo, idx, gates, pos, keep, adtype) -> torch.Tensor:
     return torch.einsum("tkd,tk->td", out_slots.float(), w).to(adtype)
 
 
+def expert_parallel(cfg: ModelConfig, sh: ShardCtx) -> bool:
+    """Whether each rank of ``sh``'s mesh holds only its ``E / tp``
+    experts."""
+    return bool(cfg.moe) and sh.mesh is not None and \
+        sh.divides(cfg.moe.n_experts)
+
+
+def _local_experts(cfg: ModelConfig, p: dict, buf, sh: ShardCtx):
+    """Every expert's SwiGLU over its slots: [E,C,D] -> [E,C,D]; on an
+    expert-parallel mesh each rank's experts on its slice of ``buf``,
+    gathered."""
+    if not expert_parallel(cfg, sh):
+        return _expert_ffn(p, buf, cfg.adtype)
+    e_loc = cfg.moe.n_experts // sh.size("model")
+    lo = sh.coord("model") * e_loc
+    return dist.all_gather(_expert_ffn(p, buf[lo:lo + e_loc], cfg.adtype),
+                           0, sh)
+
+
 @fp32_accumulation
 def _moe_dense(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: ShardCtx):
+    """The global-capacity path over the whole batch: on a mesh the
+    ranks' rows are gathered first and this rank's rows returned."""
+    rows = x.shape[0]
+    if sh.mesh is not None:
+        for a in ("data", "pod"):
+            x = dist.all_gather(x, 0, sh, a)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     buf, idx, gates, pos, keep, me, ce = _route_scatter(
         cfg, p["router"], xt, capacity(cfg, b * s))
-    eo = _expert_ffn(p, buf, cfg.adtype)
-    out = _combine(eo, idx, gates, pos, keep, cfg.adtype)
-    return out.reshape(b, s, d), _aux_loss(cfg, me, ce)
+    eo = _local_experts(cfg, p, buf, sh)
+    out = _combine(eo, idx, gates, pos, keep, cfg.adtype).reshape(b, s, d)
+    return out[sh.batch_rows(b)] if rows != b else out, \
+        _aux_loss(cfg, me, ce)
+
+
+def _moe_expert_parallel(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                         sh: ShardCtx):
+    """The reference's ``_moe_shard_map``: x is this rank's rows [b, S, D]
+    (replicated over the model axis); the rank routes its sequence slice
+    with ``c_dev`` slots an expert; p's expert weights are its own
+    ``E / tp`` experts'."""
+    e = cfg.moe
+    adtype = cfg.adtype
+    b, s, d = x.shape
+    msz = sh.size("model")
+    e_loc = e.n_experts // msz
+    sl = s // msz
+    lo = sh.coord("model") * sl
+    xt = x[:, lo:lo + sl].reshape(b * sl, d)
+    c_dev = capacity(cfg, b * sl)
+    buf, idx, gates, pos, keep, me, ce = _route_scatter(
+        cfg, p["router"], xt, c_dev)
+    # Token blocks to their experts' ranks: [E, C, D] -> [E_loc, tp*C, D],
+    # the senders' blocks in rank order (a tiled all-to-all).
+    buf = dist.all_to_all(buf, sh)
+    buf = buf.reshape(msz, e_loc, c_dev, d).transpose(0, 1).reshape(
+        e_loc, msz * c_dev, d)
+    eo = _expert_ffn(p, buf, adtype)
+    eo = eo.reshape(e_loc, msz, c_dev, d).transpose(0, 1).contiguous()
+    eo = dist.all_to_all(eo, sh).reshape(e.n_experts, c_dev, d)
+    out = _combine(eo, idx, gates, pos, keep, adtype).reshape(b, sl, d)
+    axes = tuple(a for a in ("pod", "data", "model") if a in sh.names)
+    aux = _aux_loss(cfg, dist.mean_over(me, sh, axes),
+                    dist.mean_over(ce, sh, axes))
+    return dist.all_gather(out, 1, sh), aux
 
 
 @fp32_accumulation
 def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: ShardCtx
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (out [B,S,D], aux_loss fp32 scalar)."""
-    out, aux = _moe_dense(cfg, p, x, sh)
+    if expert_parallel(cfg, sh) and x.shape[1] % sh.size("model") == 0:
+        out, aux = _moe_expert_parallel(cfg, p, x, sh)
+    else:
+        out, aux = _moe_dense(cfg, p, x, sh)
     if cfg.moe.n_shared:
         out = out + swiglu(x, p["shared"], sh, cfg.adtype)
     return out, aux

@@ -28,6 +28,14 @@ balance. With autograd recording, ``forward_seq`` recomputes each layer
 in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` over its layer scan), so only the layers' inputs are
 kept; prefill and serving run as before.
+
+On a mesh (``ShardCtx.from_mesh``; see ``sharding`` for the layout) every
+entry point takes the rank's batch rows; ``shard_params`` keeps a rank's
+experts; ``init_cache`` and ``prefill`` build the rank's slice of a cache
+split on its sequence axis over ``"model"``, which ``decode_step`` writes
+only where the rank holds the row; ``loss_fn`` is the mean over every
+rank's tokens, and ``reduce_grads`` makes each rank's gradients those of
+that global loss.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import dist
 from ..device import resolve_device
 from . import layers, mamba as mamba_lib, mla as mla_lib, moe as moe_lib
 from . import rwkv as rwkv_lib
@@ -298,8 +307,53 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: ShardCtx
     x, _, aux = forward_seq(cfg, params, batch["inputs"], sh,
                             collect_cache=False)
     logits = layers.lm_logits(cfg, params, x, sh)
-    ce = layers.cross_entropy(logits, batch["labels"])
+    ce = dist.mean_over(layers.cross_entropy(logits, batch["labels"]), sh,
+                        sh.names)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _expert_leaf(cfg: ModelConfig, path: tuple) -> bool:
+    return bool(cfg.moe) and path[:2] == ("layers", "mlp") and \
+        path[2:] in (("w_in",), ("w_gate",), ("w_out",))
+
+
+def _map_paths(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def shard_params(cfg: ModelConfig, params: dict, sh: ShardCtx) -> dict:
+    """This rank's parameters on ``sh``'s mesh: where the model axis
+    divides the experts (``moe.expert_parallel``), each expert weight
+    ``[L, E, ...]`` keeps the rank's ``E / tp`` experts (copied, so the
+    full weight can be freed); every other leaf is ``params``' own."""
+    if not moe_lib.expert_parallel(cfg, sh):
+        return params
+    e_loc = cfg.moe.n_experts // sh.size("model")
+    lo = sh.coord("model") * e_loc
+    return _map_paths(lambda path, t: t[:, lo:lo + e_loc].clone()
+                      if _expert_leaf(cfg, path) else t, params)
+
+
+@torch.no_grad()
+def reduce_grads(cfg: ModelConfig, grads: dict, sh: ShardCtx) -> dict:
+    """Each rank's gradients (of its ``loss_fn``, the global loss, on its
+    own rows) -> the global loss's gradients, the same on every rank that
+    holds a parameter: summed over the axes on which the parameter is
+    replicated (every axis; an expert weight's, the batch axes) and
+    divided by the number of ranks. Every rank seeds the same global
+    loss, so the ranks' shares add up to the world size times the
+    gradient, whichever rows each rank held."""
+    if sh.mesh is None:
+        return grads
+    batch = tuple(n for n in sh.names if n != "model")
+
+    def reduce(path, g):
+        axes = batch if (_expert_leaf(cfg, path)
+                         and moe_lib.expert_parallel(cfg, sh)) else sh.names
+        return dist.all_reduce(g, sh, axes) / sh.world
+    return _map_paths(reduce, grads)
 
 
 def _pad_seq(c: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -333,6 +387,19 @@ def _hymba_rings(cfg: ModelConfig, cache: dict, smax: int) -> tuple:
     return tuple(out)
 
 
+def _own_rows(sh: ShardCtx, c: torch.Tensor, axis: int) -> torch.Tensor:
+    """This rank's slice of a cache's sequence axis (all of it unless the
+    model axis splits it), as a tensor of its own."""
+    n = sh.seq_shards
+    if n == 1:
+        return c
+    if c.shape[axis] % n:
+        raise ValueError(f"a cache of {c.shape[axis]} rows does not split "
+                         f"{n} ways")
+    rows = c.shape[axis] // n
+    return c.narrow(axis, sh.coord("model") * rows, rows).clone()
+
+
 @layers.fp32_accumulation
 def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             sh: ShardCtx, smax: int):
@@ -344,11 +411,15 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     if family in ("gqa", "mla") and s > smax:
         raise ValueError(f"prompt of {s} tokens past the cache's {smax}")
     if family == "gqa":
-        cache = {n: _pad_seq(c, 3, smax) for n, c in cache.items()}
+        cache = {n: _own_rows(sh, _pad_seq(c, 3, smax), 3)
+                 for n, c in cache.items()}
     elif family == "mla":
-        cache = {n: _pad_seq(c, 2, smax) for n, c in cache.items()}
+        cache = {n: _own_rows(sh, _pad_seq(c, 2, smax), 2)
+                 for n, c in cache.items()}
     elif family == "hymba":
-        cache = _hymba_rings(cfg, cache, smax)
+        cache = tuple({n: _own_rows(sh, c, 2) if n in ("k", "v") else c
+                       for n, c in ring.items()}
+                      for ring in _hymba_rings(cfg, cache, smax))
     logits = layers.lm_logits(cfg, params, x[:, -1:], sh)[:, 0]
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, pos
@@ -366,13 +437,20 @@ def hymba_cache_sizes(cfg: ModelConfig, smax: int) -> tuple:
                  for l in range(cfg.n_layers))
 
 
-def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None,
+               sh: ShardCtx = ShardCtx()):
     """Empty decode cache (capacity smax) in the activation dtype (RWKV's
     and Mamba's recurrent states in float32): stacked over layers, except
     Hymba's, a tuple of per-layer dicts (ring buffers of different
-    sizes)."""
+    sizes). On a mesh, this rank's slice of every sequence axis."""
     family = _family(cfg)
     device = resolve_device(device)
+    n = sh.seq_shards
+    sizes = {"hymba": hymba_cache_sizes(cfg, smax), "rwkv6": ()}.get(
+        family, (smax,))
+    if any(size % n for size in sizes):
+        raise ValueError(f"cache capacities {sizes} do not split {n} ways")
+    smax //= n
     L, b, hd = cfg.n_layers, batch, cfg.head_dim_
     zeros = lambda *shape, dtype=cfg.adtype: torch.zeros(
         shape, dtype=dtype, device=device)
@@ -394,7 +472,7 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None):
                   "v": zeros(b, cfg.n_kv_heads, size, hd),
                   "conv": zeros(b, cfg.ssm.d_conv - 1, di),
                   "ssm": zeros(b, di, cfg.ssm.d_state, dtype=torch.float32)}
-                 for size in hymba_cache_sizes(cfg, smax))
+                 for size in (s // n for s in sizes))
 
 
 def _layer_cache(cache, l: int) -> dict:
@@ -414,7 +492,7 @@ def _gqa_decode(cfg: ModelConfig, sh: ShardCtx, p, h, ck, cv, pos, window,
     k = (h @ p["wk"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
     v = (h @ p["wv"].to(adtype)).reshape(b, cfg.n_kv_heads, hd)
     k = layers.apply_rope(k[:, :, None], cos, sin)[:, :, 0]
-    posl = pos.long()
+    posl = sh.cache_slot(pos.long(), ck.shape[2])
     # the caches' position axis second: [B, smax, Hkv, Dh] views
     layers.write_row(ck.transpose(1, 2), bidx, posl, k)
     layers.write_row(cv.transpose(1, 2), bidx, posl, v)
@@ -437,15 +515,15 @@ def _decode_block(cfg: ModelConfig, sh: ShardCtx, p, x, c: dict, pos,
         a = _gqa_decode(cfg, sh, p["attn"], h, c["k"], c["v"], pos, window,
                         *rope, bidx)
     elif family == "mla":
-        mla_lib.mla_write_cache(cfg, p["attn"], h, c, new_len)
+        mla_lib.mla_write_cache(cfg, p["attn"], h, c, new_len, sh)
         a, _ = mla_lib.mla_decode(cfg, p["attn"], h, sh, c, new_len)
     elif family == "hymba":
         # The ring write: slot = pos % capacity; attention then covers
         # min(pos + 1, capacity) slots with no further window mask (the
         # ring is the window of a local layer).
-        size = c["k"].shape[2]
+        size = c["k"].shape[2] * sh.seq_shards
         mamba_lib.hymba_write_kv(cfg, p["attn"], h, c, new_len,
-                                 slot=pos % size)
+                                 slot=pos % size, sh=sh)
         eff_len = torch.clamp(new_len, max=size)
         a, _ = mamba_lib.hymba_decode(cfg, p["attn"], h, sh, c, new_len,
                                       eff_len)

@@ -2,7 +2,8 @@
 
 Every module of ``repro_torch``, the serving front end
 ``repro_torch.serve``, ``repro_torch.memtier``, ``repro_torch.models``,
-``repro_torch.configs``, ``repro_torch.launch``, the simulator baselines
+``repro_torch.configs``, ``repro_torch.launch`` (``launch.mesh`` and the
+collectives of ``repro_torch.dist`` too), the simulator baselines
 ``repro_torch.sims`` and the port's reprolint ``repro_torch.analysis``
 included (and the card scripts ``chip_smoke.py``, ``chip_faults.py``,
 ``chip_sweep_clusters.py`` and ``chip_compare_off.py``, and the port's
@@ -80,6 +81,10 @@ _SLICE13 = ("repro_torch.sims", "repro_torch.sims.trace_sim",
             "repro_torch.analysis.tripwire", "repro_torch.analysis.docrefs",
             "repro_torch.analysis.__main__")
 
+# The multi-device paths: the sweep's mesh and the launcher, the
+# collectives.
+_MESH = ("repro_torch.launch.mesh", "repro_torch.dist")
+
 _IMPORT_EXAMPLES = r"""
 import importlib.util, sys
 sys.modules["jax"] = None
@@ -110,6 +115,7 @@ def test_port_imports_without_jax_or_repro():
     assert set(_MODELS) <= set(names)
     assert set(_TRAIN) <= set(names)
     assert set(_SLICE13) <= set(names)
+    assert set(_MESH) <= set(names)
 
 
 def test_examples_import_without_jax_or_repro():

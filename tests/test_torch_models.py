@@ -290,12 +290,37 @@ def test_configs_are_the_references(arch):
 
 
 def test_shard_ctx_is_one_device():
+    """No axes: one device, every placement the identity. With axes (no
+    mesh) the reference's queries answer as ``repro``'s ShardCtx does;
+    the rank's coordinate is 0 and a cache is not split."""
     sh = ShardCtx()
     x = torch.ones(2, 3)
     assert sh.constrain(x, None, "model") is x and sh.act_btd(x) is x
     assert sh.act_bhsd(x, 4) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1"):
-        ShardCtx(axis_sizes=(("data", 2),))
+    assert sh.seq_shards == 1 and sh.batch_rows(4) == slice(None)
+    axes = (("pod", 2), ("data", 2), ("model", 4))
+    t, j = ShardCtx(axis_sizes=axes), JShard(axis_sizes=axes)
+    for q in ("names", "batch_axes", "model_axis", "all_axes"):
+        assert getattr(t, q) == getattr(j, q), q
+    for n in (1, 4, 6, 8):
+        assert t.batch_axes_for(n) == j.batch_axes_for(n)
+        assert t.divides(n) == j.divides(n)
+        assert t.head_axis(n) == j.head_axis(n)
+    assert [t.size(a) for a in ("pod", "data", "model", "x")] == \
+        [j.size(a) for a in ("pod", "data", "model", "x")]
+    assert t.coord("model") == 0 and t.world == 16 and t.batch_size == 4
+    assert t.act_bhsd(x, 4) is x
+    with pytest.raises(ValueError, match="without a mesh"):
+        t.group("model")
+    # Without a mesh one process holds everything: the loss is the
+    # one-device loss.
+    ref = reference("minitron_8b")
+    cfg = _port_cfg("minitron_8b")
+    params = model_params_from_numpy(ref["params"], "cpu")
+    batch = {"inputs": torch.from_numpy(ref["prompt"]),
+             "labels": torch.from_numpy(ref["prompt"])}
+    assert torch.equal(TT.loss_fn(cfg, params, batch, t)[0],
+                       TT.loss_fn(cfg, params, batch, sh)[0])
 
 
 # Leaves the reference initialises to constants (norms, lerp weights,

@@ -293,11 +293,24 @@ def test_sweep_errors():
     spec = TSpec(base=cfg_t, policies=("static", "hotness"))
     with pytest.raises(ValueError, match="donate=True requires states"):
         eng.sweep(spec, tt, donate=True)
-    for mesh in ("auto", object()):
-        with pytest.raises(NotImplementedError, match="multi-card"):
+    # mesh= splits the point axis (tests/test_torch_sweep_mesh.py): "auto"
+    # runs, equal to no mesh; a mesh that is not a sequence of devices
+    # raises, for a sweep and a continuation alike.
+    whole = eng.sweep(spec, tt)
+    _assert_port_equal(eng.sweep(spec, tt, mesh="auto"), whole)
+    for mesh, error in ((object(), TypeError), ((), ValueError)):
+        with pytest.raises(error, match="mesh"):
             eng.sweep(spec, tt, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="multi-card"):
+        with pytest.raises(error, match="mesh"):
             eng.continue_sweep(eng.sweep(spec, tt), tt, mesh=mesh)
+
+
+def _assert_port_equal(got, want):
+    for a, b in zip(_flat(got.states), _flat(want.states), strict=True):
+        assert torch.equal(a, b)
+    assert got.outs.keys() == want.outs.keys()
+    for k in want.outs:
+        assert torch.equal(got.outs[k], want.outs[k]), k
 
 
 def test_continued_sweep_updates_the_states_in_place_unless_donate_false():
