@@ -9,7 +9,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Forty-five faults are planted. A fault in
+run in a process of its own. Forty-nine faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -60,7 +60,13 @@ the expert-parallel capacity from the global token count,
 ``dist_decode``'s offset one shard off, its combine without the
 exp(m - m_g) correction) run phase 14 (a) (``chip_smoke.
 check_split_sweep``) or the one case of 14 (b) that runs the code
-(``chip_smoke.check_sharded_models``), which must stop at a mismatch. A
+(``chip_smoke.check_sharded_models``), which must stop at a mismatch; the
+four of training over a mesh (the global norm summing a block over the
+axes it is replicated on, ZeRO-1's updated block not all-gathered back
+over "data", the elastic restart's load slicing at the writer mesh's
+coordinates, the compressed sum dequantising by each rank's own scales)
+run phase 15's part that holds the code (``chip_smoke.check_mesh_train``),
+whose failure must hold the words of the check that names the fault. A
 fault in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
 term of the mma path's P V product dropped, a split dropped by the decode
 combine, a mask edge moved by one key, one chunk's state term skipped in
@@ -359,6 +365,36 @@ SLICE13_FAULTS = [
 # The part of phase 13 that runs each one's code.
 SLICE13_PARTS = ("c", "a")
 
+# Faults that only training over a mesh shows (phase 15, ``chip_smoke.
+# check_mesh_train`` over the part that runs the code): the global norm
+# summing a block over the axes it is replicated on as well, ZeRO-1's
+# updated sub-block written back into the rank's own block only (not
+# all-gathered over "data"), the elastic restart's load slicing each leaf
+# at the rank's coordinates on the mesh that wrote the checkpoint, and
+# the compressed sum dequantising every rank's int8 blocks by its own
+# scales. Each is caught where the failure holds the words given here.
+SLICE15_FAULTS = [
+    ("mesh training: the global norm sums a block over the axes it is "
+     "replicated on", "optim", "src/repro_torch/optim/adamw.py",
+     "        axes = tuple(a for a in sh.names if a in spec_axes(spec))\n",
+     "        axes = tuple(sh.names)\n"),
+    ("mesh training: ZeRO-1's updated block not all-gathered back over data",
+     "optim", "src/repro_torch/optim/adamw.py",
+     "    p.copy_(dist.all_gather(part, d, sh, axis))\n",
+     "    local_slice(p, part_spec, sh).copy_(part)\n"),
+    ("mesh training: the elastic restart's load slices at the writer mesh's "
+     "coordinates", "ckpt", "src/repro_torch/ckpt/checkpoint.py",
+     "        coords = rank_coords(dist.get_rank(), sh.axis_sizes)\n",
+     "        coords = rank_coords(dist.get_rank(), manifest[\"mesh\"])\n"),
+    ("mesh training: the compressed sum dequantises every rank's blocks by "
+     "its own scales", "optim", "src/repro_torch/optim/compress.py",
+     "        summed = torch.sum(qs.float() * ss[..., None], dim=0)\n",
+     "        summed = torch.sum(qs.float() * scale[None, :, None], dim=0)\n"),
+]
+# The part of phase 15 that runs each one, and the words its failure holds.
+SLICE15_RUNS = (("a", "global norm"), ("a", "ZeRO-1's update"),
+                ("a", "elastic restart"), ("c", "compressed_psum_spec"))
+
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
     ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
@@ -437,6 +473,7 @@ FAULTS = [
     *SLICE13_FAULTS,
     *SLICE12C_FAULTS,
     *SLICE14_FAULTS,
+    *SLICE15_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
@@ -444,8 +481,8 @@ FAULTS = [
 # whose checks run ("phase 4", "phase 7", "phase 8", "phase 9", "phase
 # 10", "phase 11 <arch>" for the one model of phase 11 that runs the
 # fault, "phase 12 <part>" or "phase 12 c <arch>" with the words its
-# failure must hold, "phase 13 <part>", "phase 14 a" or "phase 14 b
-# <case>").
+# failure must hold, "phase 13 <part>", "phase 14 a", "phase 14 b
+# <case>" or "phase 15 <part>" with the words its failure must hold).
 CHILD = r'''
 import json, sys
 import torch
@@ -460,7 +497,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 fault, kernel = sys.argv[1], sys.argv[2]
 dev = cs.cuda_device(torch)
 if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
-              "memtier", "optim", "launch", "engine"):
+              "memtier", "optim", "launch", "engine", "ckpt"):
     import repro_torch as rt
     from repro_torch.kernels import chunk_step, hmmu_lookup
     row = {"fault": fault, "case": sys.argv[3]}
@@ -468,7 +505,9 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
                "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
                "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3] == "phase 14 a":
+        if sys.argv[3].startswith("phase 15"):
+            cs.check_mesh_train(torch, "", sys.argv[3].split()[-1])
+        elif sys.argv[3] == "phase 14 a":
             base, spec = cs.sweep_grid(rt)
             trace = cs.sweep_trace(torch, dev, rt)
             cs.check_split_sweep(torch, dev, rt, hmmu_lookup, chunk_step,
@@ -529,7 +568,8 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
             cs.check_chunk_step(torch, dev, rt, chunk_step)
         row["caught"] = False
     except cs.Mismatch as e:
-        # a phase-12 fault counts as caught where the check naming it failed
+        # a phase-12 or phase-15 fault counts as caught where the check
+        # naming it failed
         row.update(caught=sys.argv[4] in str(e), why=str(e))
     print(json.dumps(row), flush=True)
     sys.exit(0)
@@ -577,7 +617,10 @@ def main() -> int:
             if FAULTS[i] in SLICE12C_FAULTS:
                 arch = SLICE12C_ARCHS[SLICE12C_FAULTS.index(FAULTS[i])]
                 expect = f"training {arch}"
-            phase = ("phase 14 " + SLICE14_PARTS[SLICE14_FAULTS.index(
+            if FAULTS[i] in SLICE15_FAULTS:
+                part, expect = SLICE15_RUNS[SLICE15_FAULTS.index(FAULTS[i])]
+            phase = ("phase 15 " + part if FAULTS[i] in SLICE15_FAULTS else
+                     "phase 14 " + SLICE14_PARTS[SLICE14_FAULTS.index(
                 FAULTS[i])] if FAULTS[i] in SLICE14_FAULTS else
                      "phase 12 c " + arch if FAULTS[i] in SLICE12C_FAULTS
                      else

@@ -303,14 +303,49 @@ Phases, each printing its lines in order:
    ``LOGIT_TOL``). Each rank prints its device time, the bytes of each
    collective, the host round trips (gloo's all-gather of CUDA tensors,
    ``dist.HOST_TRANSPORT``) and their bytes, and its peak memory.
-15. One JSON line of per-kernel numbers (kernels A and B also carry
+15. **Training over a mesh** — ``launch.train.run --mesh dev`` in 4
+   ``gloo`` ranks sharing the card (``launch.mesh.run_ranks``), full width
+   with the depth cut, the weights held by ``launch.shardings.
+   param_specs``, the moments and the gradient accumulator by
+   ``zero1_specs`` (ZeRO-1/2). Rank 0 first runs the same
+   ``launch.train.run`` on one device (same seed, weights, batches,
+   schedule) while the others wait. (a) internlm2-1.8b, 2 of 24 layers,
+   data 2 x model 2, batch 4 x 512 in 2 micro-batches, 4 steps: the first
+   step's loss within ``MESH_LOSS_RTOL`` and its global norm within
+   ``MESH_STEPS_RTOL`` of the single device's, and equal to the sum over
+   the distinct blocks; every gradient leaf, from each rank's block of
+   it, norm-wise within the row's ``grad_rel`` of the single device's;
+   the 4 losses and grad norms within ``MESH_STEPS_RTOL``; the bytes each
+   rank holds in parameters, moments and the accumulator equal to each
+   leaf's whole size over the product of its spec's axis sizes; the
+   first step's ZeRO-1 update on copies of each rank's blocks bit for bit
+   the same step over the rank's whole parameter blocks; then the
+   elastic restart: the run's checkpoint at step 2 on (data 2, model 2),
+   resumed on (data 1, model 4) to step 4, its losses within
+   ``MESH_STEPS_RTOL`` of the straight run's, and its final parameters
+   norm-wise too. (b) phi3.5-moe-42b, 1 of 32 layers, the weights split
+   over ``"data"`` too (the launcher's ``needs_fsdp`` of the whole
+   configuration: 8 of 16 experts a rank, each halved
+   over ``"data"``), data 2 x model 2, batch 2 x 1,024, 2 steps at capacity factor E / k (no token dropped on
+   either path): the same checks but the bitwise update (every block is
+   already split over ``"data"``) and the restart, and each rank's
+   expert bytes. (c) ``optim.compressed_psum_spec`` over the 2-rank
+   ``"pod"`` axis of a (pod 2, model 2) mesh on internlm2-1.8b's layer
+   shapes, each pod's gradients at another magnitude: within 2% of the
+   exact all-reduce (``tests/test_grad_compression.py``'s bar),
+   deterministic and stochastic, and the int8 blocks and scales equal to
+   ``compress_int8`` on the CPU. Per rank: held bytes, peak memory, each
+   step's wall, and over the run the bytes, calls and seconds of each
+   collective and the host round trips (gloo's all-gather of CUDA
+   tensors, ``dist.HOST_TRANSPORT``).
+16. One JSON line of per-kernel numbers (kernels A and B also carry
    ``serve_launches``, ``policy_launches``, ``memtier_launches``,
    ``model_serve_launches``, ``family_serve_launches``,
    ``oracle_launches``, ``fig7_launches`` and ``example_launches``, the
    counts of phases 8, 9 (a), 9 (b), 10, 11 and 13 (a), (b), (d); every
-   kernel ``train_launches``, phase 12 (a) and (c)'s, and
-   ``mesh_launches``, phase 14's), the card line again, and the last
-   line ``{"ok": true, "device": {...}}``.
+   kernel ``train_launches``, phase 12 (a) and (c)'s, ``mesh_launches``,
+   phase 14's, and ``mesh_train_launches``, phase 15's), the card line
+   again, and the last line ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -323,6 +358,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5051,6 +5087,632 @@ def check_slice14(torch, dev, rt, hl, cs, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 15
+# Training over a mesh (``launch.train.run --mesh dev``) in MESH_RANKS gloo
+# ranks sharing the card, each model at full width with its depth cut:
+# the weights held by ``launch.shardings.param_specs``, the moments and
+# the gradient accumulator by ``zero1_specs`` (ZeRO-1/2). Every run is
+# held to the single-device run of the same ``launch.train.run`` (the
+# same seed, weights, batches and schedule) that rank 0 makes first.
+class MeshTrain(NamedTuple):
+    part: str
+    arch: str
+    layers: int            # of the configuration's, which keeps its widths
+    batch: int
+    seq: int
+    micro: int
+    steps: int
+    fsdp: bool             # the launcher splits the weights over "data" too
+    crash: int | None      # the elastic restart: from the checkpoint here
+    grad_rel: float        # the first step's gradients, norm-wise
+
+
+# The mesh against one device, both in bfloat16: each rank's products
+# cover 1 or 2 rows where one device's cover 2 or 4, so cuBLAS may pick
+# other kernels and round apart (one bfloat16 step is 2^-9 to 2^-8 of a
+# value). A loss averages ~2,000 such logits (rtol 2^-10); the 4 steps'
+# losses and grad norms drift no further than 2^-8. A dense gradient's
+# norm-wise error is a few roundings along its path (2^-6). The MoE's is
+# not: a router gradient sums gate terms that cancel, and the error of
+# the router reaches every leaf below it. phi3.5-moe's mesh (experts
+# split over both axes, the expert-parallel path) and one device agree
+# within 5.4e-6 on every leaf in float32 (``chip_mesh_f32.py``), and
+# read up to 0.060 apart in bfloat16 at 2 layers (the router; 0.035-0.042
+# elsewhere) and up to 0.0073 at the 1 layer run here (the token table):
+# 2^-5 holds that with room for another draw of the bfloat16 roundings.
+MESH_RANKS = 4
+MESH_TRAINS = (
+    MeshTrain("a", "internlm2-1.8b", 2, 4, 512, 2, 4, False, 2, 2.0 ** -6),
+    # 16 experts: 8 a rank on "model", each split once more on "data"; one
+    # layer, for the time gloo takes to gather the experts (PERF.md §5)
+    MeshTrain("b", "phi3.5-moe-42b-a6.6b", 1, 2, 1024, 1, 2, True, None,
+              2.0 ** -5),
+)
+MESH_MODEL = 2                  # (data 2, model 2); the restart (1, 4)
+MESH_LR = 3e-4
+MESH_LOSS_RTOL = 2.0 ** -10
+MESH_STEPS_RTOL = 2.0 ** -8
+MESH_COMPRESS_REL = 0.02        # tests/test_grad_compression.py's bar
+
+
+def _leaf_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in leaf_items(tree))
+
+
+def _held_check(sh, tree, specs, shapes, what: str, fails: list) -> int:
+    """The bytes this rank holds of ``tree``; each leaf must hold its
+    whole size over the product of the axis sizes of its spec."""
+    from repro_torch.models.sharding import spec_axes
+    from repro_torch.tree import leaves
+    for (path, t), spec, shape in zip(leaf_items(tree), leaves(specs),
+                                      leaves(shapes)):
+        ways = math.prod(sh.size(a) for a in spec_axes(spec))
+        want = math.prod(shape) * t.element_size() // ways
+        if t.numel() * t.element_size() != want:
+            fails.append(f"{what}{path}: {t.numel() * t.element_size()} B "
+                         f"held, the spec {spec} says {want}")
+    return _leaf_bytes(tree)
+
+
+@contextlib.contextmanager
+def _uncounted(traffic):
+    """Inside, the collectives a check makes are left out of ``traffic``."""
+    if traffic is None:
+        yield
+        return
+    saved = (traffic.bytes.copy(), traffic.calls.copy(),
+             traffic.seconds.copy(), traffic.round_trips,
+             traffic.round_trip_bytes)
+    try:
+        yield
+    finally:
+        (traffic.bytes, traffic.calls, traffic.seconds, traffic.round_trips,
+         traffic.round_trip_bytes) = saved
+
+
+def _spy_train(torch, train, rec: dict, first):
+    """Wrap ``train.make_train_step`` so that each step's loss, grad norm
+    and wall are kept in ``rec``, and ``first(cfg, opt_cfg, sh,
+    grad_specs, (loss, metrics, grads), params, opt)`` checks the first
+    step's gradients between its two halves (outside the step's wall and
+    its traffic); returns the original."""
+    real = train.make_train_step
+
+    def make(cfg, opt_cfg, sh, micro_batches=1, grad_specs=None):
+        step = real(cfg, opt_cfg, sh, micro_batches=micro_batches,
+                    grad_specs=grad_specs)
+        grads_of = step.compute_grads
+
+        def spied(params, opt, batch):
+            checks = []
+
+            def grads_then_check(p, b):
+                out = grads_of(p, b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _uncounted(sh.traffic):
+                    rec["first"] = first(cfg, opt_cfg, sh, grad_specs, out, p,
+                                         opt)
+                checks.append(time.perf_counter() - t0)
+                return out
+            if not rec.get("first"):
+                step.compute_grads = grads_then_check
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                params, opt, m = step(params, opt, batch)
+                loss = float(m["loss"])
+            finally:
+                step.compute_grads = grads_of
+            rec.setdefault("step_s", []).append(
+                time.perf_counter() - t0 - sum(checks))
+            rec.setdefault("losses", []).append(loss)
+            rec.setdefault("norms", []).append(float(m["grad_norm"]))
+            rec["sh"] = sh
+            return params, opt, m
+        return spied
+    train.make_train_step = make
+    return real
+
+
+MESH_REF = ROOT / "build" / "phase15_ref_grads.pt"
+
+
+def _ref_first(torch):
+    """The single-device run's first step: its loss and global norm, and
+    its gradients written to ``MESH_REF`` for the ranks to read."""
+    def first(cfg, opt_cfg, sh, grad_specs, grads, params, opt):
+        from repro_torch.optim import global_norm
+        loss, _, g = grads
+        torch.save({p: t.detach().cpu() for p, t in leaf_items(g)}, MESH_REF)
+        return {"loss": float(loss), "norm": float(global_norm(g))}
+    return first
+
+
+def _block_sums(torch, got, want) -> tuple:
+    """(sum of (got - want)^2, sum of want^2) in float64, some 2^24
+    elements at a time."""
+    d = w = 0.0
+    got = got.detach().reshape(got.shape[0] if got.dim() else 1, -1)
+    want = want.detach().reshape(got.shape)
+    rows = max(1, (1 << 24) // max(1, got.shape[1]))
+    for i in range(0, got.shape[0], rows):
+        a, b = got[i:i + rows].double(), want[i:i + rows].double()
+        d += float(((a - b) ** 2).sum())
+        w += float((b * b).sum())
+    return d, w
+
+
+def _mesh_first(torch, row, ref, fails):
+    """The mesh run's first step: the bytes this rank holds against the
+    specs; the global loss and norm against the single-device run's; each
+    gradient leaf's norm-wise error against the single device's, from
+    every rank's block of it (the blocks' sums added over the axes that
+    split them); and ZeRO-1's update (``_zero1_check``)."""
+    def first(cfg, opt_cfg, sh, zspecs, grads, params, opt):
+        import torch.distributed as tdist
+        from repro_torch import dist
+        from repro_torch.launch import shardings as shd
+        from repro_torch.models.sharding import local_slice, spec_axes
+        from repro_torch.optim import global_norm
+        from repro_torch.tree import leaves
+        loss, _, g = grads
+        shapes = shd.param_shapes(cfg)
+        if sh.stored != shd.param_specs(cfg, sh, row.fsdp):
+            fails.append(f"{row.arch} on the mesh: the launcher holds the "
+                         "weights by other specs than param_specs(fsdp="
+                         f"{row.fsdp})")
+        held = {
+            "params": _held_check(sh, params, sh.stored, shapes, "params",
+                                  fails),
+            "moments": _held_check(sh, opt.mu, zspecs, shapes, "mu", fails)
+            + _held_check(sh, opt.nu, zspecs, shapes, "nu", fails),
+            "accumulator": _held_check(sh, g, zspecs, shapes, "grads",
+                                       fails)}
+        if cfg.moe:
+            held["experts"] = sum(
+                t.numel() * t.element_size() for k, t in
+                params["layers"]["mlp"].items() if k in ("w_in", "w_gate",
+                                                         "w_out"))
+        out = {"held": held, "loss": float(loss), "grad": ("", 0.0),
+               "grads": {}, "norm": float(global_norm(g, sh, zspecs))}
+        out["norm_blocks"] = _norm_over_blocks(torch, sh, g, zspecs)
+        if out["norm"] != out["norm_blocks"]:
+            fails.append(f"{row.arch} on the mesh: the global norm "
+                         f"{out['norm']!r} is not the sum over the distinct "
+                         f"blocks {out['norm_blocks']!r}")
+        want_all = torch.load(MESH_REF, mmap=True)
+        for (path, t), spec in zip(leaf_items(g), leaves(zspecs)):
+            want = local_slice(want_all[path], spec, sh).to(t.device)
+            sums = torch.tensor(_block_sums(torch, t, want),
+                                dtype=torch.float64, device=t.device)
+            axes = tuple(a for a in sh.names if a in spec_axes(spec))
+            d, w = dist.sum_f64(sums, sh, axes).tolist()
+            share = (d / max(w, 1e-300)) ** 0.5 / row.grad_rel
+            out["grads"][path] = share
+            hold(fails, f"{row.arch} on the mesh: the first step's gradient "
+                 f"{path}", share)
+            if share >= out["grad"][1]:
+                out["grad"] = (path, share)
+            del want
+        del want_all
+        tdist.barrier()
+        if ref is not None:
+            out.update(ref_loss=ref["loss"], ref_norm=ref["norm"])
+            hold(fails, f"{row.arch} on the mesh: the first step's loss",
+                 abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+                 / MESH_LOSS_RTOL)
+            hold(fails, f"{row.arch} on the mesh: the first step's global "
+                 "norm", abs(out["norm"] - ref["norm"]) / ref["norm"]
+                 / MESH_STEPS_RTOL)
+        if not row.fsdp:
+            out["zero1"] = _zero1_check(torch, opt_cfg, sh, params, opt, g,
+                                        zspecs, fails, row)
+        return out
+    return first
+
+
+def _norm_over_blocks(torch, sh, g, specs) -> float:
+    """The global norm of gradient blocks another way: every rank's float64
+    partial sum of each leaf all-gathered, then each leaf's partials added
+    over one rank of each distinct block (the ranks at coordinate 0 on the
+    axes the leaf's spec leaves out)."""
+    from repro_torch.models.sharding import gather, rank_coords, spec_axes
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    parts = torch.stack([adamw._square_sum(t) for t in leaves(g)])
+    every = gather(parts[None], (tuple(sh.names),), sh)      # [world, leaves]
+    total = torch.zeros((), dtype=torch.float64, device=parts.device)
+    for j, spec in enumerate(leaves(specs)):
+        split = spec_axes(spec)
+        for r in range(every.shape[0]):
+            coords = rank_coords(r, sh.axis_sizes)
+            if all(coords[a] == 0 for a in sh.names if a not in split):
+                total = total + every[r, j]
+    return float(torch.sqrt(total.float()))
+
+
+ZERO1_LEAVES = ("/layers/", "/final_norm")     # the vocabulary's left out
+
+
+def _zero1_check(torch, opt_cfg, sh, params, opt, g, zspecs, fails,
+                 row) -> dict:
+    """The first step's AdamW on copies of this rank's blocks (ZeRO-1: the
+    parameter blocks, and the moment and gradient blocks split once more
+    over "data") against ``_update_leaf`` over the rank's whole parameter
+    block, with its moment and gradient blocks all-gathered over "data"
+    into that block and the same clipping: every parameter and moment
+    bit for bit, for the leaves under ``ZERO1_LEAVES``."""
+    from repro_torch.models.sharding import gather, local_slice
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, tree_map
+    out = {"leaves": 0, "differ": 0}
+    with torch.no_grad():
+        copy = lambda tree: tree_map(lambda t: t.detach().clone(), tree)
+        p1 = copy(params)
+        st1 = adamw.OptState(copy(opt.mu), copy(opt.nu), opt.step.clone())
+        _, _, m = adamw.adamw_update(opt_cfg, p1, g, st1, sh, sh.stored,
+                                     zspecs)
+        scale = adamw._clip_scale(m["grad_norm"], opt_cfg.clip_norm)
+        c = adamw._scalars(opt_cfg, int(opt.step) + 1,
+                           m["grad_norm"].device)
+        for (path, p), pspec, zspec, gt, mu, nu, p_new, mu_new, nu_new in \
+                zip(leaf_items(params), leaves(sh.stored), leaves(zspecs),
+                    leaves(g), leaves(opt.mu), leaves(opt.nu), leaves(p1),
+                    leaves(st1.mu), leaves(st1.nu)):
+            if not path.startswith(ZERO1_LEAVES):
+                continue
+            added = adamw._added_axis(pspec, zspec, sh)
+            if added is None:
+                continue
+            part = (None,) * added[0] + (added[1],)
+            want = [p.detach().clone()] + [gather(t, part, sh).clone()
+                                           for t in (gt, mu, nu)]
+            adamw._update_leaf(*want, scale, c)
+            out["leaves"] += 1
+            same = torch.equal(p_new, want[0]) and all(
+                torch.equal(a, local_slice(b, part, sh))
+                for a, b in ((mu_new, want[2]), (nu_new, want[3])))
+            if not same:
+                out["differ"] += 1
+                fails.append(f"{row.arch}: ZeRO-1's update of {path} "
+                             "differs from the same step over the rank's "
+                             "whole block")
+            del want
+        del p1, st1
+    return out
+
+
+def _hold_steps(fails, what, got, want) -> float:
+    share = max(abs(a - b) / abs(b) for a, b in zip(got, want)) \
+        / MESH_STEPS_RTOL
+    hold(fails, what, share)
+    return share
+
+
+def _mesh_train(torch, dev, row: MeshTrain, fails: list) -> dict:
+    """One row of ``MESH_TRAINS`` in this rank (see the module
+    docstring)."""
+    import dataclasses
+    import torch.distributed as tdist
+    from repro_torch import configs
+    from repro_torch.launch import train
+    rank0 = tdist.get_rank() == 0
+    real_get = configs.get
+    if "moe" in row.arch:
+        # capacity factor E / k: neither path drops a token, so the
+        # expert-parallel mesh and the dense single device compute alike
+        def no_drop(arch):
+            cfg = real_get(arch)
+            return cfg.with_(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        configs.get = no_drop
+    args = ["--arch", row.arch, "--layers", str(row.layers), "--batch",
+            str(row.batch), "--seq", str(row.seq), "--micro-batches",
+            str(row.micro), "--steps", str(row.steps), "--lr", str(MESH_LR),
+            "--log-every", "1000", "--device", str(dev)]
+    mesh = ["--mesh", "dev"]
+    out: dict = {}
+    ref = None
+    rec: dict = {}
+    real = _spy_train(torch, train, rec, _ref_first(torch))
+    try:
+        if rank0:           # the single-device run, the others waiting
+            _, out["ref_final_loss"] = train.run(args)
+            ref = {"loss": rec["first"]["loss"],
+                   "norm": rec["first"]["norm"], "losses": rec["losses"],
+                   "norms": rec["norms"]}
+            out["ref_step_s"] = rec["step_s"]
+            rec.clear()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+        train.make_train_step = real
+        _spy_train(torch, train, rec, _mesh_first(torch, row, ref, fails))
+        torch.cuda.reset_peak_memory_stats()
+        ck = _checkpoints(row, tdist)
+        writes: list = []
+        with _timed_writes(writes):
+            p, out["final_loss"] = train.run(
+                args + mesh + ["--mesh-model", str(MESH_MODEL)] + ck)
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out.update(first=rec["first"], losses=rec["losses"],
+                   step_s=rec["step_s"],
+                   traffic=rec["sh"].traffic.as_dict(),
+                   axes=dict(rec["sh"].axis_sizes), writes=writes)
+        if ref is not None:
+            out["losses_share"] = _hold_steps(
+                fails, f"{row.arch} on the mesh: the {row.steps} steps' "
+                "losses", rec["losses"], ref["losses"])
+            out["norms_share"] = _hold_steps(
+                fails, f"{row.arch} on the mesh: the {row.steps} steps' "
+                "grad norms", rec["norms"], ref["norms"])
+            out["ref_losses"] = ref["losses"]
+        del ref
+        torch.cuda.empty_cache()
+        if ck:
+            out["restart"] = _elastic(torch, train, row, args + mesh, rec,
+                                      out["losses"], p, fails)
+        del p
+    finally:
+        train.make_train_step = real
+        configs.get = real_get
+        if rank0:
+            MESH_REF.unlink(missing_ok=True)
+    return out
+
+
+MESH_CKPT = ROOT / "build" / "phase15_ckpt"
+
+
+def _checkpoints(row: MeshTrain, tdist) -> list:
+    """The straight run's checkpoint options where the row restarts: a
+    checkpoint every ``row.crash`` steps into a fresh ``MESH_CKPT``."""
+    if row.crash is None:
+        return []
+    if tdist.get_rank() == 0:
+        shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    tdist.barrier()
+    return ["--ckpt-dir", str(MESH_CKPT), "--ckpt-every", str(row.crash)]
+
+
+@contextlib.contextmanager
+def _timed_writes(writes: list):
+    """Inside, each checkpoint write's seconds and bytes go to
+    ``writes``."""
+    from repro_torch.ckpt import checkpoint
+    real_write = checkpoint._write
+
+    def timed_write(directory, step, flat, extra):
+        t0 = time.perf_counter()
+        path = real_write(directory, step, flat, extra)
+        writes.append((time.perf_counter() - t0, os.path.getsize(
+            os.path.join(path, "arrays.npz"))))
+        return path
+    checkpoint._write = timed_write
+    try:
+        yield
+    finally:
+        checkpoint._write = real_write
+
+
+def _elastic(torch, train, row, args, rec, straight, params, fails
+             ) -> dict:
+    """The elastic restart: the straight run's checkpoint at ``row.crash``
+    on (data 2, model 2) (the later ones removed), resumed on (data 1,
+    model 4) to the end; its losses and its final parameters (whole, as
+    ``launch.train.run`` returns them) against the straight run's
+    ``params``, every leaf norm-wise (a random model's loss barely
+    depends on its weights, so the losses alone would miss a wrong
+    block)."""
+    import torch.distributed as tdist
+    if tdist.get_rank() == 0:
+        for d in MESH_CKPT.glob("step_*"):
+            if int(d.name.split("_")[1].split(".")[0]) > row.crash:
+                shutil.rmtree(d)
+    tdist.barrier()
+    out = {}
+    try:
+        rec.clear()
+        rec["first"] = {"skipped": True}
+        t0 = time.perf_counter()
+        p, loss = train.run(args + ["--mesh-model", str(MESH_RANKS),
+                                    "--ckpt-dir", str(MESH_CKPT)])
+        out["resume_s"] = time.perf_counter() - t0
+        out["axes"] = dict(rec["sh"].axis_sizes)
+        out["losses"] = rec["losses"]
+        out["share"] = _hold_steps(
+            fails, f"{row.arch}: the elastic restart's losses on "
+            f"{out['axes']}", rec["losses"], straight[row.crash:])
+        want = dict(leaf_items(params))
+        shares = {}
+        for path, t in leaf_items(p):
+            d, w = _block_sums(torch, t, want[path])
+            shares[path] = (d / max(w, 1e-300)) ** 0.5 / MESH_STEPS_RTOL
+            hold(fails, f"{row.arch}: the elastic restart's final {path}",
+                 shares[path])
+        out["params"] = max(shares.items(), key=lambda kv: kv[1])
+        del p
+    finally:
+        tdist.barrier()
+        if tdist.get_rank() == 0:
+            shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    return out
+
+
+def _mesh_compress(torch, dev, fails) -> dict:
+    """Phase 15 (c): ``compressed_psum_spec`` over the 2-rank ``"pod"`` axis
+    of a (pod 2, model 2) mesh, on internlm2-1.8b's layer shapes at full
+    width, each pod's gradients at another magnitude: within
+    ``MESH_COMPRESS_REL`` of the exact all-reduce, deterministic and
+    stochastic, and each rank's int8 blocks and scales equal to
+    ``compress_int8`` of the same gradients on the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs, dist
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import compress
+    sh = ShardCtx.from_mesh(init_device_mesh("cpu", (2, 2),
+                                             mesh_dim_names=("pod", "model")))
+    pod = sh.coord("pod")
+    shapes = shd.param_shapes(configs.get("internlm2-1.8b").with_(
+        n_layers=1))["layers"]
+    gen = torch.Generator(device=dev).manual_seed(100 + pod)
+    grads = {k: {n: torch.randn(s, generator=gen, device=dev)
+                 * (1e-3 * (1 + 2 * pod)) for n, s in v.items()}
+             for k, v in shapes.items()}
+    blocks = []
+    real = compress.compress_int8
+
+    def spy(x, g=None):
+        q = real(x, g)
+        if g is None:
+            blocks.append((x, q))
+        return q
+    compress.compress_int8 = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = compress.compressed_psum_spec(grads, sh, "pod")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        sto = compress.compressed_psum_spec(
+            grads, sh, "pod",
+            torch.Generator(device=dev).manual_seed(7 + sh.coord("model")))
+    finally:
+        compress.compress_int8 = real
+    out = {"wall_ms": ms, "traffic": sh.traffic.as_dict(), "elements": sum(
+        t.numel() for _, t in leaf_items(grads))}
+    for name, got in (("deterministic", det), ("stochastic", sto)):
+        worst = 0.0
+        for (path, g), (_, s) in zip(leaf_items(grads), leaf_items(got)):
+            exact = dist.all_reduce(g, sh, "pod")
+            worst = max(worst, float((s - exact).abs().max()
+                                     / exact.abs().max()))
+        out[name] = hold(fails, f"compressed_psum_spec ({name})",
+                         worst / MESH_COMPRESS_REL)
+    same = all(torch.equal(q[0].cpu(), c[0]) and torch.equal(q[1].cpu(), c[1])
+               for x, q in blocks for c in [real(x.cpu())])
+    if not same:
+        fails.append("compressed_psum_spec: the card's int8 blocks differ "
+                     "from compress_int8 on the CPU")
+    out["blocks_equal"] = same
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, parts: str) -> dict:
+    """One rank of phase 15 (``launch.mesh.run_ranks``): the rows of
+    ``MESH_TRAINS`` and (c) that ``parts`` names."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from repro_torch.kernels import (chunk_step, decode_attention,
+                                     flash_attention, hmmu_lookup, rwkv_scan)
+    fails: list = []
+    out = {"rank": rank, "fails": fails, "runs": {}}
+    for row in MESH_TRAINS:
+        if row.part in parts:
+            out["runs"][row.part] = _mesh_train(torch, dev, row, fails)
+            torch.cuda.empty_cache()
+    if "c" in parts:
+        out["compress"] = _mesh_compress(torch, dev, fails)
+    out["launches"] = {m.KERNEL.name: m.KERNEL.launches for m in (
+        hmmu_lookup, chunk_step, flash_attention, decode_attention,
+        rwkv_scan)}
+    return out
+
+
+def _gb(b) -> str:
+    return f"{b / 1e9:.3f} GB"
+
+
+def check_mesh_train(torch, card: str, parts: str = "abc") -> dict:
+    """Phase 15: ``MESH_RANKS`` gloo ranks on the card run ``parts`` (see
+    the module docstring); raises once, naming each check that failed.
+    Returns the kernels' launches summed over the ranks."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import run_ranks
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    res = run_ranks(mesh_train_rank, MESH_RANKS, (parts,), timeout_s=1200,
+                    work_dir=ROOT / "build")
+    print(f"  {MESH_RANKS} ranks, {time.perf_counter() - t0:.1f} s with "
+          "their start", flush=True)
+    fails = [f"rank {r['rank']}: {f}" for r in res for f in r["fails"]]
+    for row in MESH_TRAINS:
+        if row.part not in parts:
+            continue
+        full = configs.get(row.arch).n_layers
+        print(f"  ({row.part}) {row.arch}: {row.layers} of {full} layers at "
+              f"full width, batch {row.batch} x {row.seq} in {row.micro} "
+              f"micro-batch(es), {row.steps} steps, data "
+              f"{MESH_RANKS // MESH_MODEL} x model {MESH_MODEL}"
+              + (", the weights split over data too (fsdp)" if row.fsdp
+                 else "") + f" [{card}]", flush=True)
+        r0 = res[0]["runs"][row.part]
+        print(f"    single device (rank 0): losses {_fmt(r0['ref_losses'])}"
+              f", a step {_fmt(r0['ref_step_s'])} s", flush=True)
+        print(f"    mesh: losses {_fmt(r0['losses'])} (share of rtol "
+              f"{MESH_STEPS_RTOL:g}: {r0['losses_share']:.3f}; grad norms "
+              f"{r0['norms_share']:.3f}); first step's loss "
+              f"{r0['first']['loss']:.6f} vs {r0['first']['ref_loss']:.6f}"
+              f", largest gradient share of {row.grad_rel:g}: "
+              f"{r0['first']['grad'][1]:.3f} ({r0['first']['grad'][0]})",
+              flush=True)
+        for r in res:
+            m = r["runs"][row.part]
+            t = m["traffic"]
+            held = ", ".join(f"{k} {_gb(v)}" for k, v in
+                             m["first"]["held"].items())
+            print(f"    rank {r['rank']}: holds {held}; peak "
+                  f"{_gb(m['peak'])}; a step {_fmt(m['step_s'])} s; over "
+                  f"the run, bytes a collective {t['bytes']} in "
+                  f"{t['calls']} calls taking {_fmt(t['seconds'])} s; host "
+                  f"round trips {t['round_trips']} moving "
+                  f"{t['round_trip_bytes']} B", flush=True)
+        f = r0["first"]
+        z = f.get("zero1")
+        print(f"    the first step's global norm {f['norm']!r} (over the "
+              f"distinct blocks {f['norm_blocks']!r}; one device "
+              f"{f['ref_norm']!r})" + (
+                  f"; ZeRO-1: the update of {z['leaves']} leaves a rank, "
+                  "gathered back, bitwise equal to the same step over the "
+                  f"rank's whole blocks in {z['leaves'] - z['differ']}"
+                  if z else ""), flush=True)
+        if "restart" in r0:
+            e = r0["restart"]
+            print(f"    elastic restart: checkpoint at {row.crash} on "
+                  f"{r0['axes']} (writes of " + ", ".join(
+                      f"{_gb(b)} in {t:.1f} s" for t, b in r0["writes"])
+                  + f"), resumed on {e['axes']} in "
+                  f"{e['resume_s']:.1f} s: losses {_fmt(e['losses'])} vs "
+                  f"{_fmt(r0['losses'][row.crash:])} (share {e['share']:.3f}"
+                  f"); its final parameters at most {e['params'][1]:.3f} of "
+                  f"{MESH_STEPS_RTOL:g} from the straight run's "
+                  f"({e['params'][0]})", flush=True)
+    if "c" in parts:
+        for r in res:
+            c = r["compress"]
+            print(f"    (c) rank {r['rank']}: compressed_psum_spec over "
+                  f"'pod' of {c['elements']} elements in "
+                  f"{c['wall_ms']:.1f} ms; error as a share of "
+                  f"{MESH_COMPRESS_REL}: deterministic "
+                  f"{c['deterministic']:.3f}, stochastic "
+                  f"{c['stochastic']:.3f}; int8 blocks equal to the CPU's: "
+                  f"{c['blocks_equal']}; {c['traffic']['bytes']} B, "
+                  f"{c['traffic']['round_trips']} host round trips "
+                  f"[{card}]", flush=True)
+    launches: dict = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"  the ranks' kernel launches: {launches}", flush=True)
+    if fails:
+        raise Mismatch("training over a mesh: FAILED: " + "; ".join(fails))
+    return launches
+
+
 def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
     """Device milliseconds per call of ``fn``: CUDA events around a run of
     calls after one warm-up call, as many calls as fit ``budget_ms``
@@ -5416,11 +6078,11 @@ def check_rwkv_split(torch, rw, case, events_ms: float) -> None:
                        f"{total:.4f} ms, the launch takes {events_ms:.4f} ms")
 
 
-def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict
-                      ) -> list:
+def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict,
+                      mesh_train_launches: dict) -> list:
     """One ``kernels`` entry per model kernel: the times of its first case
     (the main shape), the largest error over its cases, and its launches
-    over phase 12's training steps and phase 14."""
+    over phase 12's training steps, phase 14 and phase 15."""
     meta = {
         "flash_attention": "src/repro/kernels/flash_attention.py:111",
         "decode_attention": "src/repro/kernels/decode_attention.py:100",
@@ -5436,6 +6098,7 @@ def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict
             "replaces": replaces, "launches": m6["counts"][name],
             "train_launches": train_launches[name],
             "mesh_launches": mesh_launches.get(name, 0),
+            "mesh_train_launches": mesh_train_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in res), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
@@ -5565,7 +6228,14 @@ def main() -> int:
         print(f"    phase 14 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        print("[15] per-kernel numbers", flush=True)
+        print(f"[15] training over a mesh: {MESH_RANKS} gloo ranks on "
+              f"{dev} ({card})", flush=True)
+        t0 = time.perf_counter()
+        s15 = check_mesh_train(torch, card)
+        print(f"    phase 15 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        print("[16] per-kernel numbers", flush=True)
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -5582,6 +6252,7 @@ def main() -> int:
              "example_launches": s13["examples"]["hmmu_lookup"],
              "train_launches": s12["launches"]["hmmu_lookup"],
              "mesh_launches": s14["hmmu_lookup"],
+             "mesh_train_launches": s15["hmmu_lookup"],
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -5599,10 +6270,11 @@ def main() -> int:
              "example_launches": s13["examples"]["chunk_step"],
              "train_launches": s12["launches"]["chunk_step"],
              "mesh_launches": s14["chunk_step"],
+             "mesh_train_launches": s15["chunk_step"],
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
-            *model_kernel_rows(m6, s12["launches"], s14),
+            *model_kernel_rows(m6, s12["launches"], s14, s15),
         ]
         print(f"    kernel A's fused entry alone at B=1 x {CHUNK + 2} rows: "
               f"{k_ms * 1e3:.2f} us; the script took "

@@ -1,9 +1,14 @@
 """The collectives of the port's sharded model paths, in one place.
 
-Every cross-rank exchange of ``models/`` goes through the four functions
-here: ``all_gather`` (backward: a reduce-scatter), ``all_to_all`` (its own
-adjoint), ``all_reduce`` (``"sum"``, its own adjoint; ``"max"``, no
-gradient) and ``mean_over``. Each runs over the named axes of a
+Every cross-rank exchange of ``models/`` and of training over a mesh
+goes through the functions here: ``all_gather`` (backward: a
+reduce-scatter), ``all_to_all`` (its own adjoint), ``all_reduce``
+(``"sum"``, its own adjoint; ``"max"``, no gradient), ``mean_over``, and
+three without a gradient for the optimizer's and the checkpoint's side:
+``reduce_scatter`` (a gradient summed and split along a chosen
+dimension, ZeRO-2), ``sum_f64`` (the global norm's float64 partial sums)
+and ``gather_to_root`` (every rank's block in rank 0's host memory, for
+a checkpoint). Each but the last runs over the named axes of a
 ``models.ShardCtx``'s ``DeviceMesh``, on the functional collectives of
 ``torch.distributed._functional_collectives``. They are written as
 ``torch.autograd.Function``s rather than through that module's autograd
@@ -23,6 +28,7 @@ and its bytes.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter
 
 import torch
@@ -34,17 +40,24 @@ import torch.distributed._functional_collectives as fc
 # one H100): the functional all-reduce (sum and max), reduce-scatter and
 # all-to-all carry CUDA tensors and return the right values; the
 # functional all-gather stops the process (SIGSEGV), along either dim.
-HOST_TRANSPORT = frozenset({("gloo", "all_gather")})
+# Read again with four ranks (torch 2.11): the all-reduce of float64
+# (``sum_f64``) and the reduce-scatter along dimension 1 carry CUDA
+# tensors too. Gloo's ``dist.gather`` takes host tensors only (PyTorch's
+# table of the backends' collectives); NCCL's takes CUDA tensors.
+HOST_TRANSPORT = frozenset({("gloo", "all_gather"), ("gloo", "gather")})
 
 
 class Traffic:
     """What the collectives moved on this rank: ``bytes`` and ``calls`` by
-    collective (a backward's own collective under its own name), and the
-    host round trips with the bytes they copied (both ways)."""
+    collective (a backward's own collective under its own name), the host
+    wall ``seconds`` each took until its result was ready (gloo blocks the
+    host; NCCL's is the enqueue), and the host round trips with the bytes
+    they copied (both ways)."""
 
     def __init__(self):
         self.bytes: Counter = Counter()
         self.calls: Counter = Counter()
+        self.seconds: Counter = Counter()
         self.round_trips = 0
         self.round_trip_bytes = 0
 
@@ -53,6 +66,7 @@ class Traffic:
 
     def as_dict(self) -> dict:
         return {"bytes": dict(self.bytes), "calls": dict(self.calls),
+                "seconds": dict(self.seconds),
                 "round_trips": self.round_trips,
                 "round_trip_bytes": self.round_trip_bytes}
 
@@ -71,12 +85,16 @@ def _transport(name: str, x: torch.Tensor, group, traffic: Traffic, run):
     x = x.contiguous()
     traffic.calls[name] += 1
     traffic.bytes[name] += _nbytes(x)
+    t0 = time.perf_counter()
     if x.is_cuda and (dist.get_backend(group), name) in HOST_TRANSPORT:
         out = _wait(run(x.cpu()))
         traffic.round_trips += 1
         traffic.round_trip_bytes += _nbytes(x) + _nbytes(out)
-        return out.to(x.device)
-    return _wait(run(x))
+        out = out.to(x.device)
+    else:
+        out = _wait(run(x))
+    traffic.seconds[name] += time.perf_counter() - t0
+    return out
 
 
 # ``all_gather_tensor`` and ``reduce_scatter_tensor``, renamed
@@ -101,8 +119,8 @@ def _a2a(x, group, traffic):
                       lambda t: fc.all_to_all_single(t, None, None, group))
 
 
-def _reduce(x, op, group, traffic):
-    return _transport("all_reduce", x, group, traffic,
+def _reduce(x, op, group, traffic, name="all_reduce"):
+    return _transport(name, x, group, traffic,
                       lambda t: fc.all_reduce(t, op, group))
 
 
@@ -180,6 +198,52 @@ def all_reduce(x: torch.Tensor, sh, axes, op: str = "sum") -> torch.Tensor:
         else:
             x = _reduce(x, op, sh.group(a), sh.traffic)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, sh, axis: str
+                   ) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` and split along ``dim`` into
+    ``size(axis)`` blocks, this rank keeping the block at its coordinate
+    (no gradient)."""
+    if not _split(sh, axis):
+        return x
+    return _scatter(x, dim, sh.group(axis), sh.traffic)
+
+
+def sum_f64(x: torch.Tensor, sh, axes) -> torch.Tensor:
+    """A float64 ``x`` summed over every rank of ``axes`` (no gradient),
+    counted as ``"all_reduce_f64"``."""
+    if x.dtype != torch.float64:
+        raise TypeError(f"sum_f64 takes float64, not {x.dtype}")
+    for a in _axes(sh, axes):
+        x = _reduce(x, "sum", sh.group(a), sh.traffic, "all_reduce_f64")
+    return x
+
+
+def gather_to_root(x: torch.Tensor, sh) -> list | None:
+    """Every rank's ``x`` (equal shapes) as host tensors on rank 0, in rank
+    order, over the whole mesh; None on the other ranks. Where
+    ``HOST_TRANSPORT`` says so for a CUDA ``x`` (gloo), each rank copies
+    it to the host first, counted as a round trip; otherwise (NCCL) the
+    blocks meet on rank 0's card and only rank 0 copies them to the
+    host."""
+    t = x.detach().contiguous()
+    traffic = sh.traffic
+    traffic.calls["gather"] += 1
+    traffic.bytes["gather"] += _nbytes(t)
+    t0 = time.perf_counter()
+    if t.is_cuda and (dist.get_backend(), "gather") in HOST_TRANSPORT:
+        t = t.cpu()
+        traffic.round_trips += 1
+        traffic.round_trip_bytes += _nbytes(t)
+    root = dist.get_rank() == 0
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())] \
+        if root else None
+    dist.gather(t, out, dst=0)
+    if root and t.is_cuda:
+        out = [b.cpu() for b in out]
+    traffic.seconds["gather"] += time.perf_counter() - t0
+    return out
 
 
 def mean_over(x: torch.Tensor, sh, axes) -> torch.Tensor:

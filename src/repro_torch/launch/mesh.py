@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import pathlib
+import pickle
 import shutil
 import tempfile
 import time
@@ -96,9 +97,11 @@ def init_rank(rank: int, world: int, *, backend: str = "gloo",
     dist.init_process_group(**kw)
 
 
-def _rank_main(rank, fn, world, args, backend, store_path, out_dir):
+def _rank_main(rank, fn, world, backend, store_path, out_dir):
     init_rank(rank, world, backend=backend, store_path=store_path)
     try:
+        with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
+            args = pickle.load(f)
         result = fn(rank, world, *args)
         dist.barrier()
     except BaseException:
@@ -117,7 +120,9 @@ def run_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     """Run ``fn(rank, world, *args)`` in ``world`` processes (the ``spawn``
     start method), each joined to one process group over a ``FileStore``
     in a fresh directory, and return each rank's result (saved with
-    ``torch.save``), in rank order. ``fn`` must be importable by name.
+    ``torch.save``), in rank order. ``fn`` must be importable by name;
+    ``args`` reach the ranks through a file in that directory (the spawn
+    pipe takes seconds for a few hundred kilobytes).
     A rank that fails raises here; ranks still running after
     ``timeout_s`` are killed and ``TimeoutError`` is raised, so a hung
     collective ends the call. Under ``torchrun``, call ``init_rank``
@@ -125,10 +130,11 @@ def run_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     import torch.multiprocessing as mp
     work = pathlib.Path(tempfile.mkdtemp(prefix="ranks_", dir=work_dir))
     store = str(work / "store")
+    with open(work / "args.pkl", "wb") as f:
+        pickle.dump(tuple(args), f)
     ctx = mp.start_processes(_rank_main, nprocs=world, join=False,
                              start_method="spawn",
-                             args=(fn, world, args, backend, store,
-                                   str(work)))
+                             args=(fn, world, backend, store, str(work)))
     deadline = time.monotonic() + timeout_s
     try:
         try:

@@ -2,12 +2,12 @@
 with gradient accumulation over micro-batches, and the prefill and decode
 steps the serving launcher runs.
 
-The prefill and decode steps take any ``ShardCtx``: on a mesh they run
-the models' sharded paths (each rank its batch rows and its slice of the
-cache). The training step runs on one device: training over a mesh (the
-reference's ZeRO ``grad_specs``, the weights' specs, compressed
-reductions) is ROADMAP §1's next item, and a context with a mesh
-raises.
+Every step takes any ``ShardCtx``. On a mesh the prefill and decode steps
+run the models' sharded paths (each rank its batch rows and its slice of
+the cache), and the training step trains over the mesh: the parameters
+held as the context's stored specs say (``ShardCtx.with_stored``,
+``launch.shardings.param_specs``), the gradients reduced to
+``grad_specs``'s layout (ZeRO-2) and the moments held in it (ZeRO-1).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from ..models import ModelConfig, ShardCtx, decode_step, loss_fn, prefill
 from ..models import layers
+from ..models.transformer import reduce_grads, stored_specs
 from ..optim import AdamWConfig, adamw_update
 from ..tree import leaves as tree_leaves, tree_map
 
@@ -27,28 +28,47 @@ def _rebuild(tree, values):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, sh: ShardCtx,
-                    micro_batches: int = 1):
+                    micro_batches: int = 1, grad_specs=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: the loss's gradients (in each parameter's
     dtype at one micro-batch; summed in float32 over ``micro_batches``
     and scaled by their inverse), then one AdamW step, parameters and
     moments updated in place. Forward and backward sum bfloat16 products
     in float32 (``layers.fp32_sums``). metrics: loss (the micro-batches'
-    mean), the last micro-batch's ce and aux, lr and grad_norm."""
-    if sh.mesh is not None:
-        raise NotImplementedError(
-            "make_train_step on a mesh: training over a mesh (weight "
-            "specs, ZeRO-1/2, compressed reductions) is the next item of "
-            "ROADMAP §1; models.loss_fn and models.reduce_grads give a "
-            "sharded gradient")
+    mean), the last micro-batch's ce and aux, lr and grad_norm.
+
+    On a mesh (``ShardCtx.from_mesh``) ``params`` are this rank's blocks
+    under ``sh``'s stored specs (without them, the whole weights as
+    ``models.shard_params`` gives them), and ``batch`` is the global
+    batch: each micro-batch is split over the batch axes, as the
+    reference's ``pjit`` splits it. Each micro-batch's gradients are
+    reduced to the global loss's (``models.reduce_grads``) in
+    ``grad_specs``'s layout (the ZeRO-1 specs: reduce-scattered over
+    ``"data"``, ZeRO-2; None: the parameters' layout) and accumulated at
+    that size; the moments are held in that layout too, and AdamW updates
+    the parameters from them (``optim.adamw_update``).
+    ``train_step.compute_grads(params, batch)`` is the first half alone,
+    (loss, metrics, gradients in that layout), which each step calls
+    through that attribute."""
+    mesh = sh.mesh is not None
+
+    def rows(batch):
+        if not mesh:
+            return batch
+        r = sh.batch_rows(next(iter(batch.values())).shape[0])
+        return {k: v[r] for k, v in batch.items()}
 
     def grads_of(params, leaves, batch):
-        loss, metrics = loss_fn(cfg, params, batch, sh)
+        loss, metrics = loss_fn(cfg, params, rows(batch), sh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
+        if mesh:
+            grads = tree_leaves(reduce_grads(cfg, _rebuild(params, grads),
+                                             sh, grad_specs))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
+    @layers.fp32_accumulation
     def compute_grads(params, batch):
         leaves = tree_leaves(params)
         for p in leaves:
@@ -57,12 +77,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, sh: ShardCtx,
             loss, metrics, grads = grads_of(params, leaves, batch)
             return loss, metrics, _rebuild(params, grads)
         n = next(iter(batch.values())).shape[0] // micro_batches
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+        acc = None
         loss_sum = None
         for i in range(micro_batches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             loss, metrics, grads = grads_of(params, leaves, mb)
+            if acc is None:
+                acc = [torch.zeros(g.shape, dtype=torch.float32,
+                                   device=g.device) for g in grads]
             for a, g in zip(acc, grads):
                 a.add_(g.float())
             del grads
@@ -73,12 +95,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, sh: ShardCtx,
         return loss_sum * inv, metrics, _rebuild(params, acc)
 
     def train_step(params, opt_state, batch):
-        with layers.fp32_sums():
-            loss, metrics, grads = compute_grads(params, batch)
-        params, opt_state, om = adamw_update(opt_cfg, params, grads,
-                                             opt_state)
+        loss, metrics, grads = train_step.compute_grads(params, batch)
+        if mesh:
+            pspecs = stored_specs(cfg, sh, params)
+            params, opt_state, om = adamw_update(
+                opt_cfg, params, grads, opt_state, sh, pspecs,
+                pspecs if grad_specs is None else grad_specs)
+        else:
+            params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                                 opt_state)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
+    train_step.compute_grads = compute_grads
     return train_step
 
 

@@ -8,7 +8,9 @@ training objective, whose backward is autograd's over the same layers
 (``chunked_attention`` has the reference's blocked backward). On a
 ``torch.distributed`` mesh (``ShardCtx.from_mesh``) the same entry points
 run SPMD: context-parallel attention, the expert-parallel MoE and the
-decode combine over a sequence-split cache (``sharding``)."""
+decode combine over a sequence-split cache (``sharding``); for training,
+the parameters held as the reference's specs say and gathered where
+each layer uses them (``ShardCtx.with_stored``)."""
 from .config import ModelConfig, MoEConfig, MLAConfig, SSMConfig
 from .sharding import ShardCtx
 from .transformer import (init_params, forward_seq, loss_fn, prefill,

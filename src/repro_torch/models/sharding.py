@@ -15,8 +15,10 @@ values):
 * the batch is split over ``("pod", "data")``: every entry point takes
   the rank's own rows (``batch_rows``), and the batch must divide those
   axes;
-* the residual stream and the dense weights are replicated over
-  ``"model"``. The reference also places the residual's sequence, the
+* the residual stream is replicated over ``"model"``, and so is every
+  dense weight where the model computes with it (training stores the
+  weights by the reference's specs and gathers each where it is used:
+  see below). The reference also places the residual's sequence, the
   attention heads and the FFN's hidden axis on ``"model"``
   (``act_btd``, ``act_bhsd``, ``constrain``): that is placement chosen by
   ``pjit`` and changes no value, so here those stay identities. A
@@ -30,10 +32,27 @@ values):
   ``"model"`` (``decode.dist_decode``; ``cache_slot`` places a row);
 * ``transformer.loss_fn`` is the mean over every rank's tokens, and
   ``transformer.reduce_grads`` turns each rank's gradients into the global loss's.
+
+**Stored layouts** (training over a mesh). A spec is a tuple with one
+entry a dimension, the reference's ``PartitionSpec`` entry for entry:
+None, an axis name, or a tuple of names (the major axis first); a spec
+shorter than its tensor leaves the trailing dimensions whole.
+``local_slice`` is a rank's block of a tensor under a spec
+(``block_index`` its slices),
+``shard_tree`` / ``gather_tree`` a tree's blocks and whole leaves again
+(``launch.shardings`` re-exports both), and ``gather`` the all-gather of
+one block back to the whole, with a reduce-scatter as its gradient. A
+context ``with_stored(specs)`` tells the model that its parameters are
+held that way: each layer gathers its leaves where it uses them
+(``transformer``'s one rule says which entries), and without stored specs
+the parameters are the whole weights (the expert weights of the
+expert-parallel MoE the rank's own), as above.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +63,8 @@ class ShardCtx:
                                      repr=False)       # a DeviceMesh
     traffic: object = dataclasses.field(default=None, compare=False,
                                         repr=False)    # a dist.Traffic
+    stored: object = dataclasses.field(default=None, compare=False,
+                                       repr=False)     # the params' specs
 
     @staticmethod
     def from_mesh(mesh, seq_shard: bool = True) -> "ShardCtx":
@@ -52,6 +73,21 @@ class ShardCtx:
         from ..dist import Traffic
         return ShardCtx(tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
                         seq_shard=seq_shard, mesh=mesh, traffic=Traffic())
+
+    def with_stored(self, specs) -> "ShardCtx":
+        """This context, with the parameters held as ``specs`` (a tree of
+        specs in the parameters' structure) say."""
+        return dataclasses.replace(self, stored=specs)
+
+    def spec(self, path: tuple) -> tuple:
+        """The stored spec of the parameter at ``path`` (keys from the
+        root), ``()`` (whole) without stored specs."""
+        s = self.stored
+        if s is None:
+            return ()
+        for k in path:
+            s = s[k]
+        return s
 
     # --- the reference's queries ---------------------------------------------
     @property
@@ -155,3 +191,104 @@ class ShardCtx:
             return pos
         local = pos - self.coord("model") * size
         return local.masked_fill((local < 0) | (local >= size), size)
+
+
+# --------------------------------------------------------------------------- #
+# stored layouts
+# --------------------------------------------------------------------------- #
+
+def entry_axes(entry) -> tuple:
+    """The axes of one spec entry, the major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> tuple:
+    """Every axis a spec names."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def rank_coords(rank: int, axis_sizes) -> dict:
+    """Rank ``rank``'s coordinate on each axis of a mesh of ``axis_sizes``
+    (``(name, size)`` pairs in mesh order) that lays the ranks out in row
+    major order, as ``init_device_mesh`` does."""
+    coords = {}
+    for name, size in reversed([tuple(p) for p in axis_sizes]):
+        coords[name] = rank % size
+        rank //= size
+    return coords
+
+
+def block_index(shape, spec, sh: ShardCtx, coords: dict | None = None
+                ) -> tuple:
+    """The block of a ``shape`` tensor that ``spec`` gives the rank at
+    ``coords`` (by default ``sh``'s own) on ``sh``'s axis sizes: one slice
+    a dimension. A dimension that does not divide its axes raises."""
+    if coords is None:
+        coords = {a: sh.coord(a) for a in sh.names}
+    index = [slice(0, n) for n in shape]
+    for dim, entry in enumerate(spec):
+        n, i = 1, 0
+        for a in entry_axes(entry):
+            n *= sh.size(a)
+            i = i * sh.size(a) + coords.get(a, 0)
+        if n == 1:
+            continue
+        if shape[dim] % n:
+            raise ValueError(f"dimension {dim} of a {tuple(shape)} tensor "
+                             f"does not split {n} ways ({entry!r})")
+        m = shape[dim] // n
+        index[dim] = slice(i * m, (i + 1) * m)
+    return tuple(index)
+
+
+def local_slice(t: torch.Tensor, spec, sh: ShardCtx,
+                coords: dict | None = None) -> torch.Tensor:
+    """The block of ``t`` that ``spec`` gives the rank at ``coords`` (by
+    default ``sh``'s own): a view (``block_index``)."""
+    return t[block_index(t.shape, spec, sh, coords)]
+
+
+def gather(t: torch.Tensor, spec, sh: ShardCtx) -> torch.Tensor:
+    """The whole tensor from each rank's block under ``spec``: all-gathered
+    over each axis of each entry, the minor axis first (with its gradient,
+    a reduce-scatter back to the block)."""
+    from .. import dist
+    for dim, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            t = dist.all_gather(t, dim, sh, a)
+    return t
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (dicts, NamedTuples, tuples, lists)
+    and its specs, which follow the tree's structure down to its
+    leaves."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, v, s)
+                            for v, s in zip(tree, specs)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_specs(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, sh: ShardCtx):
+    """This rank's block of every leaf of ``tree`` under ``specs``, copied
+    so that the whole can be freed; a leaf that no axis splits is returned
+    as it is."""
+    def one(t, spec):
+        block = local_slice(t, spec, sh)
+        if block.shape == t.shape:
+            return t
+        return block.clone(memory_format=torch.contiguous_format)
+    return map_specs(one, tree, specs)
+
+
+@torch.no_grad()
+def gather_tree(tree, specs, sh: ShardCtx):
+    """Every leaf of ``tree``, held as ``specs`` say, whole again (on every
+    rank)."""
+    return map_specs(lambda t, spec: gather(t, spec, sh), tree, specs)

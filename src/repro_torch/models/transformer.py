@@ -36,9 +36,20 @@ split on its sequence axis over ``"model"``, which ``decode_step`` writes
 only where the rank holds the row; ``loss_fn`` is the mean over every
 rank's tokens, and ``reduce_grads`` makes each rank's gradients those of
 that global loss.
+
+Training over a mesh stores the parameters by the reference's specs
+(``ShardCtx.with_stored``, ``launch.shardings.param_specs``): each layer
+all-gathers its leaves inside ``_seq_block`` (so inside the checkpointed
+``_train_block``: the backward's recompute gathers again, and no layer's
+whole weights outlive it), ``_embed`` the token table and ``_head`` what
+``lm_logits`` reads. ``use_spec`` is the one rule for which stored
+entries are gathered. The gathers' backward reduce-scatters each
+gradient into its block, and ``reduce_grads`` sums it over the axes its
+block is replicated on.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -46,11 +57,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import dist
 from ..device import resolve_device
+from ..tree import tree_map
 from . import layers, mamba as mamba_lib, mla as mla_lib, moe as moe_lib
 from . import rwkv as rwkv_lib
 from .config import ModelConfig
 from .decode import dist_decode
-from .sharding import ShardCtx
+from .sharding import (ShardCtx, block_index, entry_axes, gather,
+                       map_specs, shard_tree, spec_axes)
 
 FAMILIES = ("gqa", "mla", "rwkv6", "hymba")
 
@@ -77,15 +90,29 @@ def _layer(params: dict, l: int) -> dict:
 # parameter init
 # --------------------------------------------------------------------------- #
 
-def _dense(gen: torch.Generator, shape, dtype, device, scale=0.02):
+def _dense(gen: torch.Generator, shape, dtype, device, scale=0.02,
+           index=None):
     """N(0, scale^2) drawn in float32 and cast, one matrix (the last two
     axes) at a time for stacked weights: a layer's float32 draw at a
-    time, or an expert's for ``[L, E, ...]``."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    rows = out.reshape(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
-    for row in rows:
-        row.copy_(torch.randn(row.shape, generator=gen, device=device,
-                              dtype=torch.float32) * scale)
+    time, or an expert's for ``[L, E, ...]``. On the ``meta`` device, the
+    shape alone. ``index`` (one slice a dimension,
+    ``sharding.block_index``): only that block is kept, from the same
+    draws; ``index=False``: the draws are made and dropped (None)."""
+    lead = tuple(shape[:-2]) if len(shape) >= 3 else ()
+    keep = index is not False
+    if index is None or index is False:
+        index = tuple(slice(0, n) for n in shape)
+    out = torch.empty([i.stop - i.start for i in index], dtype=dtype,
+                      device=device) if keep else None
+    if torch.device(device).type == "meta":
+        return out
+    m = len(lead)
+    for pos in itertools.product(*map(range, lead)):
+        mat = torch.randn(shape[m:], generator=gen, device=device,
+                          dtype=torch.float32) * scale
+        if keep and all(i.start <= p < i.stop for p, i in zip(pos, index)):
+            out[tuple(p - i.start for p, i in zip(pos, index))] = \
+                mat[index[m:]]
     return out
 
 
@@ -167,21 +194,15 @@ def _init_mlp(cfg: ModelConfig, ones, dense, full) -> dict:
             "w_gate": dense(L, d, cfg.d_ff), "w_out": dense(L, cfg.d_ff, d)}
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device=None) -> dict:
-    """Random parameters in the reference's tree layout, shapes and
-    dtypes (RWKV's ``decay_base`` and Mamba's ``dt_bias``, ``a_log`` and
-    ``d_skip`` stay float32), drawn from ``gen`` (a ``torch.Generator`` on
-    ``device``). ``device``: ``cuda`` unless the caller asks for the
-    CPU."""
+def _build(cfg: ModelConfig, device, dense) -> dict:
+    """The parameter tree, each random weight from ``dense(*shape,
+    scale=)`` in the reference's order."""
     family = _family(cfg)
-    device = resolve_device(device)
     dt = cfg.pdtype
     d = cfg.d_model
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
     full = lambda value, *shape: torch.full(shape, value, dtype=dt,
                                             device=device)
-    dense = lambda *shape, scale=0.02: _dense(gen, shape, dt, device, scale)
     embed = {"tokens": dense(cfg.vocab, d)}
     if cfg.frontend == "frames":
         embed["frames"] = dense(cfg.frame_dim, d)
@@ -196,6 +217,47 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.vocab)
     return params
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device=None, specs=None, sh: ShardCtx | None = None
+                ) -> dict:
+    """Random parameters in the reference's tree layout, shapes and
+    dtypes (RWKV's ``decay_base`` and Mamba's ``dt_bias``, ``a_log`` and
+    ``d_skip`` stay float32), drawn from ``gen`` (a ``torch.Generator`` on
+    ``device``). ``device``: ``cuda`` unless the caller asks for the
+    CPU.
+
+    With ``specs`` (a tree of specs, ``launch.shardings.param_specs``)
+    and ``sh`` on a mesh: this rank's block of every leaf under
+    ``specs``, the same values. A random weight is drawn a matrix at a
+    time and only the rank's block of it kept, so that a rank holds its
+    blocks and one matrix, never the whole model."""
+    device = resolve_device(device)
+    dt = cfg.pdtype
+    if specs is None:
+        return _build(cfg, device, lambda *shape, scale=0.02: _dense(
+            gen, shape, dt, device, scale))
+    # which leaf each draw becomes: the order of the draws, from a pass
+    # on the meta device (a draw that no leaf keeps, as Hymba's
+    # attention ``wo``, is made and dropped)
+    made = []
+    meta = _build(cfg, "meta", lambda *shape, scale=0.02: made.append(
+        torch.empty(shape, dtype=dt, device="meta")) or made[-1])
+    spec_of = {}
+    map_specs(lambda t, spec: spec_of.__setitem__(id(t), spec), meta, specs)
+    drawn = iter(made)
+    blocks = []
+
+    def dense(*shape, scale=0.02):
+        spec = spec_of.get(id(next(drawn)))
+        blocks.append(_dense(gen, shape, dt, device, scale, False
+                             if spec is None else
+                             block_index(shape, spec, sh)))
+        return blocks[-1]
+    tree = _build(cfg, device, dense)
+    return map_specs(lambda t, spec: t if any(t is b for b in blocks)
+                     else shard_tree(t, spec, sh), tree, specs)
 
 
 # --------------------------------------------------------------------------- #
@@ -226,6 +288,7 @@ def _windows(cfg: ModelConfig) -> list:
 def _seq_block(cfg: ModelConfig, sh: ShardCtx, positions, p, x, window):
     """One layer over the full sequence. Returns (x, cache_entry, aux)."""
     family = _family(cfg)
+    p = _whole(cfg, sh, p, ("layers",), layer=True)
     h = layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps)
     if family == "gqa":
         a, cache = layers.gqa_attention(cfg, p["attn"], h, sh, positions,
@@ -264,9 +327,25 @@ def _train_block(cfg: ModelConfig, sh: ShardCtx, positions, p, x, window):
 
 def _embed(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
            sh: ShardCtx, frames_ndim: int) -> torch.Tensor:
+    embed = _whole(cfg, sh, params["embed"], ("embed",))
     if cfg.frontend == "frames" and inputs.ndim == frames_ndim:
-        return layers.embed_frames(cfg, params["embed"], inputs, sh)
-    return layers.embed_tokens(cfg, params["embed"], inputs, sh)
+        return layers.embed_frames(cfg, embed, inputs, sh)
+    return layers.embed_tokens(cfg, embed, inputs, sh)
+
+
+def _head(cfg: ModelConfig, params: dict, sh: ShardCtx) -> dict:
+    """What ``layers.lm_logits`` reads, whole: the final norm and the head
+    (a tied head, the token table)."""
+    if sh.stored is None:
+        return params
+    head = {"final_norm": _whole(cfg, sh, params["final_norm"],
+                                 ("final_norm",))}
+    if cfg.tie_embeddings:
+        head["embed"] = {"tokens": _whole(cfg, sh, params["embed"]["tokens"],
+                                          ("embed", "tokens"))}
+    else:
+        head["lm_head"] = _whole(cfg, sh, params["lm_head"], ("lm_head",))
+    return head
 
 
 @layers.fp32_accumulation
@@ -306,7 +385,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, sh: ShardCtx
     "labels"}. Returns (loss, {"ce", "aux"}), float32 scalars."""
     x, _, aux = forward_seq(cfg, params, batch["inputs"], sh,
                             collect_cache=False)
-    logits = layers.lm_logits(cfg, params, x, sh)
+    logits = layers.lm_logits(cfg, _head(cfg, params, sh), x, sh)
     ce = dist.mean_over(layers.cross_entropy(logits, batch["labels"]), sh,
                         sh.names)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
@@ -323,37 +402,89 @@ def _map_paths(fn, tree, path=()):
     return fn(path, tree)
 
 
+def use_spec(cfg: ModelConfig, sh: ShardCtx, path: tuple, spec) -> tuple:
+    """The one rule for a stored parameter (at ``path``, held as ``spec``
+    says): which of its spec's entries the model gathers before use. Every
+    entry is gathered, except the ``"model"`` entry of an expert weight
+    under the expert-parallel MoE (``moe.expert_parallel``): each rank
+    computes with its own experts, which is how it holds them. Returns the
+    spec to gather by."""
+    if _expert_leaf(cfg, path) and moe_lib.expert_parallel(cfg, sh):
+        return tuple(None if e == "model" else e for e in spec)
+    return spec
+
+
+def _whole(cfg: ModelConfig, sh: ShardCtx, tree, prefix: tuple,
+           layer: bool = False):
+    """``tree`` (the parameters under ``prefix``; ``layer``: one layer's
+    views, whose stored specs lead with the layer axis) gathered as
+    ``use_spec`` says; as it is without stored specs."""
+    if sh.stored is None:
+        return tree
+
+    def one(path, t):
+        path = prefix + path
+        spec = sh.spec(path)[1:] if layer else sh.spec(path)
+        return gather(t, use_spec(cfg, sh, path, spec), sh)
+    return _map_paths(one, tree) if isinstance(tree, dict) else one((), tree)
+
+
+def compute_specs(cfg: ModelConfig, sh: ShardCtx, tree) -> dict:
+    """The specs of the parameters as the model computes with them: whole
+    (``()``), but the expert weights under the expert-parallel MoE, split
+    over ``"model"`` on their expert axis."""
+    ep = moe_lib.expert_parallel(cfg, sh)
+    return _map_paths(lambda path, t: (None, "model")
+                      if ep and _expert_leaf(cfg, path) else (), tree)
+
+
+def stored_specs(cfg: ModelConfig, sh: ShardCtx, tree) -> dict:
+    """How ``sh`` says the parameters (of ``tree``'s structure) are held:
+    its stored specs, else ``compute_specs``."""
+    return sh.stored if sh.stored is not None else \
+        compute_specs(cfg, sh, tree)
+
+
 def shard_params(cfg: ModelConfig, params: dict, sh: ShardCtx) -> dict:
-    """This rank's parameters on ``sh``'s mesh: where the model axis
-    divides the experts (``moe.expert_parallel``), each expert weight
-    ``[L, E, ...]`` keeps the rank's ``E / tp`` experts (copied, so the
-    full weight can be freed); every other leaf is ``params``' own."""
-    if not moe_lib.expert_parallel(cfg, sh):
-        return params
-    e_loc = cfg.moe.n_experts // sh.size("model")
-    lo = sh.coord("model") * e_loc
-    return _map_paths(lambda path, t: t[:, lo:lo + e_loc].clone()
-                      if _expert_leaf(cfg, path) else t, params)
+    """This rank's parameters on ``sh``'s mesh as the model computes with
+    them (``compute_specs``, sliced by ``sharding.shard_tree``): where the
+    model axis divides the experts (``moe.expert_parallel``), each expert
+    weight ``[L, E, ...]`` keeps the rank's ``E / tp`` experts (copied, so
+    the full weight can be freed); every other leaf is ``params``' own."""
+    return shard_tree(params, compute_specs(cfg, sh, params), sh)
 
 
 @torch.no_grad()
-def reduce_grads(cfg: ModelConfig, grads: dict, sh: ShardCtx) -> dict:
+def reduce_grads(cfg: ModelConfig, grads: dict, sh: ShardCtx,
+                 target=None) -> dict:
     """Each rank's gradients (of its ``loss_fn``, the global loss, on its
-    own rows) -> the global loss's gradients, the same on every rank that
-    holds a parameter: summed over the axes on which the parameter is
-    replicated (every axis; an expert weight's, the batch axes) and
-    divided by the number of ranks. Every rank seeds the same global
-    loss, so the ranks' shares add up to the world size times the
-    gradient, whichever rows each rank held."""
+    own rows; each in the block the rank holds, ``stored_specs``) -> the
+    global loss's gradients. Every rank seeds the same global loss, so the
+    ranks' shares add up to the world size times the gradient, whichever
+    rows each rank held. The stored gathers' backward has already summed
+    a block's gradient over the axes its spec splits; here it is summed
+    over every other axis of the mesh (those its block is replicated on)
+    and divided by the number of ranks, in its own dtype (the reference
+    reduces each micro-batch's gradients before it accumulates them in
+    float32). ``target`` (specs that add an axis to a stored spec:
+    ZeRO-2's, ``zero1_specs``) sums over that axis by a reduce-scatter
+    along the dimension it names instead, leaving the rank its block of
+    the target layout."""
     if sh.mesh is None:
         return grads
-    batch = tuple(n for n in sh.names if n != "model")
+    stored = stored_specs(cfg, sh, grads)
+    target = stored if target is None else target
 
-    def reduce(path, g):
-        axes = batch if (_expert_leaf(cfg, path)
-                         and moe_lib.expert_parallel(cfg, sh)) else sh.names
-        return dist.all_reduce(g, sh, axes) / sh.world
-    return _map_paths(reduce, grads)
+    def reduce(g, spec, out_spec):
+        held = spec_axes(spec)
+        for a in sh.names:
+            if a in held or sh.size(a) == 1:
+                continue
+            dims = [d for d, e in enumerate(out_spec) if a in entry_axes(e)]
+            g = (dist.reduce_scatter(g, dims[0], sh, a) if dims
+                 else dist.all_reduce(g, sh, a))
+        return g / sh.world
+    return tree_map(reduce, grads, stored, target)
 
 
 def _pad_seq(c: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -420,7 +551,8 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
         cache = tuple({n: _own_rows(sh, c, 2) if n in ("k", "v") else c
                        for n, c in ring.items()}
                       for ring in _hymba_rings(cfg, cache, smax))
-    logits = layers.lm_logits(cfg, params, x[:, -1:], sh)[:, 0]
+    logits = layers.lm_logits(cfg, _head(cfg, params, sh), x[:, -1:],
+                              sh)[:, 0]
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, pos
 
@@ -509,6 +641,7 @@ def _decode_block(cfg: ModelConfig, sh: ShardCtx, p, x, c: dict, pos,
     written in place; rope: gqa's (cos, sin) at ``pos``; bidx
     ``arange(B)``. Returns x."""
     family = _family(cfg)
+    p = _whole(cfg, sh, p, ("layers",), layer=True)
     new_len = pos + 1
     h = layers.rms_norm(x, p["attn"]["norm"], cfg.norm_eps)
     if family == "gqa":
@@ -568,5 +701,5 @@ def decode_step(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
     for l, window in enumerate(windows):
         x = _decode_block(cfg, sh, _layer(params, l), x,
                           _layer_cache(cache, l), pos, window, rope, bidx)
-    logits = layers.lm_logits(cfg, params, x, sh)[:, 0]
+    logits = layers.lm_logits(cfg, _head(cfg, params, sh), x, sh)[:, 0]
     return logits, cache, pos + 1

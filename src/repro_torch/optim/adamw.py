@@ -24,6 +24,16 @@ same bits on the CPU and on a card:
 - The global norm squares in float32, as the reference does, and sums in
   float64: no float32 summation order is shared by XLA, the CPU and a
   card, and the float64 sum rounds to the same float32 on all of them.
+
+On a mesh (ZeRO-1, the reference's moment specs ``zero1_specs``) each
+rank holds its block of the moments and of the gradients, and its block
+of the parameters under their own specs, which the ZeRO-1 specs may
+split once more over ``"data"``. The rank then updates that contiguous
+sub-block of its parameters with the same per-element arithmetic and
+all-gathers it over ``"data"`` back into its block, so that the step
+equals the whole-leaf step bit for bit. The global norm sums each rank's
+float64 partials over the axes that split its blocks only: a block is
+the same on every rank of the axes it is replicated on, and counts once.
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import dist
 from ..core.counters import fma
+from ..models.sharding import local_slice, spec_axes, entry_axes
 from ..tree import leaves, tree_map
 
 # Elements a block of the in-place update: its float64 temporaries stay
@@ -94,11 +106,26 @@ def _bias_correction(b: float, step: int) -> np.float32:
     return _f32(1) - _f32(float(_f32(b)) ** step)
 
 
-def global_norm(grads) -> torch.Tensor:
+def _square_sum(g) -> torch.Tensor:
+    return torch.sum(torch.square(g.float()), dtype=torch.float64)
+
+
+def global_norm(grads, sh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of every element's float32 square, a float32 0-dim
-    tensor on the gradients' device (the squares summed in float64)."""
-    total = sum(torch.sum(torch.square(g.float()), dtype=torch.float64)
-                for g in leaves(grads))
+    tensor on the gradients' device (the squares summed in float64). On
+    ``sh``'s mesh each gradient is this rank's block under ``specs``:
+    the blocks' partial sums are grouped by the axes that split them and
+    each group is summed over those axes."""
+    if sh is None or sh.mesh is None:
+        total = sum(_square_sum(g) for g in leaves(grads))
+        return torch.sqrt(total.float())
+    groups: dict = {}
+    for g, spec in zip(leaves(grads), leaves(specs)):
+        axes = tuple(a for a in sh.names if a in spec_axes(spec))
+        part = _square_sum(g)
+        groups[axes] = part if axes not in groups else groups[axes] + part
+    total = sum(dist.sum_f64(groups[axes], sh, axes)
+                for axes in sorted(groups))
     return torch.sqrt(total.float())
 
 
@@ -143,15 +170,55 @@ def _update_leaf(p, g, mu, nu, scale, c: dict) -> None:
         nf[sl] = v
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
+def _added_axis(param_spec, moment_spec, sh):
+    """The dimension and axis that the moment's spec splits and the
+    parameter's does not (ZeRO-1 adds one), or None."""
+    added = [(d, a) for d, e in enumerate(moment_spec)
+             for a in entry_axes(e)
+             if a not in spec_axes(param_spec) and sh.size(a) > 1]
+    if len(added) > 1:
+        raise ValueError(f"moment spec {moment_spec} splits more than one "
+                         f"axis past its parameter's {param_spec}")
+    return added[0] if added else None
+
+
+@torch.no_grad()
+def _update_block(p, g, mu, nu, scale, c: dict, param_spec, moment_spec,
+                  sh) -> None:
+    """One leaf's step on a mesh: ``p`` is the rank's block under
+    ``param_spec``; ``g``, ``mu`` and ``nu`` its blocks under
+    ``moment_spec``."""
+    added = _added_axis(param_spec, moment_spec, sh)
+    if added is None:
+        _update_leaf(p, g, mu, nu, scale, c)
+        return
+    d, axis = added
+    part_spec = (None,) * d + (axis,)
+    part = local_slice(p, part_spec, sh).clone(
+        memory_format=torch.contiguous_format)
+    _update_leaf(part, g, mu, nu, scale, c)
+    p.copy_(dist.all_gather(part, d, sh, axis))
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, sh=None,
+                 param_specs=None, moment_specs=None):
     """One AdamW step: parameters and moments updated IN PLACE. Returns
-    (params, new_state, metrics {"lr", "grad_norm"}), the same tensors."""
-    gn = global_norm(grads)
+    (params, new_state, metrics {"lr", "grad_norm"}), the same tensors.
+    On ``sh``'s mesh: ``params`` are the rank's blocks under
+    ``param_specs``, ``grads`` and the moments its blocks under
+    ``moment_specs`` (ZeRO-1)."""
+    mesh = sh is not None and sh.mesh is not None
+    gn = global_norm(grads, sh, moment_specs) if mesh else global_norm(grads)
     scale = _clip_scale(gn, cfg.clip_norm)
     step = int(state.step) + 1
     c = _scalars(cfg, step, gn.device)
-    tree_map(lambda p, g, mu, nu: _update_leaf(p, g, mu, nu, scale, c),
-         params, grads, state.mu, state.nu)
+    if mesh:
+        tree_map(lambda p, g, mu, nu, ps, ms: _update_block(
+            p, g, mu, nu, scale, c, ps, ms, sh), params, grads, state.mu,
+            state.nu, param_specs, moment_specs)
+    else:
+        tree_map(lambda p, g, mu, nu: _update_leaf(p, g, mu, nu, scale, c),
+                 params, grads, state.mu, state.nu)
     new_step = torch.full_like(state.step, step)
     return params, OptState(state.mu, state.nu, new_step), \
         {"lr": -c["neg_lr"], "grad_norm": gn}

@@ -2,10 +2,15 @@
 ``repro.optim.compress``): the wire format of the reference's cross-pod
 gradient reduction. Deterministic rounding is round half to even, as
 ``jnp.round``; stochastic rounding (unbiased) draws from an explicit
-``torch.Generator``."""
+``torch.Generator``. ``compressed_psum_spec`` is the reduction itself on
+a ``torch.distributed`` mesh; as in the reference, the training launcher
+does not call it."""
 from __future__ import annotations
 
 import torch
+
+from .. import dist
+from ..tree import tree_map
 
 BLOCK = 256
 
@@ -19,7 +24,9 @@ def compress_int8(x: torch.Tensor, gen: torch.Generator | None = None):
     n = flat.shape[0]
     pad = (-n) % BLOCK
     blocks = torch.cat([flat, flat.new_zeros(pad)]).reshape(-1, BLOCK)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    # a divisor on the blocks' device: a Python number would become a
+    # product by its reciprocal on CUDA, one ulp from the CPU's quotient
+    scale = blocks.abs().amax(dim=1, keepdim=True) / blocks.new_tensor(127.0)
     scale = torch.where(scale == 0, 1.0, scale)
     y = blocks / scale
     if gen is not None:
@@ -36,3 +43,20 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor, meta
     shape, n = meta
     flat = (q.float() * scale[:, None]).reshape(-1)[:n]
     return flat.reshape(shape)
+
+
+def compressed_psum_spec(grads, sh, axis: str,
+                         gen: torch.Generator | None = None):
+    """``grads`` (a tree) summed over the ranks of ``axis`` of ``sh``'s mesh
+    with int8 on the wire: each leaf compressed (stochastic rounding from
+    ``gen``, the leaves drawing in turn; ``None``: deterministic), its int8
+    blocks and float32 scales all-gathered over ``axis``, and each rank's
+    blocks dequantised by that rank's scales and summed. Every rank
+    returns the same float32 tree."""
+    def one(g):
+        q, scale, (shape, n) = compress_int8(g, gen)
+        qs = dist.all_gather(q[None], 0, sh, axis)
+        ss = dist.all_gather(scale[None], 0, sh, axis)
+        summed = torch.sum(qs.float() * ss[..., None], dim=0)
+        return summed.reshape(-1)[:n].reshape(shape)
+    return tree_map(one, grads)

@@ -6,7 +6,8 @@ Every module of ``repro_torch``, the serving front end
 collectives of ``repro_torch.dist`` too), the simulator baselines
 ``repro_torch.sims`` and the port's reprolint ``repro_torch.analysis``
 included (and the card scripts ``chip_smoke.py``, ``chip_faults.py``,
-``chip_sweep_clusters.py`` and ``chip_compare_off.py``, and the port's
+``chip_sweep_clusters.py``, ``chip_compare_off.py`` and
+``chip_mesh_f32.py``, and the port's
 examples ``examples/*_torch.py``) imports with ``jax`` and ``repro`` made
 unimportable; ``chip_smoke.py`` exits nonzero
 and prints no result where there is no CUDA device, or when it stands
@@ -34,7 +35,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "chip_faults", "chip_sweep_clusters",
-               "chip_compare_off"):
+               "chip_compare_off", "chip_mesh_f32"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))
@@ -82,8 +83,9 @@ _SLICE13 = ("repro_torch.sims", "repro_torch.sims.trace_sim",
             "repro_torch.analysis.__main__")
 
 # The multi-device paths: the sweep's mesh and the launcher, the
-# collectives.
-_MESH = ("repro_torch.launch.mesh", "repro_torch.dist")
+# collectives, and the specs of training over a mesh.
+_MESH = ("repro_torch.launch.mesh", "repro_torch.dist",
+         "repro_torch.launch.shardings")
 
 _IMPORT_EXAMPLES = r"""
 import importlib.util, sys

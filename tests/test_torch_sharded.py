@@ -429,9 +429,3 @@ def test_production_mesh_needs_its_world():
         M.make_production_mesh()
     with pytest.raises(ValueError, match="needs 512 ranks"):
         M.make_production_mesh(multi_pod=True)
-
-
-def test_train_step_refuses_a_mesh():
-    sh = ShardCtx(axis_sizes=(("data", 1), ("model", 2)), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_steps.make_train_step(TC.get_smoke("minitron_8b"), None, sh)

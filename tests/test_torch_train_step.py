@@ -10,8 +10,9 @@ largest magnitude.
 The launcher: ``--device cpu`` reduces the loss as
 ``tests/test_system.py::test_training_reduces_loss`` checks the
 reference; a crash at step 8 and a resume equal an uninterrupted run bit
-for bit (loss and every parameter); ``--mesh dev`` raises; without
-``--device`` it needs a card.
+for bit (loss and every parameter); ``--mesh dev`` without a process
+group raises, naming how to start the ranks; without ``--device`` it
+needs a card.
 """
 import jax
 import jax.numpy as jnp
@@ -106,8 +107,11 @@ def test_crash_restart_resumes_bitwise(tmp_path):
         assert torch.equal(a, b), path
 
 
-def test_mesh_raises_and_device_defaults_to_cuda():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_mesh_raises_and_device_defaults_to_cuda(monkeypatch):
+    # --mesh without a process group (no ranks started, not under
+    # torchrun) raises, naming how to start the ranks
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
         t_train.run(["--arch", "internlm2-1.8b", "--smoke", "--mesh", "dev",
                      "--device", "cpu"])
     if torch.cuda.is_available():
