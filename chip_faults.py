@@ -9,7 +9,7 @@ Run from the root of a checkout, with one CUDA device visible:
 Each planted fault is one edit to one source (a CUDA kernel, or the
 port's serving or model code), made in a temporary copy of ``src/``,
 ``chip_smoke.py`` and ``BENCH_serve.json``, never in the checkout, and
-run in a process of its own. Forty-nine faults are planted. A fault in
+run in a process of its own. Fifty-two faults are planted. A fault in
 the chunk-step kernel (a warp's carry dropped in the block scan, a bank
 lane's register not carried to the next chunk, one chunk's fold of a
 float counter skipped, a chunk's sums added in float32, which only a
@@ -66,18 +66,24 @@ axes it is replicated on, ZeRO-1's updated block not all-gathered back
 over "data", the elastic restart's load slicing at the writer mesh's
 coordinates, the compressed sum dequantising by each rank's own scales)
 run phase 15's part that holds the code (``chip_smoke.check_mesh_train``),
-whose failure must hold the words of the check that names the fault. A
-fault in a model kernel (a skipped kv tile in either flash path, the a_lo b_hi
-term of the mma path's P V product dropped, a split dropped by the decode
-combine, a mask edge moved by one key, one chunk's state term skipped in
-the RWKV state scan, the a_lo b_hi term of the RWKV att product dropped)
-runs the phase-6 cases of its kernel at full width,
-each result held to its plain version by ``chip_smoke.case_error``
-(``ref.kernel_error``'s allowance). One JSON line per case gives whether
-it was caught (for a model kernel, the error's share of the allowance
-and of the old absolute bfloat16 limit, 2e-2 scaled where |value| > 1).
-The script exits nonzero when a fault escapes in every case of its
-kernel, or when a fault cannot be planted or run.
+whose failure must hold the words of the check that names the fault; the
+three of the last modules (a spec's last entry ignored in the dry run's
+block sizes, kernel B's HOTNESS cap one higher, kernel A writing one row
+past its output) run phase 16 (after phase 15 (a), for its records),
+phase 17's budget run or phase 18's guarded launches
+(``chip_smoke.check_dryrun``, ``check_budget``, ``check_kernel_san``),
+which must stop at a mismatch. A fault in a model kernel (a skipped kv
+tile in either flash path, the a_lo b_hi term of the mma path's P V
+product dropped, a split dropped by the decode combine, a mask edge
+moved by one key, one chunk's state term skipped in the RWKV state scan,
+the a_lo b_hi term of the RWKV att product dropped) runs the phase-6
+cases of its kernel at full width, each result held to its plain version
+by ``chip_smoke.case_error`` (``ref.kernel_error``'s allowance). One
+JSON line per case gives whether it was caught (for a model kernel, the
+error's share of the allowance and of the old absolute bfloat16 limit,
+2e-2 scaled where |value| > 1). The script exits nonzero when a fault
+escapes in every case of its kernel, or when a fault cannot be planted
+or run.
 """
 from __future__ import annotations
 
@@ -395,6 +401,33 @@ SLICE15_FAULTS = [
 SLICE15_RUNS = (("a", "global norm"), ("a", "ZeRO-1's update"),
                 ("a", "elastic restart"), ("c", "compressed_psum_spec"))
 
+# The last modules' faults (phases 16-18): a spec's last entry ignored
+# in the dry run's block sizes (phase 16: the dry run of phase 15 (a)'s
+# step, after phase 15 (a) runs for its records), kernel B's HOTNESS cap
+# one higher (phase 17's budget run: the lane passes its cap and kernel B
+# leaves its plain version), and kernel A writing one row past the end of
+# its output (phase 18's guard bands: NVIDIA's compute-sanitizer refuses
+# this card, so a write past a buffer is what the port's own memcheck
+# counterpart sees; the other phases read only the rows they asked for).
+LAST_FAULTS = [
+    ("last modules: a spec's last entry ignored in the dry run's block "
+     "sizes", "launch", "src/repro_torch/launch/dryrun.py",
+     "        index = block_index(t.shape, spec, sh)\n"
+     "        return torch.empty(",
+     "        index = block_index(t.shape, spec[:-1], sh)\n"
+     "        return torch.empty("),
+    ("last modules: kernel B's HOTNESS cap one higher", "chunk_step",
+     CSRC + "chunk_step.cu",
+     "constexpr int HOTNESS_CAP = 1 << 29, WEAR_CAP = 1 << 29;",
+     "constexpr int HOTNESS_CAP = (1 << 29) + 1, WEAR_CAP = 1 << 29;"),
+    ("last modules: kernel A writes one row past the end of its output",
+     "hmmu_lookup", CSRC + "hmmu_lookup.cu",
+     "  if (t >= total) return;\n  long long b = t / m;",
+     "  if (t > total) return;\n  long long b = t / m;"),
+]
+# The phase each one runs.
+LAST_PHASES = ("phase 16", "phase 17", "phase 18")
+
 # (name, kernel, source, text, its faulty replacement)
 FAULTS = [
     ("chunk step: warp 1's carry dropped in the block scan (RX, in-order, "
@@ -474,6 +507,7 @@ FAULTS = [
     *SLICE12C_FAULTS,
     *SLICE14_FAULTS,
     *SLICE15_FAULTS,
+    *LAST_FAULTS,
 ]
 
 # Runs in the faulty copy: argv = fault name, kernel name, and for a
@@ -505,7 +539,15 @@ if kernel in ("chunk_step", "hmmu_lookup", "serve", "policies", "models",
                "chunk_step": chunk_step.KERNEL, "flash_attention": fa.KERNEL,
                "decode_attention": da.KERNEL, "rwkv_scan": rw.KERNEL}
     try:
-        if sys.argv[3].startswith("phase 15"):
+        if sys.argv[3] == "phase 16":
+            records = {}
+            cs.check_mesh_train(torch, "", "a", records)
+            cs.check_dryrun(torch, "", records["a"])
+        elif sys.argv[3] == "phase 17":
+            cs.check_budget(torch, dev, rt, chunk_step, "")
+        elif sys.argv[3] == "phase 18":
+            cs.check_kernel_san(torch, dev, chunk_step, "")
+        elif sys.argv[3].startswith("phase 15"):
             cs.check_mesh_train(torch, "", sys.argv[3].split()[-1])
         elif sys.argv[3] == "phase 14 a":
             base, spec = cs.sweep_grid(rt)
@@ -619,7 +661,9 @@ def main() -> int:
                 expect = f"training {arch}"
             if FAULTS[i] in SLICE15_FAULTS:
                 part, expect = SLICE15_RUNS[SLICE15_FAULTS.index(FAULTS[i])]
-            phase = ("phase 15 " + part if FAULTS[i] in SLICE15_FAULTS else
+            phase = (LAST_PHASES[LAST_FAULTS.index(FAULTS[i])]
+                     if FAULTS[i] in LAST_FAULTS else
+                     "phase 15 " + part if FAULTS[i] in SLICE15_FAULTS else
                      "phase 14 " + SLICE14_PARTS[SLICE14_FAULTS.index(
                 FAULTS[i])] if FAULTS[i] in SLICE14_FAULTS else
                      "phase 12 c " + arch if FAULTS[i] in SLICE12C_FAULTS

@@ -338,14 +338,51 @@ Phases, each printing its lines in order:
    step's wall, and over the run the bytes, calls and seconds of each
    collective and the host round trips (gloo's all-gather of CUDA
    tensors, ``dist.HOST_TRANSPORT``).
-16. One JSON line of per-kernel numbers (kernels A and B also carry
+16. **The dry run against the card** — phase 15 (a)'s step
+   (internlm2-1.8b, 2 of 24 layers at full width, data 2 x model 2, 4 x
+   512 in 2 micro-batches) dry-run by ``launch.dryrun`` as rank 0 of a
+   4-rank ``"fake"`` process group on ``meta`` tensors: its held bytes
+   (weights, moments, gradient accumulator) and each collective's
+   operand bytes a step equal to rank 0's records of phase 15 (reused, not
+   run again), and its FLOPs equal to ``FlopCounterMode`` around phase
+   15's second step on rank 0; the predicted peak beside the rank's
+   ``torch.cuda.max_memory_allocated`` (a reading). Then two production
+   cells through the CLI in a subprocess, ``internlm2-1.8b decode_32k``
+   on 16 x 16 and ``internlm2-1.8b train_4k`` on 2 x 16 x 16: both
+   ``"status": "ok"``. The dry run launches no kernel.
+17. **The stage cut and the budget run** — (a) ``kernels.chunk_step.
+   step_until(upto="full")`` on phase 5's first chunk, on the card,
+   bitwise equal to one chunk of kernel B (``chunk_step``); (b) each of
+   ``STAGES`` over phase 5's first two chunks on the card bitwise equal
+   to the CPU's; (c) ``analysis.ranges``' budget run at
+   ``paper_platform()``, chunk 512: 1,024 chunks of an all-write hot
+   trace from the HOTNESS and WEAR lanes three under their caps, the time
+   fields and EPOCH just under the int32 horizon that run reaches (a
+   first run from the time origin measures it) and the summing counters
+   under 2^31 - 1 less one a request, on kernel B (one launch a run),
+   bitwise equal to its plain version (``step_ref(seq=True)``'s loop);
+   HOTNESS and WEAR saturate at their caps and nothing wraps; (d) a
+   consumed state's storage identity on kernel B: ``Engine.run(state=)``,
+   ``run_stream`` and ``continue_sweep`` on ``"auto"`` hand back tensors
+   in the passed state's memory.
+18. **The kernel sanitizer's checks on the card** (``analysis.
+   kernel_san``; NVIDIA's ``compute-sanitizer`` refuses this machine's
+   card, ROADMAP §3): each of the five kernels at small shapes with every
+   buffer its wrapper allocates between guard bands and poisoned, twice
+   with two poisons: equal to its plain version (kernels A and B bit for
+   bit), the same under both poisons, every guard band intact; kernel
+   B's layout at each of the pass's chunks as the pass predicts, and the
+   card's opt-in shared memory a block equal to the pass's limit.
+19. One JSON line of per-kernel numbers (kernels A and B also carry
    ``serve_launches``, ``policy_launches``, ``memtier_launches``,
    ``model_serve_launches``, ``family_serve_launches``,
    ``oracle_launches``, ``fig7_launches`` and ``example_launches``, the
    counts of phases 8, 9 (a), 9 (b), 10, 11 and 13 (a), (b), (d); every
    kernel ``train_launches``, phase 12 (a) and (c)'s, ``mesh_launches``,
-   phase 14's, and ``mesh_train_launches``, phase 15's), the card line
-   again, and the last line ``{"ok": true, "device": {...}}``.
+   phase 14's, ``mesh_train_launches``, phase 15's, and
+   ``dryrun_launches``, ``stage_launches`` and ``kernel_san_launches``,
+   phases 16, 17 and 18's), the card line again, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits nonzero. Without a CUDA device, or without
 the rest of the repository, it exits nonzero before printing a result.
@@ -1123,6 +1160,7 @@ def check_sweep(torch, dev, rt, hl, cs, base, spec, trace, off_chunks=64,
     cont = eng.continue_sweep(first, rt.core.Trace(*(x[half:]
                                                      for x in trace)))
     same_runs(torch, "continue_sweep against the whole sweep",
+              # reprolint: allow[donation] the first half's outputs only
               (cont.states, {k: torch.cat([first.outs[k], cont.outs[k]],
                                           dim=1) for k in res.outs}),
               (res.states, res.outs))
@@ -1966,6 +2004,7 @@ def check_consumed(torch, dev, rt) -> None:
     s0 = eng.run(trace).state
     s1 = eng.run(trace, state=s0).state
     try:
+        # reprolint: allow[donation] the consumed state must be refused
         eng.run(trace, state=s0)
     except RuntimeError as e:
         if "donate=False" not in str(e):
@@ -4674,6 +4713,7 @@ def check_split_sweep(torch, dev, rt, hl, cs, base, spec, trace,
         cont = eng.continue_sweep(first, Trace(*(x[half:] for x in trace)),
                                   mesh=mesh)
         same_runs(torch, "a split continue_sweep against the whole sweep",
+                  # reprolint: allow[donation] the first half's outputs only
                   (cont.states, {k: torch.cat([first.outs[k], cont.outs[k]],
                                               dim=1) for k in whole.outs}),
                   (whole.states, whole.outs))
@@ -5171,11 +5211,13 @@ def _uncounted(traffic):
 
 
 def _spy_train(torch, train, rec: dict, first):
-    """Wrap ``train.make_train_step`` so that each step's loss, grad norm
-    and wall are kept in ``rec``, and ``first(cfg, opt_cfg, sh,
-    grad_specs, (loss, metrics, grads), params, opt)`` checks the first
-    step's gradients between its two halves (outside the step's wall and
-    its traffic); returns the original."""
+    """Wrap ``train.make_train_step`` so that each step's loss, grad norm,
+    wall and collective bytes (on a mesh) are kept in ``rec``, the FLOPs
+    of step ``FLOPS_STEP`` too (``FlopCounterMode``), and ``first(cfg,
+    opt_cfg, sh, grad_specs, (loss, metrics, grads), params, opt)`` checks
+    the first step's gradients between its two halves (outside the step's
+    wall and its traffic); returns the original."""
+    from torch.utils.flop_counter import FlopCounterMode
     real = train.make_train_step
 
     def make(cfg, opt_cfg, sh, micro_batches=1, grad_specs=None):
@@ -5197,15 +5239,25 @@ def _spy_train(torch, train, rec: dict, first):
                 return out
             if not rec.get("first"):
                 step.compute_grads = grads_then_check
+            count = len(rec.get("losses", ())) == FLOPS_STEP
+            before = dict(sh.traffic.bytes) if sh.traffic else {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                params, opt, m = step(params, opt, batch)
+                with FlopCounterMode(display=False) if count else \
+                        contextlib.nullcontext() as flops:
+                    params, opt, m = step(params, opt, batch)
                 loss = float(m["loss"])
             finally:
                 step.compute_grads = grads_of
             rec.setdefault("step_s", []).append(
                 time.perf_counter() - t0 - sum(checks))
+            if count:
+                rec["step_flops"] = flops.get_total_flops()
+            if sh.traffic:
+                rec.setdefault("step_bytes", []).append({
+                    k: v - before.get(k, 0) for k, v in
+                    sh.traffic.bytes.items() if v != before.get(k, 0)})
             rec.setdefault("losses", []).append(loss)
             rec.setdefault("norms", []).append(float(m["grad_norm"]))
             rec["sh"] = sh
@@ -5216,6 +5268,7 @@ def _spy_train(torch, train, rec: dict, first):
 
 
 MESH_REF = ROOT / "build" / "phase15_ref_grads.pt"
+FLOPS_STEP = 1      # the step whose FLOPs phase 16 predicts (no check in it)
 
 
 def _ref_first(torch):
@@ -5436,7 +5489,8 @@ def _mesh_train(torch, dev, row: MeshTrain, fails: list) -> dict:
                 args + mesh + ["--mesh-model", str(MESH_MODEL)] + ck)
         out["peak"] = torch.cuda.max_memory_allocated()
         out.update(first=rec["first"], losses=rec["losses"],
-                   step_s=rec["step_s"],
+                   step_s=rec["step_s"], step_bytes=rec["step_bytes"],
+                   step_flops=rec.get("step_flops"),
                    traffic=rec["sh"].traffic.as_dict(),
                    axes=dict(rec["sh"].axis_sizes), writes=writes)
         if ref is not None:
@@ -5627,10 +5681,12 @@ def _gb(b) -> str:
     return f"{b / 1e9:.3f} GB"
 
 
-def check_mesh_train(torch, card: str, parts: str = "abc") -> dict:
+def check_mesh_train(torch, card: str, parts: str = "abc",
+                     records: dict | None = None) -> dict:
     """Phase 15: ``MESH_RANKS`` gloo ranks on the card run ``parts`` (see
     the module docstring); raises once, naming each check that failed.
-    Returns the kernels' launches summed over the ranks."""
+    Returns the kernels' launches summed over the ranks; ``records``, if
+    given, receives rank 0's record of each part (phase 16 reads it)."""
     from repro_torch import configs
     from repro_torch.launch.mesh import run_ranks
     (ROOT / "build").mkdir(exist_ok=True)
@@ -5703,6 +5759,8 @@ def check_mesh_train(torch, card: str, parts: str = "abc") -> dict:
                   f"{c['blocks_equal']}; {c['traffic']['bytes']} B, "
                   f"{c['traffic']['round_trips']} host round trips "
                   f"[{card}]", flush=True)
+    if records is not None:
+        records.update(res[0]["runs"])
     launches: dict = {}
     for r in res:
         for k, v in r["launches"].items():
@@ -5711,6 +5769,289 @@ def check_mesh_train(torch, card: str, parts: str = "abc") -> dict:
     if fails:
         raise Mismatch("training over a mesh: FAILED: " + "; ".join(fails))
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: the dry run against the card
+# --------------------------------------------------------------------------- #
+
+DRYRUN_CELLS = (("internlm2-1.8b", "decode_32k", False),
+                ("internlm2-1.8b", "train_4k", True))
+
+
+def dryrun_cli(arch: str, shape: str, multi_pod: bool):
+    """Start one production cell through ``python -m
+    repro_torch.launch.dryrun`` in a subprocess; ``dryrun_record`` waits
+    for it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shape", shape] + (["--multi-pod"] if multi_pod else [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return (arch, shape, time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+
+
+def dryrun_record(started) -> dict:
+    """The JSON record of a cell ``dryrun_cli`` started (``"status":
+    "ok"``, or a Mismatch)."""
+    arch, shape, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise Mismatch(f"dry run {arch} {shape}: exit {proc.returncode}\n"
+                       f"{err[-2000:]}")
+    rec = json.loads(lines[-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        raise Mismatch(f"dry run {arch} {shape} on {rec['mesh']}: "
+                       f"{rec['status']} {rec.get('error', '')}")
+    return rec
+
+
+def check_dryrun(torch, card: str, rank0: dict) -> None:
+    """Phase 16 (module docstring): ``rank0`` is rank 0's record of phase
+    15 (a)."""
+    # the CLI's production cells run beside this process's dry run
+    cells = [dryrun_cli(*c) for c in DRYRUN_CELLS]
+    try:
+        _check_dryrun(torch, card, rank0, cells)
+    finally:
+        for started in cells:
+            started[3].kill()
+
+
+def _check_dryrun(torch, card: str, rank0: dict, cells: list) -> None:
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+    row = MESH_TRAINS[0]
+    cfg = configs.get(row.arch).with_(n_layers=row.layers)
+    t0 = time.perf_counter()
+    try:
+        with dryrun.fake_world(MESH_RANKS):
+            sh = dryrun.dev_ctx(MESH_MODEL)
+            run, cell = dryrun.build_cell(
+                row.arch, Shape("phase15", "train", row.seq, row.batch), sh,
+                cfg=cfg, micro_batches=row.micro)
+            dry = dryrun.measure(run, cell)
+    except Exception as e:  # the dry run itself failing is this phase's
+        raise Mismatch(f"the dry run of phase 15 (a)'s step failed: "
+                       f"{e!r}") from e
+    held = dry["memory"]["held"]
+    print(f"  (a) {row.arch}, {row.layers} layers, data "
+          f"{MESH_RANKS // MESH_MODEL} x model {MESH_MODEL}, {row.batch} x "
+          f"{row.seq} in {row.micro} micro-batches: dry run as rank 0 of a "
+          f"fake {MESH_RANKS}-rank group in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    fails = []
+    real = rank0["first"]["held"]
+    for k in ("params", "moments", "accumulator"):
+        line = f"    held {k}: predicted {held[k]} B, phase 15 {real[k]} B"
+        print(line + (" (equal)" if held[k] == real[k] else " DIFFER"))
+        if held[k] != real[k]:
+            fails.append(f"held {k}: {held[k]} B predicted, {real[k]} B")
+    step = rank0["step_bytes"][FLOPS_STEP]
+    want = {k: v for k, v in step.items() if v}
+    got = {k: v for k, v in dry["traffic"]["bytes"].items() if v}
+    print(f"    bytes a collective in a step: predicted {got}, phase 15's "
+          f"step {FLOPS_STEP} {want}" + (" (equal)" if got == want else
+                                         " DIFFER"))
+    if got != want:
+        fails.append(f"collective bytes a step: {got} predicted, {want}")
+    print(f"    result bytes by the reference's op names: "
+          f"{dry['collective_bytes']}")
+    flops = rank0["step_flops"]
+    print(f"    FLOPs a step: predicted {dry['flops']:.0f}, "
+          f"FlopCounterMode around phase 15's step {FLOPS_STEP} "
+          f"{flops:.0f}" + (" (equal)" if dry["flops"] == flops else
+                            " DIFFER"))
+    if dry["flops"] != flops:
+        fails.append(f"FLOPs a step: {dry['flops']} predicted, {flops}")
+    peak = dry["memory"]["peak_bytes"]
+    print(f"    peak: predicted {_gb(peak)} (one step's live tensors), "
+          f"max_memory_allocated over phase 15's run {_gb(rank0['peak'])}:"
+          f" ratio {peak / rank0['peak']:.3f} (a reading) [{card}]",
+          flush=True)
+    if fails:
+        raise Mismatch("the dry run against phase 15: FAILED: "
+                       + "; ".join(fails))
+    for started in cells:
+        rec = dryrun_record(started)
+        arch, shape = started[:2]
+        print(f"  (b) CLI {arch} {shape} on {rec['mesh']}: {rec['status']} "
+              f"in {rec['wall_s']:.1f} s (trace {rec['trace_s']} s); "
+              f"flops {rec['flops']:.4g}, bytes {rec['bytes']:.4g}, "
+              f"collective result bytes {rec['collective_bytes']['total']}"
+              f", held {rec['memory']['argument_bytes']} B, peak "
+              f"{rec['memory']['peak_bytes']} B", flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: the stage cut and the budget run
+# --------------------------------------------------------------------------- #
+
+def check_stages(torch, dev, rt, cs, first) -> None:
+    """Phase 17 (a) and (b) on ``first``, phase 5's first two chunks
+    (page, offset, is_write, size) on the card."""
+    from repro_torch.core.policies import PolicyRegistry
+    from repro_torch.core.emulator import _step_scalars
+    cfg = rt.paper_platform().with_(chunk=CHUNK, policy="hotness",
+                                    hot_threshold=4)
+    reg = PolicyRegistry.snapshot()
+    chunks = [tuple(x[c * cfg.chunk:(c + 1) * cfg.chunk] for x in first)
+              for c in range(2)]
+
+    def start(device):
+        params = cfg.runtime(device)
+        st = rt.core.init_state(cfg, params)
+        return st.table, params, _step_scalars(st), st.bank_free
+
+    valid = torch.ones(cfg.chunk, dtype=torch.bool, device=dev)
+    on = cfg.with_(chunk_step_kernel="on")
+    kern = cs.chunk_step(on, reg, *start(dev), *chunks[0], valid)
+    full = cs.step_until(cfg, reg, *start(dev), *chunks[0], valid,
+                         upto="full")
+    compare_step(torch, "step_until(upto='full') against kernel B", full,
+                 kern)
+    print("  (a) step_until(upto='full') on phase 5's first chunk: bitwise "
+          "equal to one chunk of kernel B", flush=True)
+    def stage(upto, device):
+        table, params, sc, bf = start(device)
+        for chunk in chunks:
+            table, sc, bf, outs = cs.step_until(
+                cfg, reg, table, params, sc, bf,
+                *(x.to(device) for x in chunk), valid.to(device), upto=upto)
+        return table, sc, bf, outs
+
+    for upto in cs.STAGES:
+        compare_step(torch, f"stage {upto!r}, card against CPU",
+                     _to_cpu(stage(upto, dev)),
+                     stage(upto, torch.device("cpu")))
+    print(f"  (b) every stage of {cs.STAGES} over 2 chunks: card bitwise "
+          "equal to the CPU", flush=True)
+
+
+def _to_cpu(x):
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_to_cpu(v) for v in x)) if hasattr(x, "_fields") \
+            else tuple(_to_cpu(v) for v in x)
+    return x.cpu()
+
+
+def check_budget(torch, dev, rt, cs, card: str) -> None:
+    """Phase 17 (c): ``analysis.ranges``' budget run on kernel B against
+    its plain version."""
+    from repro_torch.analysis import ranges
+    cfg = ranges.budget_config(rt.paper_platform().with_(chunk=CHUNK))
+    on = cfg.with_(chunk_step_kernel="on")
+    n = ranges.N_CHUNKS_BUDGET
+    cs.KERNEL.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_st, k_outs, time0 = ranges.budget_run(on, n, device=dev)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    if cs.KERNEL.launches != 2:
+        raise Mismatch(f"the budget run launched kernel B "
+                       f"{cs.KERNEL.launches} times, not twice")
+    t0 = time.perf_counter()
+    p_st, p_outs, _ = ranges.budget_run(cfg, n, device=dev, seq=True,
+                                        time0=time0)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    compare_run(torch, "the budget run", (k_st, k_outs), (p_st, p_outs))
+    problems, ends = ranges.saturation(k_st, time0, n * cfg.chunk)
+    print(f"  (c) budget run: {n} chunks of {cfg.chunk} on kernel B (two "
+          f"launches, {k_s:.2f} s with the origin run) from time {time0}: "
+          f"bitwise equal to its plain version ({p_s:.1f} s); HOTNESS "
+          f"{ends['HOTNESS']}, WEAR {ends['WEAR']}, EPOCH {ends['EPOCH']}, "
+          f"clock {ends['clock']}, writes_slow "
+          f"{ends['counters.writes_slow']}, swaps {ends['swaps_done']} "
+          f"[{card}]", flush=True)
+    if problems:
+        raise Mismatch("the budget run: FAILED: " + "; ".join(problems))
+
+
+def check_donation(torch, dev, rt) -> None:
+    """Phase 17 (d): a consumed state's storage identity on kernel B."""
+    from repro_torch.analysis.donation import kept_storage
+    from repro_torch.sweep import SweepSpec
+    cfg = rt.small_platform(chunk=16)
+    eng = rt.Engine(cfg, device=dev)
+    z = torch.arange(96, dtype=torch.int32, device=dev) % cfg.n_pages
+    trace = rt.core.Trace(z, z * 0, z % 3 == 0, torch.full_like(z, 64))
+    half = rt.core.Trace(*(x[:40] for x in trace)), \
+        rt.core.Trace(*(x[40:] for x in trace))
+    # Each consumed state is read for its storage only: that is the check.
+    st = eng.run(trace).state
+    nxt = eng.run(trace, state=st).state
+    # reprolint: allow[donation] the consumed state's storage
+    moved = {"run": kept_storage(st, nxt)}
+    st = nxt
+    nxt = eng.run_stream(list(half), state=st).state
+    # reprolint: allow[donation] the consumed state's storage
+    moved["run_stream"] = kept_storage(st, nxt)
+    sw = eng.sweep(SweepSpec(base=cfg, policies=("hotness", "static")),
+                   trace)
+    cont = eng.continue_sweep(sw, trace)
+    # reprolint: allow[donation] the consumed states' storage
+    moved["continue_sweep"] = kept_storage(sw.states, cont.states)
+    bad = {k: v for k, v in moved.items() if v}
+    if bad:
+        raise Mismatch(f"a consumed state's result left its memory: {bad}")
+    print("  (d) Engine.run(state=), run_stream and continue_sweep on "
+          "kernel B: every tensor of the result in the passed state's "
+          "memory", flush=True)
+
+
+def check_slice17(torch, dev, rt, cs, card: str, first) -> None:
+    check_stages(torch, dev, rt, cs, first)
+    check_budget(torch, dev, rt, cs, card)
+    check_donation(torch, dev, rt)
+
+
+# --------------------------------------------------------------------------- #
+# phase 18: the kernel sanitizer's checks on the card
+# --------------------------------------------------------------------------- #
+
+def check_kernel_san(torch, dev, cs, card: str) -> None:
+    """Phase 18 (module docstring)."""
+    from repro_torch.analysis import kernel_san
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    print(f"  the card's opt-in shared memory a block: {optin} B (the "
+          f"pass's limit {kernel_san.H100_SMEM_OPTIN} B)", flush=True)
+    fails = []
+    if optin != kernel_san.H100_SMEM_OPTIN:
+        fails.append(f"the card allows {optin} B a block, the pass "
+                     f"assumes {kernel_san.H100_SMEM_OPTIN}")
+    for label, b, _ in kernel_san.footprints():
+        if not label.startswith("chunk_step"):
+            continue
+        chunk, banks = int(label.split()[2]), int(label.split()[4])
+        layout, _ = cs.chunk_layout(str(dev), chunk, banks)
+        want = "workspace" if b > kernel_san.H100_SMEM_OPTIN else "shared"
+        if layout != want and abs(b - kernel_san.H100_SMEM_OPTIN) > 16384:
+            fails.append(f"{label}: the card took the {layout} layout, the "
+                         f"pass predicts {want}")
+    print(f"  kernel B's layouts at chunks {kernel_san.CHUNKS}: as the "
+          f"footprints predict", flush=True)
+    rows = kernel_san.card_checks(dev)
+    for r in rows:
+        share = "bitwise" if r["share"] == 0 else f"share {r['share']:.3f}"
+        print(f"  {r['name']}: {r['launches']} launches under 2 poisons; "
+              f"against its plain version {share}; the same under both "
+              f"poisons: {r['stable']}; guard bands intact over "
+              f"{r['buffers']} buffers: {not r['guards']} [{card}]",
+              flush=True)
+        fails += r["fails"]
+    if fails:
+        raise Mismatch("the kernel sanitizer's checks: FAILED: "
+                       + "; ".join(fails))
 
 
 def event_ms(torch, fn, budget_ms: float = 150.0) -> float:
@@ -6079,10 +6420,11 @@ def check_rwkv_split(torch, rw, case, events_ms: float) -> None:
 
 
 def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict,
-                      mesh_train_launches: dict) -> list:
+                      mesh_train_launches: dict, later: dict) -> list:
     """One ``kernels`` entry per model kernel: the times of its first case
     (the main shape), the largest error over its cases, and its launches
-    over phase 12's training steps, phase 14 and phase 15."""
+    over phase 12's training steps, phase 14, phase 15 and (``later``,
+    each key's counts by kernel) phases 16-18."""
     meta = {
         "flash_attention": "src/repro/kernels/flash_attention.py:111",
         "decode_attention": "src/repro/kernels/decode_attention.py:100",
@@ -6099,6 +6441,7 @@ def model_kernel_rows(m6, train_launches: dict, mesh_launches: dict,
             "train_launches": train_launches[name],
             "mesh_launches": mesh_launches.get(name, 0),
             "mesh_train_launches": mesh_train_launches.get(name, 0),
+            **{k: v[name] for k, v in later.items()},
             "max_abs_err": max(r["err"] for r in res), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
@@ -6166,6 +6509,8 @@ def main() -> int:
         a_main_ms = kernel_a_main_ms(torch, rt, hl, main_run)
         counts = {route: main_run["results"][route][1]
                   for route in ("auto", "off")}
+        # phase 17's stage cut reads the first two chunks
+        first = tuple(x[:2 * CHUNK].clone() for x in main_run["trace"])
         del main_run
 
         print("[6] model kernels at full width", flush=True)
@@ -6231,11 +6576,43 @@ def main() -> int:
         print(f"[15] training over a mesh: {MESH_RANKS} gloo ranks on "
               f"{dev} ({card})", flush=True)
         t0 = time.perf_counter()
-        s15 = check_mesh_train(torch, card)
+        records: dict = {}
+        s15 = check_mesh_train(torch, card, records=records)
         print(f"    phase 15 took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        print("[16] per-kernel numbers", flush=True)
+        counted = (hl, cs, fa, da, rw)
+        print(f"[16] the dry run against the card ({card})", flush=True)
+        t0 = time.perf_counter()
+        for m in counted:
+            m.KERNEL.reset()
+        check_dryrun(torch, card, records["a"])
+        s16 = {m.KERNEL.name: m.KERNEL.launches for m in counted}
+        print(f"    launches {s16}; phase 16 took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        print(f"[17] the stage cut and the budget run ({card})", flush=True)
+        t0 = time.perf_counter()
+        for m in counted:
+            m.KERNEL.reset()
+        check_slice17(torch, dev, rt, cs, card, first)
+        s17 = {m.KERNEL.name: m.KERNEL.launches for m in counted}
+        print(f"    launches {s17}; phase 17 took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        print(f"[18] the kernel sanitizer's checks on the card ({card})",
+              flush=True)
+        t0 = time.perf_counter()
+        for m in counted:
+            m.KERNEL.reset()
+        check_kernel_san(torch, dev, cs, card)
+        s18 = {m.KERNEL.name: m.KERNEL.launches for m in counted}
+        print(f"    launches {s18}; phase 18 took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        later = {"dryrun_launches": s16, "stage_launches": s17,
+                 "kernel_san_launches": s18}
+
+        print("[19] per-kernel numbers", flush=True)
         k_ms, p_ms, lib_ms, a_bound = a["fused"][1]
         kernels = [
             {"name": "hmmu_lookup", "route": "cuda",
@@ -6253,6 +6630,7 @@ def main() -> int:
              "train_launches": s12["launches"]["hmmu_lookup"],
              "mesh_launches": s14["hmmu_lookup"],
              "mesh_train_launches": s15["hmmu_lookup"],
+             **{k: v["hmmu_lookup"] for k, v in later.items()},
              "max_abs_err": a["max_abs_err"], "ms": a_main_ms,
              "plain_ms": p_ms, "bound_ms": a_bound, "bound_by": "bytes",
              "library_ms": lib_ms},
@@ -6271,10 +6649,11 @@ def main() -> int:
              "train_launches": s12["launches"]["chunk_step"],
              "mesh_launches": s14["chunk_step"],
              "mesh_train_launches": s15["chunk_step"],
+             **{k: v["chunk_step"] for k, v in later.items()},
              "max_abs_err": b["max_abs_err"], "ms": b_num["ms"],
              "plain_ms": b_num["plain_ms"], "bound_ms": b_num["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
-            *model_kernel_rows(m6, s12["launches"], s14, s15),
+            *model_kernel_rows(m6, s12["launches"], s14, s15, later),
         ]
         print(f"    kernel A's fused entry alone at B=1 x {CHUNK + 2} rows: "
               f"{k_ms * 1e3:.2f} us; the script took "

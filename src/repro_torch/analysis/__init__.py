@@ -10,15 +10,22 @@ with ``--pass <name>``; fixture/file mode takes explicit paths. To exempt
 a line, add ``# reprolint: allow[<pass>] <why>`` — the reason is part of
 the contract.
 
-Passes: lanes (AST lane-accessor discipline on the packed table),
-staticness (AST: no per-point ``RuntimeParams`` tensor in Python control
-flow; ``static_key`` completeness by perturbation; the dispatch key is
-the geometry), tripwire (``assert_compile_flat`` over the dispatch keys
-behind ``Engine.compile_count``, and its adoption sites), docrefs (stale
-legacy-entry-point references). The JAX package's ``schedule``,
-``donation``, ``ranges`` and ``pallas_san`` read jaxprs, lowered
-aliasing or Pallas geometry and have no counterpart here; the port's
-tests hold what they guard (ROADMAP §1 item 6).
+Passes: schedule (the chunk's table reads, its one boundary commit and
+the writes after it, recorded op by op under a dispatch mode), donation
+(a consumed state's result in the passed state's memory, the registry
+of in-place sites, AST read-after-donate), lanes (AST lane-accessor
+discipline on the packed table), staticness (AST: no per-point
+``RuntimeParams`` tensor in Python control flow; ``static_key``
+completeness by perturbation; the dispatch key is the geometry),
+tripwire (``assert_compile_flat`` over the dispatch keys behind
+``Engine.compile_count``, and its adoption sites), docrefs (stale
+legacy-entry-point references), ranges (the declared run budget, the
+int32 clock horizon, every table index in bounds; ``--report`` adds the
+budget run's saturation), kernel_san (the CUDA kernels' shared-memory
+footprints at every launch geometry; on the card, ``chip_smoke.py``
+phase 18). The JAX package's ``schedule``, ``donation`` and ``ranges``
+read jaxprs and ``pallas_san`` Pallas geometry: each module here says
+how it restates its counterpart's contract for PyTorch.
 
 This package imports no module of the JAX package.
 """
@@ -26,7 +33,16 @@ from __future__ import annotations
 
 import pathlib
 
-from . import docrefs, lanes, staticness, tripwire
+from . import (
+    docrefs,
+    donation,
+    kernel_san,
+    lanes,
+    ranges,
+    schedule,
+    staticness,
+    tripwire,
+)
 from .common import Finding, repo_root
 from .tripwire import RecompileError, assert_compile_flat
 
@@ -41,10 +57,14 @@ __all__ = [
 ]
 
 PASSES = {
+    "schedule": schedule,
+    "donation": donation,
     "lanes": lanes,
     "staticness": staticness,
     "tripwire": tripwire,
     "docrefs": docrefs,
+    "ranges": ranges,
+    "kernel_san": kernel_san,
 }
 
 

@@ -108,6 +108,23 @@ def apply_pragmas(findings: list[Finding], source: str) -> list[Finding]:
             if f.pass_name not in allowed.get(f.line, ())]
 
 
+def pragma_filter(findings: list[Finding], root: pathlib.Path
+                  ) -> list[Finding]:
+    """:func:`apply_pragmas` against each finding's own source file (a
+    path relative to ``root``, or absolute); findings on no file pass."""
+    by_path: dict = {}
+    out = []
+    for f in findings:
+        p = root / f.path
+        if not p.is_file():
+            out.append(f)
+            continue
+        by_path.setdefault(p, []).append(f)
+    for p, fs in by_path.items():
+        out.extend(apply_pragmas(fs, p.read_text()))
+    return out
+
+
 def load_module_from_path(path: pathlib.Path):
     """Import a fixture module by file path (no package side effects)."""
     path = pathlib.Path(path)
@@ -123,3 +140,70 @@ def fixture_case(path: pathlib.Path):
     mod = load_module_from_path(path)
     case = getattr(mod, "reprolint_case", None)
     return case() if case is not None else None
+
+
+# --------------------------------------------------------------------------- #
+# The adversarial chunk-step probe the dynamic passes run
+# --------------------------------------------------------------------------- #
+
+def adversarial_step(cfg=None, registry=None, *, seed: int = 0,
+                     n_chunks: int = 6, device="cpu") -> dict:
+    """Inputs for ``kernels.chunk_step.step_batch`` that reach every
+    branch the passes watch: one design point per policy of ``registry``
+    (each its own ``policy_id``), a start state holding pins, a POISONED
+    page and a swap in flight, a fault plan with deaths and transients,
+    and ``n_chunks`` chunks of requests on pages 0 and ``n_pages - 1``,
+    on the swap pair and on random pages, some lanes invalid with pages
+    past either end of the table. Returns ``dict(cfg, registry, states,
+    params, faults, chunks)``; ``chunks`` is a list of (page, offset,
+    is_write, size, valid), each [B, chunk]."""
+    import numpy as np
+    import torch
+
+    from ..core import faults as faults_lib
+    from ..core import small_platform
+    from ..core import table as table_lib
+    from ..core.config import RuntimeParams
+    from ..core.emulator import init_states
+    from ..core.policies import PolicyRegistry
+
+    cfg = cfg or small_platform(chunk=8, hot_threshold=2, decay_every=4,
+                                endurance_budget=2, write_weight=3)
+    registry = registry or PolicyRegistry.snapshot()
+    b = len(registry)
+    one = RuntimeParams.from_config(cfg, device=device)
+    params = RuntimeParams(*(x.expand(b).clone() for x in one))._replace(
+        policy_id=torch.arange(b, dtype=torch.int32, device=device))
+    states = init_states(cfg, params)
+    nf, n = cfg.n_fast_pages, cfg.n_pages
+    table = table_lib.set_flags(states.table, [[0, 1]] * b,
+                                table_lib.PIN_FAST)
+    table = table_lib.set_flags(table, [[nf + 1]] * b, table_lib.PIN_SLOW)
+    table = table_lib.set_flags(table, [[nf + 3]] * b, table_lib.POISONED)
+    states.table.copy_(table)
+    full = lambda v: torch.full((b,), v, dtype=torch.int32, device=device)
+    states = states._replace(dma=states.dma._replace(
+        active=full(1), page_a=full(nf + 2), page_b=full(nf - 1),
+        start=full(0)))
+    rng = np.random.default_rng(seed)
+    m = n_chunks * cfg.chunk
+    page = np.where(rng.random(m) < 0.5, nf + rng.integers(0, 6, m),
+                    rng.integers(0, n, m))
+    page[rng.random(m) < 0.2] = nf + 2                     # the swap pair
+    page[::5], page[1::7] = 0, n - 1                       # both ends
+    valid = rng.random(m) >= 0.15
+    page[~valid] = rng.choice([-1, -n - 3, n, n + 7], (~valid).sum())
+    offset = rng.integers(0, cfg.page_size // 64, m) * 64
+    is_write = rng.random(m) < 0.5
+    size = np.full(m, cfg.line_size)
+    arrays = [torch.from_numpy(a.astype(dt)).to(device)
+              for a, dt in ((page, np.int32), (offset, np.int32),
+                            (is_write, bool), (size, np.int32),
+                            (valid, bool))]
+    chunks = [tuple(a[c * cfg.chunk:(c + 1) * cfg.chunk].expand(b, -1)
+                    .contiguous() for a in arrays) for c in range(n_chunks)]
+    faults = faults_lib.seeded_plan(seed, pages=np.arange(nf, n),
+                                    n_chunks=n_chunks, n_deaths=2,
+                                    n_transient=6, device=device)
+    return dict(cfg=cfg, registry=registry, states=states, params=params,
+                faults=faults, chunks=chunks)

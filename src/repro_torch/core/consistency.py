@@ -13,3 +13,11 @@ def in_order_returns(complete: torch.Tensor,
     chunk's last return (the FIFO never reorders across chunks either)."""
     shifted = torch.maximum(complete, last_return[..., None])
     return torch.cummax(shifted, dim=-1).values
+
+
+def reorder_depth(complete: torch.Tensor) -> torch.Tensor:
+    """Diagnostic: how many responses had to wait behind an earlier one
+    (0 == every one was already in order): an int32 0-dim count over
+    every leading axis too, as the reference sums it."""
+    ret = torch.cummax(complete, dim=-1).values
+    return (ret > complete).sum(dtype=torch.int32)

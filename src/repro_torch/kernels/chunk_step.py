@@ -171,14 +171,22 @@ def _each_point(fn):
 def pipeline_phase(cfg: EmulatorConfig, params: RuntimeParams,
                    table: torch.Tensor, sc: StepScalars,
                    bank_free: torch.Tensor, page, offset, is_write, size,
-                   valid, *, seq: bool = False) -> PipelineOut:
+                   valid, *, seq: bool = False, upto: str = "full"
+                   ) -> PipelineOut:
     """Stages 1-5 of the paper's Fig 2 workflow for every point: RX link,
     table lookup + DMA-conflict redirect, bank queues + media access,
-    tag-match in-order return, TX link. Reads the table only."""
+    tag-match in-order return, TX link. Reads the table only.
+
+    ``upto`` truncates after a named stage ("rx" / "gather" / "resolve")
+    for the per-stage breakdown (:func:`step_until`): the fields not
+    reached come back zeroed."""
     n = page.shape[-1]
     n_pages = table.shape[-2]
     size = torch.where(valid, size, 0)
     mp = _each_point(_seq_maxplus) if seq else latency.maxplus_scan
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=page.device)
 
     # --- stage 1: RX link (host -> HMMU). Writes carry payload.
     step = torch.arange(1, n + 1, dtype=torch.int32, device=page.device)
@@ -191,6 +199,12 @@ def pipeline_phase(cfg: EmulatorConfig, params: RuntimeParams,
                                                   _NEG)), rx_srv)
     half_link = _col(params.link_lat // 2)
     arrive = rx_done + torch.where(valid, half_link, 0)
+    if upto == "rx":
+        zv, zs = zeros(*page.shape), zeros(*page.shape[:-1])
+        zrow = zeros(*page.shape[:-1], table.shape[-1])
+        return PipelineOut(zv, zv, zrow, zrow, zv, zv, zs,
+                           torch.zeros_like(valid), bank_free,
+                           rx_done[..., -1], zs, zv)
 
     # --- stage 2: redirection-table lookup (+ DMA swap-progress redirect):
     # every point's chunk rows and swap pair in one gather.
@@ -212,6 +226,10 @@ def pipeline_phase(cfg: EmulatorConfig, params: RuntimeParams,
     dev, frm = dma_lib.redirect(cfg, sc.dma, page, offset, arrive, dev, frm,
                                 row_a, row_b, params)
     poisoned = valid & table_lib.is_poisoned(rows)
+    if upto == "gather":
+        zv, zs = zeros(*page.shape), zeros(*page.shape[:-1])
+        return PipelineOut(dev, frm, row_a, row_b, zv, zv, zs, poisoned,
+                           bank_free, rx_done[..., -1], zs, hot_pre)
 
     # --- stage 3: per-device bank queues + media access.
     bank = dev * cfg.n_banks + frm % cfg.n_banks
@@ -226,6 +244,10 @@ def pipeline_phase(cfg: EmulatorConfig, params: RuntimeParams,
                    else latency.resolve_bank_queues)
         med_done, bank_free2 = resolve(arrive, med_srv, bank,
                                        2 * cfg.n_banks, bank_free)
+    if upto == "resolve":
+        zv, zs = zeros(*page.shape), zeros(*page.shape[:-1])
+        return PipelineOut(dev, frm, row_a, row_b, zv, zv, zs, poisoned,
+                           bank_free2, rx_done[..., -1], zs, hot_pre)
 
     # --- stage 4: tag-match in-order return (paper §III-C) ...
     inorder = _each_point(_seq_inorder) if seq \
@@ -526,6 +548,58 @@ def step_ref(cfg: EmulatorConfig, registry: PolicyRegistry,
         *(x[None] for x in (page, offset, is_write, size, valid)), faults,
         seq=seq)
     return (table, index_points(sc2, 0), bank_free2[0],
+            {k: v[0] for k, v in outs.items()})
+
+
+STAGES = ("rx", "gather", "resolve", "return", "commit", "full")
+
+
+def step_until(cfg: EmulatorConfig, registry: PolicyRegistry,
+               table: torch.Tensor, params: RuntimeParams, sc: StepScalars,
+               bank_free: torch.Tensor, page, offset, is_write, size, valid,
+               faults: faults_lib.FaultPlan | None = None, *,
+               upto: str = "full"):
+    """A :func:`step_ref`-shaped step (one point) truncated after ``upto``
+    (one of :data:`STAGES`): the per-stage breakdown of the chunk step.
+    The truncated steps keep the carry's structure (the clock still
+    advances; the retirement registers pass through), so they chain
+    chunk after chunk; the time between successive stages is each
+    stage's cost. ``"commit"`` writes the table in place."""
+    if upto == "full":
+        return step_ref(cfg, registry, table, params, sc, bank_free, page,
+                        offset, is_write, size, valid, faults)
+    if upto not in STAGES:
+        raise ValueError(f"unknown stage {upto!r}; expected one of {STAGES}")
+    one = functools.partial(index_points, i=None)
+    p1, sc1 = one(params), one(sc)
+    page, offset, is_write, size, valid = (
+        x[None] for x in (page, offset, is_write, size, valid))
+    n = page.shape[-1]
+    pipe_upto = upto if upto in ("rx", "gather", "resolve") else "full"
+    pipe = pipeline_phase(cfg, p1, table[None], sc1, bank_free[None], page,
+                          offset, is_write, size, valid, upto=pipe_upto)
+    outs = {"returns": torch.where(valid, pipe.returns, 0),
+            "device": pipe.dev, "latency": pipe.lat,
+            "held": pipe.held, "poisoned": pipe.poisoned}
+    any_valid = valid.any(dim=-1)
+    rx_free = torch.where(any_valid, pipe.rx_last, sc1.link_free_rx)
+    if upto == "commit":
+        _, dma, _, now, last_ret, min_wear, _ = commit_phase(
+            cfg, p1, table[None], sc1, pipe, page, is_write, valid,
+            eff_write_weight(p1, registry))
+        sc2 = sc1._replace(
+            clock=now, chunk_idx=sc1.chunk_idx + 1, dma=dma,
+            link_free_rx=rx_free,
+            link_free_tx=torch.where(any_valid, pipe.tx_last,
+                                     sc1.link_free_tx),
+            last_return=last_ret, min_wear=min_wear)
+    else:
+        sc2 = sc1._replace(
+            clock=sc1.clock + p1.issue_gap * n,
+            chunk_idx=sc1.chunk_idx + 1, link_free_rx=rx_free,
+            link_free_tx=torch.where(any_valid & (pipe_upto == "full"),
+                                     pipe.tx_last, sc1.link_free_tx))
+    return (table, index_points(sc2, 0), pipe.bank_free[0],
             {k: v[0] for k, v in outs.items()})
 
 

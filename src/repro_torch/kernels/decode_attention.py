@@ -34,6 +34,17 @@ MIN_SPLIT = 64         # fewest cache rows a split reads
 MAX_BLOCKS = 2048      # ~16 split blocks per SM of the H100's 132
 
 
+def smem_bytes(hq: int, hkv: int) -> int:
+    """Shared memory of one split block (``csrc/decode_attention.cu``): the
+    ring of 4 stages of K and V chunks of 8,192 bytes (dynamic), and the
+    warps' running max and sum [4][GT] in float32 with the stages' 8-byte
+    barriers (static); GT, the query heads a block serves, is the group
+    size rounded up to 1, 2, 4 or 8."""
+    group = hq // hkv
+    gt = next((g for g in (1, 2, 4) if group <= g), 8)
+    return 4 * 2 * 8192 + 2 * 4 * gt * 4 + 8 * 4
+
+
 def split_plan(b: int, hkv: int, smax: int,
                window: int | None = None) -> tuple[int, int]:
     """(n_split, L): the cache axis of every sequence is read as n_split

@@ -29,6 +29,33 @@ KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
 BLOCK = 128        # the TPU kernel's default q and kv block
 MAX_HEAD_DIM = 256
 
+# The head dims each path is built for (csrc/flash_attention.cu: the
+# "mma" path's FA_CASE list, the "wgmma" path's D 64, 128 and 256).
+MMA_DIMS = (16, 32, 64, 96, 128, 192, 256)
+WGMMA_DIMS = (64, 128, 256)
+
+
+def path_of(d: int, dtype: torch.dtype) -> str:
+    """The path a call takes: "wgmma" for bf16 at D % 8 == 0, else
+    "mma"."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "mma"
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block (``Tile<DP>::kBytes`` and
+    ``wg::Tile<D>::kBytes`` in ``csrc/flash_attention.cu``): "mma" holds Q
+    [128, DP + 4] and two stages of K and V [BK, DP + 4] in float32 (BK 64,
+    32 at DP 96 and 192, 16 at 256); "wgmma" Q [128, D] and two stages of
+    K and V [BK, D] in bf16 (BK 128, 64 at D 256), 56 bytes of barriers
+    and 1,024 of alignment."""
+    if path_of(d, dtype) == "wgmma":
+        dp = next(x for x in WGMMA_DIMS if d <= x)
+        bk = 64 if dp == 256 else 128
+        return 128 * dp * 2 + 4 * bk * dp * 2 + 8 * 7 + 1024
+    dp = next(x for x in MMA_DIMS if d <= x)
+    bk = 32 if dp in (96, 192) else 16 if dp == 256 else 64
+    return (128 + 4 * bk) * (dp + 4) * 4
+
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,

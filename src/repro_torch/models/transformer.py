@@ -33,7 +33,10 @@ On a mesh (``ShardCtx.from_mesh``; see ``sharding`` for the layout) every
 entry point takes the rank's batch rows; ``shard_params`` keeps a rank's
 experts; ``init_cache`` and ``prefill`` build the rank's slice of a cache
 split on its sequence axis over ``"model"``, which ``decode_step`` writes
-only where the rank holds the row; ``loss_fn`` is the mean over every
+only where the rank holds the row, and the rank's block of RWKV's and
+Mamba's recurrent states where ``launch.shardings.cache_specs`` splits
+them over ``"model"`` (``decode_step`` gathers a layer's state whole,
+steps it and keeps the rank's block); ``loss_fn`` is the mean over every
 rank's tokens, and ``reduce_grads`` makes each rank's gradients those of
 that global loss.
 
@@ -518,6 +521,55 @@ def _hymba_rings(cfg: ModelConfig, cache: dict, smax: int) -> tuple:
     return tuple(out)
 
 
+def _state_split(cfg: ModelConfig, sh: ShardCtx, name: str):
+    """The dimension of one layer's recurrent-state cache leaf ``name``
+    that a rank holds a block of on ``sh``'s mesh, over ``"model"``, as
+    ``launch.shardings.cache_specs`` places it: RWKV's ``state`` [B, H,
+    Dk, Dv] by its heads, Hymba's ``conv`` [B, K-1, di] and ``ssm`` [B,
+    di, N] by di, where the model axis divides them; None where the rank
+    holds the leaf whole."""
+    if sh.mesh is None:
+        return None
+    family = _family(cfg)
+    if family == "rwkv6" and name == "state" and sh.divides(cfg.n_heads):
+        return 1
+    if family == "hymba" and sh.divides(cfg.n_heads * cfg.head_dim_):
+        return {"conv": 2, "ssm": 1}.get(name)
+    return None
+
+
+def _own_block(cfg: ModelConfig, sh: ShardCtx, name: str, x: torch.Tensor,
+               lead: int = 0) -> torch.Tensor:
+    """This rank's block of a whole recurrent state ``x`` (with ``lead``
+    leading axes before a layer's, e.g. the layer axis), as a tensor of
+    its own; ``x`` itself where the rank holds it whole."""
+    d = _state_split(cfg, sh, name)
+    if d is None:
+        return x
+    n = x.shape[d + lead] // sh.size("model")
+    return x.narrow(d + lead, sh.coord("model") * n, n).clone()
+
+
+def _whole_state(cfg: ModelConfig, sh: ShardCtx, c: dict, name: str
+                 ) -> torch.Tensor:
+    """One layer's recurrent state ``c[name]``, whole (all-gathered over
+    ``"model"`` where the rank holds a block)."""
+    d = _state_split(cfg, sh, name)
+    return c[name] if d is None else dist.all_gather(c[name], d, sh)
+
+
+def _keep_state(cfg: ModelConfig, sh: ShardCtx, c: dict, name: str,
+                x: torch.Tensor) -> None:
+    """Write a layer's new whole state ``x`` into ``c[name]``, in place:
+    the rank's block of it where it holds a block."""
+    d = _state_split(cfg, sh, name)
+    if d is not None:
+        n = c[name].shape[d]
+        x = x.narrow(d, sh.coord("model") * n, n)
+    if x is not c[name]:
+        c[name].copy_(x)
+
+
 def _own_rows(sh: ShardCtx, c: torch.Tensor, axis: int) -> torch.Tensor:
     """This rank's slice of a cache's sequence axis (all of it unless the
     model axis splits it), as a tensor of its own."""
@@ -548,9 +600,13 @@ def prefill(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
         cache = {n: _own_rows(sh, _pad_seq(c, 2, smax), 2)
                  for n, c in cache.items()}
     elif family == "hymba":
-        cache = tuple({n: _own_rows(sh, c, 2) if n in ("k", "v") else c
+        cache = tuple({n: _own_rows(sh, c, 2) if n in ("k", "v") else
+                       _own_block(cfg, sh, n, c)
                        for n, c in ring.items()}
                       for ring in _hymba_rings(cfg, cache, smax))
+    else:                                   # rwkv6: stacked over layers
+        cache = {n: _own_block(cfg, sh, n, c, lead=1)
+                 for n, c in cache.items()}
     logits = layers.lm_logits(cfg, _head(cfg, params, sh), x[:, -1:],
                               sh)[:, 0]
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -574,7 +630,8 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None,
     """Empty decode cache (capacity smax) in the activation dtype (RWKV's
     and Mamba's recurrent states in float32): stacked over layers, except
     Hymba's, a tuple of per-layer dicts (ring buffers of different
-    sizes). On a mesh, this rank's slice of every sequence axis."""
+    sizes). On a mesh, this rank's slice of every sequence axis, and its
+    block of the recurrent states where ``_state_split`` splits them."""
     family = _family(cfg)
     device = resolve_device(device)
     n = sh.seq_shards
@@ -584,6 +641,10 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None,
         raise ValueError(f"cache capacities {sizes} do not split {n} ways")
     smax //= n
     L, b, hd = cfg.n_layers, batch, cfg.head_dim_
+
+    def part(name, size):            # a state dimension, the rank's block
+        split = _state_split(cfg, sh, name) is not None
+        return size // sh.size("model") if split else size
     zeros = lambda *shape, dtype=cfg.adtype: torch.zeros(
         shape, dtype=dtype, device=device)
     if family == "gqa":
@@ -596,14 +657,16 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device=None,
     if family == "rwkv6":
         h = cfg.n_heads
         dh = cfg.d_model // h
-        return {"state": zeros(L, b, h, dh, dh, dtype=torch.float32),
+        return {"state": zeros(L, b, part("state", h), dh, dh,
+                               dtype=torch.float32),
                 "prev_att": zeros(L, b, cfg.d_model),
                 "prev_ffn": zeros(L, b, cfg.d_model)}
     di = cfg.n_heads * hd
     return tuple({"k": zeros(b, cfg.n_kv_heads, size, hd),
                   "v": zeros(b, cfg.n_kv_heads, size, hd),
-                  "conv": zeros(b, cfg.ssm.d_conv - 1, di),
-                  "ssm": zeros(b, di, cfg.ssm.d_state, dtype=torch.float32)}
+                  "conv": zeros(b, cfg.ssm.d_conv - 1, part("conv", di)),
+                  "ssm": zeros(b, part("ssm", di), cfg.ssm.d_state,
+                               dtype=torch.float32)}
                  for size in (s // n for s in sizes))
 
 
@@ -658,13 +721,17 @@ def _decode_block(cfg: ModelConfig, sh: ShardCtx, p, x, c: dict, pos,
         mamba_lib.hymba_write_kv(cfg, p["attn"], h, c, new_len,
                                  slot=pos % size, sh=sh)
         eff_len = torch.clamp(new_len, max=size)
-        a, _ = mamba_lib.hymba_decode(cfg, p["attn"], h, sh, c, new_len,
-                                      eff_len)
+        states = {n: _whole_state(cfg, sh, c, n) for n in ("conv", "ssm")}
+        a, _ = mamba_lib.hymba_decode(cfg, p["attn"], h, sh,
+                                      {**c, **states}, new_len, eff_len)
+        for n, state in states.items():
+            _keep_state(cfg, sh, c, n, state)
     else:
         a, prev_att, state = rwkv_lib.rwkv_decode_step(
-            cfg, p["attn"], h, sh, c["prev_att"], c["state"])
+            cfg, p["attn"], h, sh, c["prev_att"],
+            _whole_state(cfg, sh, c, "state"))
         c["prev_att"].copy_(prev_att)
-        c["state"].copy_(state)
+        _keep_state(cfg, sh, c, "state", state)
     x = x + a
     h2 = layers.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps)
     if family == "rwkv6":

@@ -4,8 +4,10 @@ Every module of ``repro_torch``, the serving front end
 ``repro_torch.serve``, ``repro_torch.memtier``, ``repro_torch.models``,
 ``repro_torch.configs``, ``repro_torch.launch`` (``launch.mesh`` and the
 collectives of ``repro_torch.dist`` too), the simulator baselines
-``repro_torch.sims`` and the port's reprolint ``repro_torch.analysis``
-included (and the card scripts ``chip_smoke.py``, ``chip_faults.py``,
+``repro_torch.sims``, the production meshes' dry run
+``repro_torch.launch.dryrun`` and the port's reprolint
+``repro_torch.analysis`` (all eight passes) included (and the card
+scripts ``chip_smoke.py``, ``chip_faults.py``,
 ``chip_sweep_clusters.py``, ``chip_compare_off.py`` and
 ``chip_mesh_f32.py``, and the port's
 examples ``examples/*_torch.py``) imports with ``jax`` and ``repro`` made
@@ -87,6 +89,12 @@ _SLICE13 = ("repro_torch.sims", "repro_torch.sims.trace_sim",
 _MESH = ("repro_torch.launch.mesh", "repro_torch.dist",
          "repro_torch.launch.shardings")
 
+# The last modules: the production meshes' dry run and reprolint's four
+# passes restated for PyTorch.
+_LAST = ("repro_torch.launch.dryrun", "repro_torch.analysis.schedule",
+         "repro_torch.analysis.donation", "repro_torch.analysis.ranges",
+         "repro_torch.analysis.kernel_san")
+
 _IMPORT_EXAMPLES = r"""
 import importlib.util, sys
 sys.modules["jax"] = None
@@ -118,6 +126,7 @@ def test_port_imports_without_jax_or_repro():
     assert set(_TRAIN) <= set(names)
     assert set(_SLICE13) <= set(names)
     assert set(_MESH) <= set(names)
+    assert set(_LAST) <= set(names)
 
 
 def test_examples_import_without_jax_or_repro():

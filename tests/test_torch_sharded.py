@@ -339,6 +339,8 @@ def _serve_rank(rank, world, tp, cfg, params_np, prompt, steps):
 DECODE_CASES = {
     "minitron": ("minitron_8b", {}, 2, 4),          # data 2 x model 2
     "hymba": ("hymba_1p5b", dict(n_heads=3, n_kv_heads=1), 2, 2),
+    # the recurrent state split by its 4 heads
+    "rwkv6": ("rwkv6_7b", {}, 2, 4),
     # MLA's latent cache; capacity 8 drops no token, so the prefill's
     # expert-parallel MoE equals the dense one (a binding capacity is
     # held by test_expert_parallel_moe)
@@ -357,9 +359,10 @@ def _with(cfg, over):
 def test_sharded_decode_matches_jax(case, tmp_path):
     """Prefill and ``STEPS`` decode steps (the cache's sequence axis, or
     Hymba's rings, split over the model axis: each rank writes only the
-    rows it holds) against JAX's unsharded ``prefill`` / ``decode_step``:
-    logits within 1e-5 of their largest magnitude, each rank's cache
-    equal to its slice of JAX's."""
+    rows it holds; Hymba's Mamba states split by their inner width and
+    RWKV's state by its heads, each rank keeping its block) against JAX's unsharded ``prefill`` /
+    ``decode_step``: logits within 1e-5 of their largest magnitude, each
+    rank's cache equal to its slice of JAX's."""
     arch, over, tp, world = DECODE_CASES[case]
     jcfg = _with(JC.get_smoke(arch), over)
     cfg = _with(TC.get_smoke(arch), over)
@@ -390,8 +393,11 @@ def test_sharded_decode_matches_jax(case, tmp_path):
         for path, c in r["cache"].items():
             full = jcache[path][rows] if case == "hymba" else \
                 jcache[path][:, rows]
-            axis = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1}.get(
-                path.rsplit("/", 1)[1])
+            # the sequence axes, Hymba's Mamba states' inner width and
+            # RWKV's state heads, which the model axis splits as
+            # cache_specs does
+            axis = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1, "conv": 2,
+                    "ssm": 1, "state": 1}.get(path.rsplit("/", 1)[1])
             if axis is not None:
                 if case != "hymba":
                     axis += 1              # stacked over layers
