@@ -1,0 +1,85 @@
+"""BENCHMARK.json against the benchmark's contract: its keys, names,
+units, limits, and the files it names."""
+import json
+import pathlib
+import re
+
+from hmes_bench import discover
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+LINE = re.compile(r"^[^\n\t]{1,200}$")
+
+
+def test_top_level_keys_and_command():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["paths"] == ["hmes_bench"]
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert len(BENCH["command"]) <= 32
+    for word in BENCH["command"]:
+        assert LINE.match(word) and not word.startswith("/")
+        assert ".." not in word
+    assert (ROOT / BENCH["command"][1]).is_file()
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_configs():
+    assert 1 <= len(BENCH["configs"]) <= 24
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and LINE.match(c["source"])
+        assert LINE.match(c["why"]) and len(c["reduced"]) <= 16
+        assert c["file"].startswith("hmes_bench/")
+        data = json.loads((ROOT / c["file"]).read_text())
+        assert data["reduced"] == c["reduced"]
+        for k in c["reduced"]:
+            assert NAME.match(k) and k in data
+        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+    assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
+
+
+def test_cells():
+    names = [w["name"] for w in BENCH["workloads"]]
+    assert 1 <= len(names) <= 24 and len(set(names)) == len(names)
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(set(pairs)) == len(pairs)
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+        assert w["chips"] in (1, 4) and LINE.match(w["why"])
+        assert discover.traffic(ROOT, w["traffic"])["entry"]
+        assert sum(m["name"] == "setup_s" for m in
+                   discover.cell_metrics(BENCH, w["name"], False)) == 1
+        assert len(discover.cell_metrics(BENCH, w["name"], False)) >= 2
+        assert discover.cell_metrics(BENCH, w["name"], True)
+
+
+def test_metrics():
+    e2e, per = BENCH["end_to_end"], BENCH["per_layer"]
+    assert 1 <= len(e2e) <= 16 and 1 <= len(per) <= 128
+    names = [m["name"] for m in e2e + per]
+    assert len(set(names)) == len(names)
+    for m in e2e:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    assert {m["name"]: m["bound"] for m in e2e}["setup_s"] == 0.25
+    layers = {}
+    for m in per:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                          "layer", "moves"}
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
+        assert m["moves"] in {x["name"] for x in e2e}
+        assert LINE.match(m["layer"])
+        layers.setdefault(m["layer"], []).append(m["name"])
+    for m in e2e + per:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+        assert discover.reader(ROOT, m["name"]).read
+        if m["name"].endswith("_roofline") or "mfu" in m["name"]:
+            assert m["unit"] == "%"
