@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
 from .config import SLOW
 
 
@@ -137,6 +138,11 @@ def update(p, c: Counters, *, device: torch.Tensor,
 
 def summary(c: Counters) -> dict:
     """Host-side readable summary (Python numbers)."""
+    with telemetry.span("counters.summary"):
+        return _summary(c)
+
+
+def _summary(c: Counters) -> dict:
     g = lambda x: x.item() if hasattr(x, "item") else x
     n_reads = max(1, g(c.n_reads))
     return {

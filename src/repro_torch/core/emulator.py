@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from . import counters as counters_lib, dma as dma_lib, table as table_lib
+from .. import telemetry
 from .config import EmulatorConfig, RuntimeParams, static_key
 from .faults import FaultPlan
 from .indexing import index_points as _index
@@ -60,13 +61,14 @@ def init_state(cfg: EmulatorConfig, params: RuntimeParams | None = None,
     """Fresh platform state (tier boundary and pinned fraction from
     ``params`` when given, else from ``cfg``). Every field is its own
     tensor, so the state can be updated in place."""
-    if params is not None:
-        device = params.n_fast_pages.device
-    nf = None if params is None else params.n_fast_pages
-    pin = None if params is None else params.pin_fast_fraction
-    return EmulatorState(table=table_lib.init_table(cfg, nf, pin,
-                                                    device=device),
-                         **_fresh_fields(cfg, device))
+    with telemetry.span("emulator.init_state"):
+        if params is not None:
+            device = params.n_fast_pages.device
+        nf = None if params is None else params.n_fast_pages
+        pin = None if params is None else params.pin_fast_fraction
+        return EmulatorState(table=table_lib.init_table(cfg, nf, pin,
+                                                        device=device),
+                             **_fresh_fields(cfg, device))
 
 
 def _fresh_fields(cfg: EmulatorConfig, device, lead=()) -> dict:
@@ -102,12 +104,13 @@ def clone_state(state: EmulatorState) -> EmulatorState:
 
 def pad_trace(cfg: EmulatorConfig, t: Trace) -> tuple[Trace, torch.Tensor]:
     """Pad to a multiple of cfg.chunk; returns (trace, valid mask)."""
-    n = len(t)
-    rem = (-n) % cfg.chunk
-    valid = torch.arange(n + rem, device=t.page.device) < n
-    if rem:
-        t = Trace(*(torch.cat([x, x.new_zeros(rem)]) for x in t))
-    return t, valid
+    with telemetry.span("emulator.pad_trace"):
+        n = len(t)
+        rem = (-n) % cfg.chunk
+        valid = torch.arange(n + rem, device=t.page.device) < n
+        if rem:
+            t = Trace(*(torch.cat([x, x.new_zeros(rem)]) for x in t))
+        return t, valid
 
 
 def _step_scalars(state: EmulatorState) -> chunk_step_lib.StepScalars:
@@ -165,18 +168,19 @@ def _chunk_loop(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
     every point and broadcast as an expanded view (never copied a
     point), or [B, N]; ``valid`` is [N]. Returns the final states (the
     passed table updated in place) and the [B, N] outputs."""
-    b = states.table.shape[0]
-    trace = Trace(*(x.expand(b, -1) for x in trace))
-    valid = valid.expand(b, -1)
-    new, parts = states, []
-    for lo in range(0, len(trace), cfg.chunk):
-        sl = slice(lo, lo + cfg.chunk)
-        new, out = _chunk_step(cfg, params, registry, faults, new,
-                               Trace(*(x[:, sl] for x in trace)),
-                               valid[:, sl], seq)
-        parts.append(out)
-    return new, {k: torch.cat([p[k] for p in parts], dim=-1)
-                 for k in parts[0]}
+    with telemetry.span("emulator.chunk_loop"):
+        b = states.table.shape[0]
+        trace = Trace(*(x.expand(b, -1) for x in trace))
+        valid = valid.expand(b, -1)
+        new, parts = states, []
+        for lo in range(0, len(trace), cfg.chunk):
+            sl = slice(lo, lo + cfg.chunk)
+            new, out = _chunk_step(cfg, params, registry, faults, new,
+                                   Trace(*(x[:, sl] for x in trace)),
+                                   valid[:, sl], seq)
+            parts.append(out)
+        return new, {k: torch.cat([p[k] for p in parts], dim=-1)
+                     for k in parts[0]}
 
 
 def _tensors(x) -> list:
@@ -257,11 +261,12 @@ def _launch(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
     stacked one."""
     cs = chunk_step_lib
     b = states.table.shape[0]
-    ints, floats = cs._pack_scalars(params, _step_scalars(states))
-    c_int, c_float = cs.pack_counters(states.counters)
-    vec = [x.to(torch.int32).expand(b, -1).contiguous()
-           for x in (*trace, valid)]
-    plan = [x.expand(b, -1, -1).contiguous() for x in faults]
+    with telemetry.span("chunk_step.pack"):
+        ints, floats = cs._pack_scalars(params, _step_scalars(states))
+        c_int, c_float = cs.pack_counters(states.counters)
+        vec = [x.to(torch.int32).expand(b, -1).contiguous()
+               for x in (*trace, valid)]
+        plan = [x.expand(b, -1, -1).contiguous() for x in faults]
     return cs.chunk_step_cuda(cfg, registry, states.table, ints, floats,
                               states.bank_free, *vec, *plan, c_int, c_float)
 
@@ -271,11 +276,13 @@ def _emulate_kernel(cfg: EmulatorConfig, registry: PolicyRegistry,
                     params: RuntimeParams, faults: FaultPlan
                     ) -> tuple[EmulatorState, dict]:
     """Every chunk of the trace in ONE launch of the chunk-step kernel
-    (which updates the table in place); returns the final state and the
-    outputs."""
+    (which updates the table in place); returns ``state`` holding the
+    final state, and the outputs."""
     out = _launch(cfg, registry, trace, valid, _index(state, None),
                   _index(params, None), faults)
-    return kernel_state(state.table, out), kernel_outs(cfg, out, valid)
+    with telemetry.span("emulator.unpack"):
+        return (_write_back(state, kernel_state(state.table, out)),
+                kernel_outs(cfg, out, valid))
 
 
 def _empty_outs(device, shape=(0,)) -> dict:
@@ -308,23 +315,24 @@ def _emulate_impl(cfg: EmulatorConfig, registry: PolicyRegistry, trace: Trace,
         return state, _empty_outs(state.table.device)
     if not seq and chunk_step_lib.use_chunk_step_kernel(cfg, state.table):
         chunk_step_lib.refuse_user_policies(cfg, registry, params, selected)
-        new, outs = _emulate_kernel(cfg, registry, trace, valid, state,
-                                    params, faults)
-        return _write_back(state, new), outs
+        return _emulate_kernel(cfg, registry, trace, valid, state, params,
+                               faults)
     new, outs = _chunk_loop(cfg, registry, trace, valid, _index(state, None),
                             _index(params, None), faults, seq)
-    return _write_back(state, _index(new, 0)), {k: v[0]
-                                                for k, v in outs.items()}
+    with telemetry.span("emulator.unpack"):
+        return _write_back(state, _index(new, 0)), {k: v[0]
+                                                    for k, v in outs.items()}
 
 
 def init_states(cfg: EmulatorConfig, params: RuntimeParams) -> EmulatorState:
     """Fresh state of every design point of the stacked ``params`` (1-D
     tensors of length B), stacked: each point's table from its own
     ``n_fast_pages`` and ``pin_fast_fraction`` (one call for all B)."""
-    table = table_lib.init_table(cfg, params.n_fast_pages[:, None],
-                                 params.pin_fast_fraction[:, None])
-    return EmulatorState(table=table, **_fresh_fields(
-        cfg, table.device, params.policy_id.shape))
+    with telemetry.span("emulator.init_states"):
+        table = table_lib.init_table(cfg, params.n_fast_pages[:, None],
+                                     params.pin_fast_fraction[:, None])
+        return EmulatorState(table=table, **_fresh_fields(
+            cfg, table.device, params.policy_id.shape))
 
 
 def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
@@ -358,11 +366,14 @@ def _emulate_batch_impl(cfg: EmulatorConfig, registry: PolicyRegistry,
     if chunk_step_lib.use_chunk_step_kernel(cfg, states.table):
         chunk_step_lib.refuse_user_policies(cfg, registry, params, selected)
         out = _launch(cfg, registry, trace, valid, states, params, faults)
-        new = kernel_state(states.table, out, ALL)
-        return _write_back(states, new), kernel_outs(cfg, out, valid, ALL)
+        with telemetry.span("emulator.unpack"):
+            new = kernel_state(states.table, out, ALL)
+            return (_write_back(states, new),
+                    kernel_outs(cfg, out, valid, ALL))
     new, outs = _chunk_loop(cfg, registry, trace, valid, states, params,
                             faults, seq=False)
-    return _write_back(states, new), outs
+    with telemetry.span("emulator.unpack"):
+        return _write_back(states, new), outs
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from typing import Iterable, NamedTuple
 
 import torch
 
+from . import telemetry
 from .core import counters as counters_lib
 from .core.config import EmulatorConfig, RuntimeParams, static_key
 from .core.emulator import (EmulatorState, Trace, _emulate_batch_impl,
@@ -81,8 +82,10 @@ class RunResult(NamedTuple):
 def stack_params(points: list[DesignPoint], device=None) -> RuntimeParams:
     """Stack per-point RuntimeParams into 1-D tensors of length B (the
     point axis) on ``device``."""
-    ps = [p.params() for p in points]
-    return RuntimeParams(*(torch.stack(xs).to(device) for xs in zip(*ps)))
+    with telemetry.span("sweep.stack_params"):
+        ps = [p.params() for p in points]
+        return RuntimeParams(*(torch.stack(xs).to(device)
+                               for xs in zip(*ps)))
 
 
 def sweep_mesh(device=None) -> tuple:
@@ -311,24 +314,25 @@ class Engine:
         injects a :class:`FaultPlan` (keyed on the state's absolute
         ``chunk_idx``); None is the empty plan.
         """
-        params = self.params if params is None else params
-        self._check_device("params", params.policy_id)
-        donate = self._resolve_donate(donate, state)
-        trace = trace.to(self.device)
-        n = len(trace)
-        if valid is None:
-            if n % self.cfg.chunk:
-                trace, valid = pad_trace(self.cfg, trace)
-            else:
-                valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        elif n % self.cfg.chunk:
-            raise ValueError("explicit valid= requires a chunk-multiple "
-                             "trace (use pad_trace, or drop valid=)")
-        state, outs = self._dispatch(trace, valid.to(self.device), state,
-                                     params, donate, faults)
-        if len(trace) != n:
-            outs = {k: v[:n] for k, v in outs.items()}
-        return RunResult(state, outs)
+        with telemetry.span("engine.run"):
+            params = self.params if params is None else params
+            self._check_device("params", params.policy_id)
+            donate = self._resolve_donate(donate, state)
+            trace = trace.to(self.device)
+            n = len(trace)
+            if valid is None:
+                if n % self.cfg.chunk:
+                    trace, valid = pad_trace(self.cfg, trace)
+                else:
+                    valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            elif n % self.cfg.chunk:
+                raise ValueError("explicit valid= requires a chunk-multiple "
+                                 "trace (use pad_trace, or drop valid=)")
+            state, outs = self._dispatch(trace, valid.to(self.device), state,
+                                         params, donate, faults)
+            if len(trace) != n:
+                outs = {k: v[:n] for k, v in outs.items()}
+            return RunResult(state, outs)
 
     def run_stream(self, segments: Iterable[Trace], *,
                    params: RuntimeParams | None = None,
@@ -352,44 +356,45 @@ class Engine:
         On the CPU it changes nothing. One ``faults`` plan spans the whole
         stream (its events are keyed on the carried ``chunk_idx``).
         """
-        params = self.params if params is None else params
-        self._check_device("params", params.policy_id)
-        donate = self._resolve_donate(donate, state)
-        if prefetch:
-            segments = _prefetched(segments, prefetch, self.device)
-        chunk = self.cfg.chunk
-        carry: Trace | None = None
-        parts: list[dict] = []
-        first = True
-        for seg in segments:
-            seg = seg.to(self.device)
-            buf = seg if carry is None else Trace(
-                *(torch.cat([a, b]) for a, b in zip(carry, seg)))
-            m = len(buf) - len(buf) % chunk
-            if m == 0:
-                carry = buf
-                continue
-            head = Trace(*(x[:m] for x in buf))
-            carry = Trace(*(x[m:] for x in buf)) if m < len(buf) else None
-            valid = torch.ones(m, dtype=torch.bool, device=self.device)
-            state, outs = self._dispatch(head, valid, state, params,
-                                         donate if first else True, faults)
-            parts.append(outs)
-            first = False
-        if carry is not None and len(carry):
-            n = len(carry)
-            padded, valid = pad_trace(self.cfg, carry)
-            state, outs = self._dispatch(padded, valid, state, params,
-                                         donate if first else True, faults)
-            parts.append({k: v[:n] for k, v in outs.items()})
-        if not parts:
-            z = torch.zeros(0, dtype=torch.int32, device=self.device)
-            if state is None:
-                state = self.init_state(params)
-            return RunResult(state, {"returns": z, "device": z,
-                                     "latency": z})
-        return RunResult(state, {k: torch.cat([p[k] for p in parts])
-                                 for k in parts[0]})
+        with telemetry.span("engine.run"):
+            params = self.params if params is None else params
+            self._check_device("params", params.policy_id)
+            donate = self._resolve_donate(donate, state)
+            if prefetch:
+                segments = _prefetched(segments, prefetch, self.device)
+            chunk = self.cfg.chunk
+            carry: Trace | None = None
+            parts: list[dict] = []
+            first = True
+            for seg in segments:
+                seg = seg.to(self.device)
+                buf = seg if carry is None else Trace(
+                    *(torch.cat([a, b]) for a, b in zip(carry, seg)))
+                m = len(buf) - len(buf) % chunk
+                if m == 0:
+                    carry = buf
+                    continue
+                head = Trace(*(x[:m] for x in buf))
+                carry = Trace(*(x[m:] for x in buf)) if m < len(buf) else None
+                valid = torch.ones(m, dtype=torch.bool, device=self.device)
+                state, outs = self._dispatch(head, valid, state, params,
+                                             donate if first else True, faults)
+                parts.append(outs)
+                first = False
+            if carry is not None and len(carry):
+                n = len(carry)
+                padded, valid = pad_trace(self.cfg, carry)
+                state, outs = self._dispatch(padded, valid, state, params,
+                                             donate if first else True, faults)
+                parts.append({k: v[:n] for k, v in outs.items()})
+            if not parts:
+                z = torch.zeros(0, dtype=torch.int32, device=self.device)
+                if state is None:
+                    state = self.init_state(params)
+                return RunResult(state, {"returns": z, "device": z,
+                                         "latency": z})
+            return RunResult(state, {k: torch.cat([p[k] for p in parts])
+                                     for k in parts[0]})
 
     def run_channels(self, traces: Trace, *,
                      params: RuntimeParams | None = None,
@@ -401,23 +406,25 @@ class Engine:
         ``(states, outs)`` with the channel axis leading; on a CUDA device
         the channels are the points of ONE chunk-step launch (on ``"off"``
         or the CPU, of one chunk loop over the point axis)."""
-        params = self.params if params is None else params
-        self._check_device("params", params.policy_id)
-        traces = traces.to(self.device)
-        c, n = traces.page.shape
-        if n % self.cfg.chunk:
-            raise ValueError(f"each channel must hold a multiple of the "
-                             f"chunk ({self.cfg.chunk}), got {n}")
-        stacked = RuntimeParams(*(x.expand(c).contiguous() for x in params))
-        valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        record_dispatch(self.cfg, self.registry,
-                        shape_sig=("channels", (c, n),
-                                   self._fault_sig(faults)))
-        if faults is not None:
-            faults = faults.to(self.device)
-        return _emulate_batch_impl(self.cfg, self.registry, traces, valid,
-                                   init_states(self.cfg, stacked), stacked,
-                                   faults, selected=self._selected(params))
+        with telemetry.span("engine.run"):
+            params = self.params if params is None else params
+            self._check_device("params", params.policy_id)
+            traces = traces.to(self.device)
+            c, n = traces.page.shape
+            if n % self.cfg.chunk:
+                raise ValueError(f"each channel must hold a multiple of the "
+                                 f"chunk ({self.cfg.chunk}), got {n}")
+            stacked = RuntimeParams(*(x.expand(c).contiguous()
+                                      for x in params))
+            valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            record_dispatch(self.cfg, self.registry,
+                            shape_sig=("channels", (c, n),
+                                       self._fault_sig(faults)))
+            if faults is not None:
+                faults = faults.to(self.device)
+            return _emulate_batch_impl(self.cfg, self.registry, traces, valid,
+                                       init_states(self.cfg, stacked), stacked,
+                                       faults, selected=self._selected(params))
 
     # ------------------------------------------------------------------
     # design-space sweeps
@@ -425,30 +432,31 @@ class Engine:
     def _sweep_batch(self, spec):
         """Normalise spec / points / params into (points, registry,
         stacked params, the registry indices selected where known)."""
-        if isinstance(spec, RuntimeParams):
-            # A pre-stacked batch: policy_id already indexes this engine's
-            # registry; index-only points label the rows.
-            n = int(spec.policy_id.shape[0])
-            points = [DesignPoint(index=i, coords=(("point", i),),
-                                  cfg=self.cfg) for i in range(n)]
-            return points, self.registry, spec, None
-        points = list(spec) if isinstance(spec, (list, tuple)) \
-            else build_points(spec)
-        if not points:
-            raise ValueError("empty sweep")
-        keys = {static_key(p.cfg) for p in points}
-        if keys != {self.static_key}:
-            raise ValueError(
-                f"points disagree on this engine's static geometry: {keys}")
-        # The kernel switches only over the policies present, in order of
-        # first appearance; each point's policy_id indexes that subset.
-        names: list[str] = []
-        for p in points:
-            if p.cfg.policy not in names:
-                names.append(p.cfg.policy)
-        registry = self.registry.subset(names)
-        ids = torch.tensor([registry.index(p.cfg.policy) for p in points],
-                           dtype=torch.int32, device=self.device)
+        with telemetry.span("sweep.build_points"):
+            if isinstance(spec, RuntimeParams):
+                # A pre-stacked batch: policy_id already indexes this engine's
+                # registry; index-only points label the rows.
+                n = int(spec.policy_id.shape[0])
+                points = [DesignPoint(index=i, coords=(("point", i),),
+                                      cfg=self.cfg) for i in range(n)]
+                return points, self.registry, spec, None
+            points = list(spec) if isinstance(spec, (list, tuple)) \
+                else build_points(spec)
+            if not points:
+                raise ValueError("empty sweep")
+            keys = {static_key(p.cfg) for p in points}
+            if keys != {self.static_key}:
+                raise ValueError("points disagree on this engine's static "
+                                 f"geometry: {keys}")
+            # The kernel switches only over the policies present, in order of
+            # first appearance; each point's policy_id indexes that subset.
+            names: list[str] = []
+            for p in points:
+                if p.cfg.policy not in names:
+                    names.append(p.cfg.policy)
+            registry = self.registry.subset(names)
+            ids = torch.tensor([registry.index(p.cfg.policy) for p in points],
+                               dtype=torch.int32, device=self.device)
         params = stack_params(points, self.device)._replace(policy_id=ids)
         return points, registry, params, tuple(range(len(registry)))
 
@@ -486,10 +494,11 @@ class Engine:
         stacked per-point batch (``faults.stack_plans`` of plans padded
         with ``pad_plan`` to one shape).
         """
-        points, registry, params, selected = self._sweep_batch(spec)
-        return self._sweep_exec(points, registry, params, trace, mesh=mesh,
-                                states=states, donate=donate, faults=faults,
-                                selected=selected)
+        with telemetry.span("engine.sweep"):
+            points, registry, params, selected = self._sweep_batch(spec)
+            return self._sweep_exec(points, registry, params, trace,
+                                    mesh=mesh, states=states, donate=donate,
+                                    faults=faults, selected=selected)
 
     def _mesh(self, mesh) -> tuple:
         """``mesh=`` as a tuple of devices of the engine's type (None is
@@ -547,17 +556,18 @@ class Engine:
         """The shares' states and outputs on the engine's device, in point
         order, the padding dropped. One share has no padding and is
         returned as it is (moved home), not copied."""
-        if len(shares) == 1:
-            st, outs = shares[0]
-            home = lambda x: x.to(self.device)
-            return (_map_state(home, st),
-                    {k: home(v) for k, v in outs.items()})
-        cat = lambda *xs: torch.cat([x.to(self.device) for x in xs])[:n]
-        flat = [_tensors(st) for st, _ in shares]
-        it = iter([cat(*col) for col in zip(*flat)])
-        states = _map_state(lambda _: next(it), shares[0][0])
-        outs = {k: cat(*(o[k] for _, o in shares)) for k in shares[0][1]}
-        return states, outs
+        with telemetry.span("engine.gather"):
+            if len(shares) == 1:
+                st, outs = shares[0]
+                home = lambda x: x.to(self.device)
+                return (_map_state(home, st),
+                        {k: home(v) for k, v in outs.items()})
+            cat = lambda *xs: torch.cat([x.to(self.device) for x in xs])[:n]
+            flat = [_tensors(st) for st, _ in shares]
+            it = iter([cat(*col) for col in zip(*flat)])
+            states = _map_state(lambda _: next(it), shares[0][0])
+            outs = {k: cat(*(o[k] for _, o in shares)) for k in shares[0][1]}
+            return states, outs
 
     def _sweep_exec(self, points, registry, params, trace, *, mesh, states,
                     donate, faults=None, selected=None) -> SweepResult:
@@ -602,10 +612,11 @@ class Engine:
         point resumes from its own warm state (donated, so ``result`` is
         consumed, unless ``donate=False``), replaying the recorded stacked
         params and registry of ``result``."""
-        return self._sweep_exec(result.points, result.registry,
-                                result.params, trace, mesh=mesh,
-                                states=result.states, donate=donate,
-                                faults=faults)
+        with telemetry.span("engine.sweep"):
+            return self._sweep_exec(result.points, result.registry,
+                                    result.params, trace, mesh=mesh,
+                                    states=result.states, donate=donate,
+                                    faults=faults)
 
 
 __all__ = ["Engine", "RunResult", "PolicyRegistry", "resolve_device",

@@ -91,8 +91,6 @@ class CudaKernel:
     run. A kernel with ``variants`` has an entry point that reports the
     path it took through one more argument, an ``int*`` before the
     stream, and :meth:`launch` counts that too, in ``variant_launches``.
-    ``defines`` are extra ``nvcc`` options (``-D...``) of this build: one
-    source built twice is two kernels, each with its library and count.
     ``entries`` maps further C entry points of the same library to their
     argument kinds; ``launch(..., symbol=...)`` launches one of them, and
     its launches count in the same ``launches``.
@@ -100,13 +98,11 @@ class CudaKernel:
 
     def __init__(self, name: str, symbol: str, argtypes: tuple,
                  variants: tuple[str, ...] = (),
-                 defines: tuple[str, ...] = (),
                  entries: dict[str, tuple] | None = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.variants = variants
-        self.defines = defines
         self.entries = {symbol: argtypes, **(entries or {})}
         self.source = CSRC / f"{name}.cu"
         self.launches = 0
@@ -119,15 +115,11 @@ class CudaKernel:
         self.variant_launches = dict.fromkeys(self.variants, 0)
 
     @property
-    def flags(self) -> tuple[str, ...]:
-        return nvcc_flags() + self.defines
-
-    @property
     def library(self) -> pathlib.Path:
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(CSRC.glob("*.cuh")):
             h.update(header.read_bytes())
-        h.update(" ".join(self.flags).encode())
+        h.update(" ".join(nvcc_flags()).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> subprocess.Popen | None:
@@ -138,7 +130,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         return subprocess.Popen(
-            [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *nvcc_flags(), "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: subprocess.Popen | None) -> None:

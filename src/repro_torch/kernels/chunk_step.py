@@ -50,10 +50,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import inspect
+import time
 from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
 from ..core import consistency, counters as counters_lib, dma as dma_lib
 from ..core import latency
 from ..core import faults as faults_lib
@@ -627,7 +629,7 @@ COUNTER_FLOAT_FIELDS = tuple(f for f in counters_lib.Counters._fields
 # What the kernel reports per chunk (the .cu's ChunkOut enum).
 CHUNK_OUT = ("held", "retired", "tombstone")
 # The kernel's clock64() split of a chunk (the .cu's Phase enum), made
-# only by the stamped build, KERNEL_STAMPED.
+# only by the stamped instantiation, which a ``phases`` buffer picks.
 PHASES = ("load", "rx", "redirect", "stage345", "commit", "satw", "decay",
           "retire", "policy")
 # CTAs per design point: the leader runs the chunk loop, all of them share
@@ -641,15 +643,12 @@ _I32 = torch.int32
 # wrapper allocates. ``KERNEL.variant_launches`` counts the launches of
 # each; :func:`chunk_layout` says which a chunk takes.
 LAYOUTS = ("shared", "workspace")
-_ENTRIES = {"chunk_step_layout": (INT, INT, ctypes.POINTER(ctypes.c_longlong))}
+_ENTRIES = {"chunk_step_layout": (INT, INT, ctypes.POINTER(ctypes.c_longlong)),
+            "chunk_step_clusters": (INT, INT, INT)}
 
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
     (PTR,) * 26 + (INT,) * 13, variants=LAYOUTS, entries=_ENTRIES)
-# The same source with clock64() stamps per phase: measurement only.
-KERNEL_STAMPED = CudaKernel(
-    "chunk_step", "chunk_step_launch", KERNEL.argtypes, variants=LAYOUTS,
-    defines=("-DREPRO_PHASE_STAMPS",), entries=_ENTRIES)
 
 
 class WorkspaceError(RuntimeError):
@@ -683,6 +682,36 @@ def chunk_layout(device: str, chunk: int, n_banks: int) -> tuple[str, int]:
         raise RuntimeError(f"kernel B sizes chunk {chunk} at "
                            f"{c_words.value} words, the wrapper at {words}")
     return LAYOUTS[which], words
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(device: str, cluster: int, chunk: int,
+                      n_banks: int) -> int:
+    """How many clusters of ``cluster`` CTAs ``device`` holds resident at
+    once in a launch of a chunk at ``n_banks`` banks, at its layout's
+    shared memory, in the stamped instantiation that a launch under a
+    profiler takes: ``cudaOccupancyMaxActiveClusters``. Launches
+    nothing."""
+    n = KERNEL.query(torch.device(device), "chunk_step_clusters", cluster,
+                     chunk, n_banks)
+    if n <= 0:
+        raise RuntimeError(f"kernel B cannot hold a cluster of {cluster} "
+                           f"CTAs resident on {device} at chunk {chunk}")
+    return n
+
+
+def waves(points: int, resident: int) -> int:
+    """Rounds a launch of ``points`` clusters takes with ``resident`` of
+    them on the card at once."""
+    return -(-points // resident)
+
+
+def _phase_buffer(dev: torch.device, b: int) -> torch.Tensor:
+    """The recording's int64[b, len(PHASES)] of stage cycles on ``dev``,
+    zeroed once, when first asked for."""
+    return telemetry.buffer(
+        ("chunk_step.phases", str(dev), b),
+        lambda: torch.zeros(b, len(PHASES), dtype=torch.int64, device=dev))
 
 
 class KernelOut(NamedTuple):
@@ -759,12 +788,30 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
     ``deaths`` int32[B, nd, 2]; the counters from :func:`pack_counters`,
     int32[B, 10] and float32[B, 6]. ``phases``, when given, is an
     int64[B, 9] to which the leading block's thread 0 adds the cycles of
-    each of PHASES: the launch then goes to :data:`KERNEL_STAMPED`.
+    each of PHASES: the launch then takes the stamped instantiation.
 
     A chunk whose per-request arrays do not fit in a block's shared
     memory (:func:`chunk_layout`) runs on a workspace int32[B, words]
     that this call allocates; :class:`WorkspaceError` when it cannot.
+
+    While a profiler records (:mod:`repro_torch.telemetry`), the call is
+    span ``chunk_step.enqueue``, whose attributes count the launch:
+    points, chunks, CTAs a point (``cluster``), layout, resident clusters
+    and waves, and ``launch_ns``, the host's time around the enqueue; a
+    launch without ``phases`` then adds its stage cycles to the
+    recording's buffer for (device, B).
     """
+    with telemetry.span("chunk_step.enqueue") as sp:
+        return _chunk_step_cuda(
+            sp, cfg, registry, table, ints, floats, bank_free, page, offset,
+            is_write, size, valid, transient, deaths, counters_int,
+            counters_float, phases, cluster)
+
+
+def _chunk_step_cuda(sp, cfg, registry, table, ints, floats, bank_free,
+                     page, offset, is_write, size, valid, transient, deaths,
+                     counters_int, counters_float, phases, cluster
+                     ) -> KernelOut:
     dev = table.device
     if not table.is_cuda:
         raise ValueError("chunk_step_cuda needs CUDA tensors")
@@ -823,7 +870,16 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         out(b, len(SC_FIELDS)), out(b, nb), out(b, n // chunk, len(CHUNK_OUT)),
         *(out(b, n) for _ in range(5)), out(b, len(COUNTER_INT_FIELDS)),
         out(b, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32))
-    (KERNEL if phases is None else KERNEL_STAMPED).launch(
+    if sp:
+        if phases is None:
+            phases = _phase_buffer(dev, b)
+        resident = resident_clusters(str(dev), cluster, chunk, cfg.n_banks)
+        sp.set(points=b, chunks=n // chunk, cluster=cluster, layout=layout,
+               resident=resident, waves=waves(b, resident))
+        telemetry.count("chunk_step.launches")
+        telemetry.count("chunk_step.waves", waves(b, resident))
+        t0 = time.time_ns()
+    KERNEL.launch(
         dev,
         table.data_ptr(), page.data_ptr(), offset.data_ptr(),
         is_write.data_ptr(), size.data_ptr(), valid.data_ptr(),
@@ -836,6 +892,8 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
         b, cluster, n_pages, chunk, n // chunk, cfg.n_banks, nt, nd,
         len(registry), wb, cfg.subblock, cfg.subblocks_per_page,
         cfg.page_size // cfg.line_size)
+    if sp:
+        sp.set(launch_ns=(t0, time.time_ns()))
     return res
 
 

@@ -74,6 +74,7 @@
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -134,9 +135,9 @@ enum CounterFloat {
 // What each chunk reports (kernels/chunk_step.py: CHUNK_OUT).
 enum ChunkOut { CO_HELD, CO_RETIRED, CO_TOMBSTONE, N_CHUNK_OUT };
 // Phases of the clock64() split of a chunk (kernels/chunk_step.py: PHASES),
-// stamped only in a build with -DREPRO_PHASE_STAMPS: there the leading
-// CTA's thread 0 adds each phase's cycles to `phases`, which must not be
-// null; the release build has no stamps and takes a null `phases`.
+// stamped only by the STAMPS instantiation, which a non-null `phases`
+// picks: there the leading CTA's thread 0 adds each phase's cycles to
+// `phases`; the release instantiation has no stamps.
 enum Phase { PH_LOAD, PH_RX, PH_REDIRECT, PH_STAGE345, PH_COMMIT, PH_SATW,
              PH_DECAY, PH_RETIRE, PH_POLICY, N_PHASES };
 
@@ -167,8 +168,8 @@ struct Args {
   int* inj_out;
   int* ws;               // int32[B, ws_words]: the workspace layout only
   long long ws_words;
-  long long* phases;     // int64[B, N_PHASES] cycles per phase (stamped
-                         // build only)
+  long long* phases;     // int64[B, N_PHASES] cycles per phase (STAMPS
+                         // only)
   int n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index, subblock,
       spp, charge;
 };
@@ -452,9 +453,49 @@ __host__ __device__ inline long long smem_words(long long chunk,
   return 15 * chunk + 5 * (chunk + 10) + 2 * n_banks * (1 + (chunk + 31) / 32);
 }
 
+// The clock64() split of a chunk: `stamp(ph)` at the end of each phase
+// adds the cycles since the last stamp to phase ph, on the thread built
+// with `on` (the leading CTA's thread 0); `add_to` adds the sums to
+// point bi's row of `phases`, atomically, since launches on other streams
+// may add to the same buffer. The release instantiation takes NoClock, so
+// it compiles no stamp. (clock64 exists only in the device pass.)
+__device__ __forceinline__ long long cycles() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct PhaseClock {
+  long long acc[N_PHASES] = {0};
+  long long prev;
+  bool on;
+  __device__ explicit PhaseClock(bool on_) : prev(cycles()), on(on_) {}
+  __device__ void stamp(int ph) {
+    if (on) {
+      const long long now = cycles();
+      acc[ph] += now - prev;
+      prev = now;
+    }
+  }
+  __device__ void add_to(long long* phases, int bi) const {
+    if (on)
+      for (int k = 0; k < N_PHASES; ++k)
+        atomicAdd(reinterpret_cast<unsigned long long*>(
+                      &phases[(long long)bi * N_PHASES + k]),
+                  (unsigned long long)acc[k]);
+  }
+};
+struct NoClock {
+  __device__ explicit NoClock(bool) {}
+  __device__ void stamp(int) {}
+  __device__ void add_to(long long*, int) const {}
+};
+
 // WS: the per-request arrays live in the global workspace a.ws (one slice
-// of a.ws_words a point) instead of the dynamic shared memory.
-template <bool WS>
+// of a.ws_words a point) instead of the dynamic shared memory. STAMPS: the
+// phases' clock64() split (PhaseClock) into a.phases.
+template <bool WS, bool STAMPS>
 __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   extern __shared__ int smem[];
   __shared__ Shared sh;
@@ -529,19 +570,9 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
                                           : imax(a.charge, 1));
   cluster.sync();   // every CTA has started before any remote access
 
-#ifdef REPRO_PHASE_STAMPS
-  long long ph_acc[N_PHASES] = {0};
-  long long t_prev = clock64();
-  const bool stamp = lead && tid == 0;
-#define STAMP(ph)                      \
-  if (stamp) {                         \
-    const long long t_now = clock64(); \
-    ph_acc[ph] += t_now - t_prev;      \
-    t_prev = t_now;                    \
-  }
-#else
-#define STAMP(ph)
-#endif
+  std::conditional_t<STAMPS, PhaseClock, NoClock> phase_clock(lead &&
+                                                              tid == 0);
+#define STAMP(ph) phase_clock.stamp(ph);
 
   for (int c = 0; c < a.n_chunks; ++c) {
     const int chunk_idx = wadd(chunk0, (unsigned)c);
@@ -1288,11 +1319,7 @@ __global__ void __launch_bounds__(THREADS) chunk_step_kernel(Args a) {
   if (tid < N_COUNTER_FLOATS)
     a.ctr_float_out[bi * N_COUNTER_FLOATS + tid] = cf[tid];
   for (int k = tid; k < NB; k += nth) a.bank_out[bi * NB + k] = s_bank[k];
-#ifdef REPRO_PHASE_STAMPS
-  if (stamp)
-    for (int k = 0; k < N_PHASES; ++k)
-      a.phases[bi * N_PHASES + k] += ph_acc[k];
-#endif
+  phase_clock.add_to(a.phases, bi);
 #undef STAMP
 }
 
@@ -1308,9 +1335,43 @@ cudaError_t layout_of(int chunk, int n_banks, size_t* bytes, bool* fits) {
                              dev);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, chunk_step_kernel<false>);
+  e = cudaFuncGetAttributes(&fa, chunk_step_kernel<false, false>);
   if (e != cudaSuccess) return e;
   *fits = fa.sharedSizeBytes + *bytes <= (size_t)optin;
+  return cudaSuccess;
+}
+
+// The instantiation a launch takes: the layout (WS) and the stamps.
+using KernelFn = void (*)(Args);
+KernelFn kernel_of(bool ws, bool stamps) {
+  return ws ? (stamps ? chunk_step_kernel<true, true>
+                      : chunk_step_kernel<true, false>)
+            : (stamps ? chunk_step_kernel<false, true>
+                      : chunk_step_kernel<false, false>);
+}
+
+// A launch's configuration but its arguments: B clusters of `cluster`
+// CTAs, `smem` bytes of dynamic shared memory; raises the kernel's limit
+// on dynamic shared memory where `smem` passes the default 48 KB.
+cudaError_t launch_config(KernelFn fn, int batch, int cluster, size_t smem,
+                          cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  *cfg = {};
+  cfg->gridDim = dim3((unsigned)(batch * cluster));
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
   return cudaSuccess;
 }
 
@@ -1351,11 +1412,6 @@ extern "C" int chunk_step_launch(
       chunk <= 0 || n_chunks <= 0 || n_banks <= 0 || 2 * n_banks > 0xffff ||
       nt <= 0 || nd <= 0 || n_reg <= 0 || subblock <= 0)
     return (int)cudaErrorInvalidValue;
-#ifdef REPRO_PHASE_STAMPS
-  if (phases == nullptr) return (int)cudaErrorInvalidValue;
-#else
-  if (phases != nullptr) return (int)cudaErrorInvalidValue;
-#endif
   const bool ws = workspace != nullptr;
   size_t smem = 0;
   bool fits = false;
@@ -1365,10 +1421,12 @@ extern "C" int chunk_step_launch(
   }
   if (!ws && !fits) return (int)cudaErrorInvalidValue;
   if (ws) smem = 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        chunk_step_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const KernelFn fn = kernel_of(ws, phases != nullptr);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  {
+    const cudaError_t e =
+        launch_config(fn, batch, cluster, smem, stream, &cfg, attr);
     if (e != cudaSuccess) return (int)e;
   }
   Args a{static_cast<int*>(table),
@@ -1400,21 +1458,30 @@ extern "C" int chunk_step_launch(
          static_cast<long long*>(phases),
          n_pages, chunk, n_chunks, n_banks, nt, nd, n_reg, wb_index,
          subblock, spp, charge};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(batch * cluster));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = ws ? cudaLaunchKernelEx(&cfg, chunk_step_kernel<true>, a)
-                           : cudaLaunchKernelEx(&cfg, chunk_step_kernel<false>, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
   if (e != cudaSuccess) return (int)e;
   *layout = ws ? 1 : 0;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs the current device holds resident at
+// once for the launch of a chunk at n_banks banks, in the layout that
+// chunk takes, in the stamped instantiation that a launch under a profiler
+// takes (cudaOccupancyMaxActiveClusters at the launch's shared memory), in
+// *clusters. Launches nothing.
+extern "C" int chunk_step_clusters(int cluster, int chunk, int n_banks,
+                                   int* clusters, cudaStream_t stream) {
+  if (cluster <= 0 || cluster > MAX_CLUSTER || chunk <= 0 || n_banks <= 0)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  bool fits = false;
+  cudaError_t e = layout_of(chunk, n_banks, &smem, &fits);
+  if (e != cudaSuccess) return (int)e;
+  if (!fits) smem = 0;
+  const KernelFn fn = kernel_of(!fits, true);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  e = launch_config(fn, 1, cluster, smem, stream, &cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
 }

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 
+from .. import telemetry
 from ..core import table as table_lib
 
 
@@ -42,6 +43,11 @@ class SweepResult:
         return len(self.points)
 
     def rows(self) -> list[dict]:
+        """One summary dict a design point, on the host."""
+        with telemetry.span("sweep.rows"):
+            return self._rows()
+
+    def _rows(self) -> list[dict]:
         c = {k: _np(v) for k, v in self.states.counters._asdict().items()}
         clock = _np(self.states.clock)
         swaps = _np(self.states.dma.swaps_done)

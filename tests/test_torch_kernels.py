@@ -266,6 +266,17 @@ def test_packed_scalar_layout_matches_the_cuda_source():
         tcs.CHUNK_OUT
     assert tuple(c.removeprefix("ph_") for c in enum("Phase")[:-1]) == \
         tcs.PHASES
+    # The stage split is an instantiation of the one library (a non-null
+    # ``phases`` picks it), not a second build.
+    assert "template <bool WS, bool STAMPS>" in src
+    assert "REPRO_PHASE_STAMPS" not in src
+    assert "kernel_of(ws, phases != nullptr)" in src
+    assert not hasattr(tcs, "KERNEL_STAMPED")
+    assert set(tcs.KERNEL.entries) == {"chunk_step_launch",
+                                       "chunk_step_layout",
+                                       "chunk_step_clusters"}
+    for entry in tcs.KERNEL.entries:
+        assert f'extern "C" int {entry}(' in src
     pol = enum("Policy")
     assert tuple(p.removeprefix("p_") for p in pol) == POLICIES
     cs = tcore.small_platform()

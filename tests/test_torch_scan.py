@@ -402,7 +402,12 @@ def plain_kernel(cfg, registry, table, ints, floats, bank_free, page, offset,
                  counters_float, *, phases=None, cluster=tcs.CLUSTER):
     """``chunk_step_cuda``'s contract in plain PyTorch: per design point
     the loop of ``step_ref(seq=True)`` and ``counters.update`` over the
-    chunks, the table updated in place."""
+    chunks, the table updated in place. ``phases``, which picks the
+    kernel's stamped instantiation, must be an int64[B, len(PHASES)];
+    clock64() cycles have no plain counterpart, so it is left as it is."""
+    if phases is not None:
+        assert phases.dtype == torch.int64
+        assert tuple(phases.shape) == (table.shape[0], len(tcs.PHASES))
     n_sc = len(tcs.SC_FIELDS)
     chunk = cfg.chunk
     points = []
