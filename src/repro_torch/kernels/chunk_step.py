@@ -16,7 +16,8 @@ Written once in PyTorch and executed three ways:
   replaces the TPU kernel ``repro/kernels/chunk_step.py::_pallas_step_fn``
   (its ``pallas_call`` at line 793) and the chunk loop around it: one
   launch runs every chunk of a trace, counters included, with one
-  thread-block cluster per design point and the table in global memory.
+  thread-block cluster per design point (its size chosen from the point
+  count, :func:`cluster_for`) and the table in global memory.
   :func:`chunk_step` launches it for one chunk.
 
 All three are bitwise equal to the JAX package's ``step_ref``: the
@@ -51,6 +52,8 @@ import ctypes
 import functools
 import inspect
 import time
+import types
+from collections.abc import Mapping
 from typing import NamedTuple
 
 import torch
@@ -632,9 +635,11 @@ CHUNK_OUT = ("held", "retired", "tombstone")
 # only by the stamped instantiation, which a ``phases`` buffer picks.
 PHASES = ("load", "rx", "redirect", "stage345", "commit", "satw", "decay",
           "retire", "policy")
-# CTAs per design point: the leader runs the chunk loop, all of them share
-# the whole-table passes (decay, hotness_global).
-CLUSTER = 8
+# The most CTAs a design point gets (the portable cluster size, the .cu's
+# MAX_CLUSTER): the leader runs the chunk loop, all of them share the
+# whole-table passes (decay, hotness_global). A launch gives each point
+# the size :func:`cluster_for` picks, MAX_CLUSTER where B points fit at once.
+MAX_CLUSTER = 8
 
 _I32 = torch.int32
 
@@ -644,7 +649,7 @@ _I32 = torch.int32
 # each; :func:`chunk_layout` says which a chunk takes.
 LAYOUTS = ("shared", "workspace")
 _ENTRIES = {"chunk_step_layout": (INT, INT, ctypes.POINTER(ctypes.c_longlong)),
-            "chunk_step_clusters": (INT, INT, INT)}
+            "chunk_step_clusters": (INT, INT, INT, INT)}
 
 KERNEL = CudaKernel(
     "chunk_step", "chunk_step_launch",
@@ -685,25 +690,37 @@ def chunk_layout(device: str, chunk: int, n_banks: int) -> tuple[str, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def resident_clusters(device: str, cluster: int, chunk: int,
-                      n_banks: int) -> int:
-    """How many clusters of ``cluster`` CTAs ``device`` holds resident at
-    once in a launch of a chunk at ``n_banks`` banks, at its layout's
-    shared memory, in the stamped instantiation that a launch under a
-    profiler takes: ``cudaOccupancyMaxActiveClusters``. Launches
-    nothing."""
-    n = KERNEL.query(torch.device(device), "chunk_step_clusters", cluster,
-                     chunk, n_banks)
-    if n <= 0:
-        raise RuntimeError(f"kernel B cannot hold a cluster of {cluster} "
-                           f"CTAs resident on {device} at chunk {chunk}")
-    return n
+def resident_clusters(device: str, chunk: int, n_banks: int,
+                      stamped: bool) -> types.MappingProxyType:
+    """{CTAs a cluster: clusters} for sizes MAX_CLUSTER..1: how many
+    clusters of each size ``device`` holds resident at once in a launch of
+    a chunk at ``n_banks`` banks, at its layout's shared memory, in the
+    stamped instantiation (a launch with ``phases``, every launch under a
+    profiler) or the release one: ``cudaOccupancyMaxActiveClusters``.
+    Launches nothing."""
+    return types.MappingProxyType({
+        c: KERNEL.query(torch.device(device), "chunk_step_clusters", c,
+                        chunk, n_banks, int(stamped))
+        for c in range(MAX_CLUSTER, 0, -1)})
 
 
 def waves(points: int, resident: int) -> int:
     """Rounds a launch of ``points`` clusters takes with ``resident`` of
     them on the card at once."""
     return -(-points // resident)
+
+
+def cluster_for(points: int, resident: Mapping[int, int]) -> int:
+    """CTAs a design point for a launch of ``points`` points, given the
+    clusters ``resident`` at once at each size: the size of the fewest
+    waves, the largest of those. So every launch that fits at the largest
+    size keeps it, and one that does not gives up CTAs rather than run a
+    second wave."""
+    fit = [c for c, n in resident.items() if n > 0]
+    if not fit:
+        raise RuntimeError("kernel B cannot hold a cluster of any size "
+                           "resident")
+    return min(fit, key=lambda c: (waves(points, resident[c]), -c))
 
 
 def _phase_buffer(dev: torch.device, b: int) -> torch.Tensor:
@@ -776,10 +793,11 @@ def chunk_step_cuda(cfg: EmulatorConfig, registry: PolicyRegistry,
                     table, ints, floats, bank_free, page, offset, is_write,
                     size, valid, transient, deaths, counters_int,
                     counters_float, *, phases=None,
-                    cluster: int = CLUSTER) -> KernelOut:
+                    cluster: int | None = None) -> KernelOut:
     """Run ``N // cfg.chunk`` chunks on B design points in ONE launch (a
-    cluster of ``cluster`` thread blocks each). Updates ``table``
-    int32[B, n_pages, 8] in place.
+    cluster of ``cluster`` thread blocks each: by default the size that
+    :func:`cluster_for` picks from B and the card's resident clusters).
+    Updates ``table`` int32[B, n_pages, 8] in place.
 
     Inputs: ``ints`` int32[B, 29] and ``floats`` float32[B, 7] from
     :func:`_pack_scalars`; ``bank_free`` int32[B, 2*n_banks]; the five
@@ -870,14 +888,18 @@ def _chunk_step_cuda(sp, cfg, registry, table, ints, floats, bank_free,
         out(b, len(SC_FIELDS)), out(b, nb), out(b, n // chunk, len(CHUNK_OUT)),
         *(out(b, n) for _ in range(5)), out(b, len(COUNTER_INT_FIELDS)),
         out(b, len(COUNTER_FLOAT_FIELDS), dtype=torch.float32))
+    if sp and phases is None:
+        phases = _phase_buffer(dev, b)
+    resident = resident_clusters(str(dev), chunk, cfg.n_banks,
+                                 phases is not None)
+    if cluster is None:
+        cluster = cluster_for(b, resident)
     if sp:
-        if phases is None:
-            phases = _phase_buffer(dev, b)
-        resident = resident_clusters(str(dev), cluster, chunk, cfg.n_banks)
+        w = waves(b, resident[cluster])
         sp.set(points=b, chunks=n // chunk, cluster=cluster, layout=layout,
-               resident=resident, waves=waves(b, resident))
+               resident=resident[cluster], waves=w)
         telemetry.count("chunk_step.launches")
-        telemetry.count("chunk_step.waves", waves(b, resident))
+        telemetry.count("chunk_step.waves", w)
         t0 = time.time_ns()
     KERNEL.launch(
         dev,

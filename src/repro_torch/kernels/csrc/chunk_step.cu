@@ -10,8 +10,10 @@
 // mirrors there.
 //
 // Layout. One thread-block cluster per design point (grid = B x cluster,
-// cluster = 8 CTAs or 1). The cluster's leading CTA runs the chunk loop:
-// the chunk's requests and every per-request intermediate live in its
+// 1 to MAX_CLUSTER CTAs a cluster, which the wrapper picks from B and
+// chunk_step_clusters' counts: the fewest waves, then the most CTAs). The
+// cluster's leading CTA runs the chunk loop: the chunk's requests and
+// every per-request intermediate live in its
 // shared memory, and the state scalars, the bank registers and the
 // counters stay there from one chunk to the next. Where those per-request
 // arrays and the bank registers and counts (smem_words below: 20 words a
@@ -56,7 +58,7 @@
 // round trips (row gather, retire, the policy's reads), about 20 barriers
 // and 8 round trips; not bytes (a chunk moves ~100 KB). Every 16th chunk
 // the decay pass reads and writes the HOTNESS lane of the whole table,
-// 1/8 of it per CTA, four rows in flight per thread.
+// 1/cluster of it per CTA, four rows in flight per thread.
 //
 // Exactness. All pipeline arithmetic is int32; the cycle math is
 // ceilf(size / bytes_per_cycle) with an IEEE float32 division (built with
@@ -1466,11 +1468,13 @@ extern "C" int chunk_step_launch(
 
 // How many clusters of `cluster` CTAs the current device holds resident at
 // once for the launch of a chunk at n_banks banks, in the layout that
-// chunk takes, in the stamped instantiation that a launch under a profiler
-// takes (cudaOccupancyMaxActiveClusters at the launch's shared memory), in
+// chunk takes, in the instantiation a launch takes (stamped: that of a
+// non-null `phases`, else the release one), by
+// cudaOccupancyMaxActiveClusters at the launch's shared memory, in
 // *clusters. Launches nothing.
 extern "C" int chunk_step_clusters(int cluster, int chunk, int n_banks,
-                                   int* clusters, cudaStream_t stream) {
+                                   int stamped, int* clusters,
+                                   cudaStream_t stream) {
   if (cluster <= 0 || cluster > MAX_CLUSTER || chunk <= 0 || n_banks <= 0)
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
@@ -1478,7 +1482,7 @@ extern "C" int chunk_step_clusters(int cluster, int chunk, int n_banks,
   cudaError_t e = layout_of(chunk, n_banks, &smem, &fits);
   if (e != cudaSuccess) return (int)e;
   if (!fits) smem = 0;
-  const KernelFn fn = kernel_of(!fits, true);
+  const KernelFn fn = kernel_of(!fits, stamped != 0);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   e = launch_config(fn, 1, cluster, smem, stream, &cfg, attr);

@@ -15,12 +15,16 @@ once, and compares with the plain version on the same card within
 ``ref.kernel_error``'s allowance, the one ``chip_smoke.py`` holds the
 kernels to at full width.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import repro_torch
 import repro_torch.core as tcore
+from repro_torch import telemetry
 from repro_torch.core import emulator as t_emu, table as t_table
 from repro_torch.core.policies import PolicyRegistry
 from repro_torch.kernels import chunk_step as t_cs
@@ -434,6 +438,78 @@ def test_sweep_registry_subset_and_out_of_range_id_equal_the_plain_run(
                                    t_emu.clone_state(st), p, plan, seq=True)
         _assert_equal((_point(res.states, i), _point(res.outs, i)), want)
     assert not torch.equal(res.states.table[2], res.states.table[3])
+
+
+# ------------------------------------------------- CTAs a design point
+def _grid(cfg, params, points):
+    """``points`` copies of ``params`` stacked, each a built-in policy in
+    turn (``hotness_global`` among every six) and its own
+    ``hot_threshold`` from each group of six on."""
+    k = torch.arange(points, dtype=torch.int32, device=params.policy_id.device)
+    return tcore.RuntimeParams(*(x.expand(points).contiguous()
+                                 for x in params))._replace(
+        policy_id=k % len(POLICIES), hot_threshold=2 + k // len(POLICIES) % 3)
+
+
+def _cluster_case(dev, geometry, points):
+    """(engine, a sweep of ``points`` points, the cluster-8 launch): on
+    ``_chunk_scenario``'s small platform from its adversarial state under
+    its fault plan, or on the paper's table (294,912 rows) with a fresh
+    state; decay every 4 chunks in both."""
+    if geometry == "small":
+        cfg, params, st, trace, _, plan = _chunk_scenario(dev,
+                                                          "hotness_global")
+        eng = repro_torch.Engine(cfg)
+        grid = _grid(cfg, params, points)
+
+        def sweep():
+            return eng.sweep(grid, trace, faults=plan,
+                             states=_stack([st] * points))
+    else:
+        cfg = tcore.paper_platform().with_(chunk=512, decay_every=4)
+        trace = _paper_trace(cfg, 24 * 512 - 7, 2, dev)
+        eng = repro_torch.Engine(cfg)
+        grid = _grid(cfg, cfg.runtime(dev), points)
+
+        def sweep():
+            return eng.sweep(grid, trace)
+    return eng, sweep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry,points", [
+    *(("small", b) for b in (1, 15, 16, 17, 31, 64)),
+    ("paper", 16), ("paper", 64)])
+def test_chosen_cluster_equals_clusters_of_eight(cuda_device, monkeypatch,
+                                                 geometry, points):
+    """The launch's own CTAs a point against clusters of 8 over every
+    policy, decay chunks and (small) deaths, transients and retirements:
+    table, scalars, outputs and counters bit for bit. Under a profiler the
+    span reports the fewest waves the card's resident clusters allow, at
+    the largest size that gives them: 8 wherever the points fit at 8."""
+    eng, sweep = _cluster_case(cuda_device, geometry, points)
+    chosen = sweep()
+    telemetry.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        traced = sweep()
+        torch.cuda.synchronize()
+    (enq,) = [s for s in telemetry.recorded().spans
+              if s.name == "chunk_step.enqueue"]
+    monkeypatch.setattr(t_cs, "chunk_step_cuda", functools.partial(
+        t_cs.chunk_step_cuda, cluster=8))
+    eight = sweep()
+    monkeypatch.undo()
+    for got in (chosen, traced):
+        _assert_equal((got.states, got.outs), (eight.states, eight.outs))
+    assert int(eight.states.dma.swaps_done.sum()) > 0
+    resident = t_cs.resident_clusters(str(chosen.states.table.device),
+                                      eng.cfg.chunk, eng.cfg.n_banks, True)
+    fewest = min(t_cs.waves(points, n) for n in resident.values() if n)
+    want = max(c for c, n in resident.items()
+               if n and t_cs.waves(points, n) == fewest)
+    assert (enq.attrs["cluster"], enq.attrs["waves"],
+            enq.attrs["resident"]) == (want, fewest, resident[want])
+    assert (want == 8) == (points <= resident[8])
 
 
 # ------------------------------------------------------------------ serving

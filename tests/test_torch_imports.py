@@ -7,9 +7,8 @@ collectives of ``repro_torch.dist`` too), the simulator baselines
 ``repro_torch.sims``, the production meshes' dry run
 ``repro_torch.launch.dryrun`` and the port's reprolint
 ``repro_torch.analysis`` (all eight passes) included (and the card
-scripts ``chip_smoke.py``, ``chip_faults.py``,
-``chip_sweep_clusters.py``, ``chip_compare_off.py`` and
-``chip_mesh_f32.py``, and the port's
+scripts ``chip_smoke.py``, ``chip_faults.py``, ``chip_compare_off.py``
+and ``chip_mesh_f32.py``, and the port's
 examples ``examples/*_torch.py``) imports with ``jax`` and ``repro`` made
 unimportable; ``chip_smoke.py`` exits nonzero
 and prints no result where there is no CUDA device, or when it stands
@@ -36,8 +35,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke", "chip_faults", "chip_sweep_clusters",
-               "chip_compare_off", "chip_mesh_f32"):
+for script in ("chip_smoke", "chip_faults", "chip_compare_off",
+               "chip_mesh_f32"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))

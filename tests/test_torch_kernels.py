@@ -271,6 +271,9 @@ def test_packed_scalar_layout_matches_the_cuda_source():
     assert "template <bool WS, bool STAMPS>" in src
     assert "REPRO_PHASE_STAMPS" not in src
     assert "kernel_of(ws, phases != nullptr)" in src
+    # The occupancy entry asks about the instantiation a launch takes.
+    assert "kernel_of(!fits, stamped != 0)" in src
+    assert f"constexpr int MAX_CLUSTER = {tcs.MAX_CLUSTER};" in src
     assert not hasattr(tcs, "KERNEL_STAMPED")
     assert set(tcs.KERNEL.entries) == {"chunk_step_launch",
                                        "chunk_step_layout",
@@ -286,6 +289,41 @@ def test_packed_scalar_layout_matches_the_cuda_source():
     assert ints_v.dtype == torch.int32 and floats_v.dtype == torch.float32
     assert ints_v.shape == (29,) and floats_v.shape == (7,)
     assert int(ints_v[ints.index("policy_id")]) == int(p.policy_id)
+
+
+# Clusters resident at each size on a card that holds 15 of 8 CTAs.
+_RESIDENT = {8: 15, 6: 17, 4: 33, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("points,want", [
+    (1, 8), (15, 8), (16, 6), (17, 6), (18, 4), (33, 4), (34, 2), (64, 2),
+    (66, 2), (67, 1), (132, 1), (133, 1), (264, 1), (265, 1)])
+def test_cluster_for_takes_the_fewest_waves(points, want):
+    """Kernel B's CTAs a point: the size of the fewest waves, the largest
+    of those; every launch that fits at 8 keeps 8."""
+    assert tcs.cluster_for(points, _RESIDENT) == want
+
+
+@pytest.mark.parametrize("resident,points,want", [
+    ({8: 10, 7: 16, 6: 16, 5: 20, 1: 99}, 16, 7),   # 7 and 6 tie
+    ({8: 15, 4: 30, 2: 31}, 40, 4),                  # 2 waves at 4 and 2
+    ({8: 15, 6: 15}, 20, 8),                         # 2 waves at 8 and 6
+    ({8: 0, 6: 17, 1: 132}, 3, 6),                   # 8 cannot run
+    ({8: 15, 6: 15, 1: 132}, 20, 1)])
+def test_cluster_for_breaks_ties_to_the_largest_size(resident, points, want):
+    assert tcs.cluster_for(points, resident) == want
+
+
+def test_cluster_for_against_every_size():
+    """Against the rule spelled out, on a table of all eight sizes."""
+    resident = {8: 15, 7: 16, 6: 17, 5: 22, 4: 33, 3: 44, 2: 66, 1: 132}
+    for points in range(1, 400):
+        w = {c: tcs.waves(points, n) for c, n in resident.items()}
+        got = tcs.cluster_for(points, resident)
+        assert w[got] == min(w.values())
+        assert got == max(c for c in w if w[c] == w[got])
+    with pytest.raises(RuntimeError, match="resident"):
+        tcs.cluster_for(4, {8: 0, 1: 0})
 
 
 def test_chunk_step_knob_on_cpu_tensors():

@@ -399,7 +399,7 @@ def test_counter_fold_matches_update_and_jax():
 # ------------------------------------------- the Python around the launch
 def plain_kernel(cfg, registry, table, ints, floats, bank_free, page, offset,
                  is_write, size, valid, transient, deaths, counters_int,
-                 counters_float, *, phases=None, cluster=tcs.CLUSTER):
+                 counters_float, *, phases=None, cluster=None):
     """``chunk_step_cuda``'s contract in plain PyTorch: per design point
     the loop of ``step_ref(seq=True)`` and ``counters.update`` over the
     chunks, the table updated in place. ``phases``, which picks the

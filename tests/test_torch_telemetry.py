@@ -385,11 +385,13 @@ def test_waves_and_stage_cycles_of_a_16_point_sweep(card):
     rec, _ = _on_card(lambda: eng.sweep(spec, trace).rows())
     (enq,) = [s for s in rec.spans if s.name == "chunk_step.enqueue"]
     a = enq.attrs
-    resident = tcs.resident_clusters(str(card), tcs.CLUSTER, cfg.chunk,
-                                     cfg.n_banks)
-    assert (a["points"], a["cluster"], a["chunks"]) == (16, tcs.CLUSTER, 32)
-    assert a["resident"] == resident > 0
-    assert a["waves"] == -(-16 // resident)
+    resident = tcs.resident_clusters(str(card), cfg.chunk, cfg.n_banks,
+                                     True)
+    cluster = tcs.cluster_for(16, resident)
+    assert (a["points"], a["cluster"], a["chunks"]) == (16, cluster, 32)
+    assert a["resident"] == resident[cluster] > 0
+    assert a["waves"] == min(tcs.waves(16, n) for n in resident.values()
+                             if n) == -(-16 // resident[cluster])
     assert rec.counters == {"chunk_step.launches": 1,
                             "chunk_step.waves": a["waves"]}
     cycles = rec.buffers[("chunk_step.phases", str(card), 16)].sum(0).cpu()
