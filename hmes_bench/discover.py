@@ -58,7 +58,8 @@ def _module(path: pathlib.Path) -> ModuleType:
 
 def entry(root: pathlib.Path, name: str) -> ModuleType:
     """The entry point ``entries/<name>.py``: ``prepare(config, traffic,
-    device)`` returns the session the window drives."""
+    device, chips)`` returns the session the window drives on the cell's
+    ``chips`` cards, or refuses a number of cards it does not use."""
     return _module(_own(root) / "entries" / f"{name}.py")
 
 

@@ -33,5 +33,6 @@ class Session:
                  "decay_every": c.decay_every}]
 
 
-def prepare(config: dict, traffic: dict, device) -> Session:
+def prepare(config: dict, traffic: dict, device, chips: int) -> Session:
+    program.one_card("run", chips)
     return Session(config, device)

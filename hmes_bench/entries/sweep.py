@@ -41,5 +41,6 @@ class Session:
                  "decay_every": c.decay_every} for c in self.cfgs]
 
 
-def prepare(config: dict, traffic: dict, device) -> Session:
+def prepare(config: dict, traffic: dict, device, chips: int) -> Session:
+    program.one_card("sweep", chips)
     return Session(config, traffic, device)

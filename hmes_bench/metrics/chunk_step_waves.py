@@ -1,7 +1,8 @@
 """Rounds of resident clusters a kernel-B launch takes, the mean over the
-window's launches: the program's counters ``chunk_step.waves`` (each
-launch's ceil(points / resident clusters), ``cudaOccupancyMaxActiveClusters``)
-over ``chunk_step.launches``. None where the program counts nothing."""
+window's launches on every card: the program's counters
+``chunk_step.waves`` (each launch's ceil(points / resident clusters),
+``cudaOccupancyMaxActiveClusters``) over ``chunk_step.launches``. None
+where the program counts nothing."""
 from hmes_bench import spans
 
 

@@ -1,5 +1,6 @@
-"""The share of the window in which no operation ran on the device, in
-%."""
+"""The share of the window in which no operation ran on a card, in %; on
+several cards, the mean of each card's share (``ctx.busy_s`` is the mean
+of each card's busy time)."""
 
 
 def read(ctx):

@@ -1,5 +1,5 @@
-"""Device kernels, copies and sets the profiler records an answer (the
-window's total over its answers)."""
+"""Device kernels, copies and sets the profiler records an answer, on
+every card of the cell (the window's total over its answers)."""
 
 
 def read(ctx):

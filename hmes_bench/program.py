@@ -41,3 +41,10 @@ def record(state, outs: dict, readout: list, n: int, batched: bool
     return {"outs": {k: lead(v)[..., :n].cpu() for k, v in outs.items()},
             "state": {k: lead(v).cpu() for k, v in _flat(state).items()},
             "readout": readout}
+
+
+def one_card(entry: str, chips: int) -> None:
+    """Refuse a cell of more than one card for the one-card ``entry``."""
+    if chips != 1:
+        raise ValueError(f"entry {entry!r} runs on one card; the cell asks "
+                         f"for {chips}")

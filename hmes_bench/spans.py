@@ -99,18 +99,25 @@ def idle_ms(ctx, part: str) -> float | None:
 def phase_us(ctx, phase: str) -> float | None:
     """Kernel B's stage ``phase``: its share of the leading CTAs' cycles
     in the window times the window's ``chunk_step`` device time per chunk
-    (the nine together are ``chunk_step_us_per_chunk``), in us."""
+    (the nine together are ``chunk_step_us_per_chunk``), in us. On
+    several cards, the slowest card's: its cycles (the buffers the
+    program keeps on that card) and its time; None where that card's
+    buffers hold no cycles."""
     rec = recording()
     if rec is None or not ctx.ops:
         return None
+    import torch
+
     from repro_torch.kernels.chunk_step import PHASES
+    us = devtrace.card_us(ctx.ops, ctx.chips, "chunk_step")
+    card = max(range(len(us)), key=us.__getitem__)
     cycles = [0] * len(PHASES)
     for key, buf in rec.buffers.items():
-        if key[0] == PHASE_BUFFER:
+        if key[0] == PHASE_BUFFER and (
+                ctx.chips == 1 or torch.device(key[1]).index == card):
             for k, c in enumerate(buf.sum(dim=0).tolist()):
                 cycles[k] += c
     total = sum(cycles)
-    us = sum(o.end_us - o.start_us for o in ctx.ops if "chunk_step" in o.name)
-    if total <= 0 or us <= 0:
+    if total <= 0 or us[card] <= 0:
         return None
-    return cycles[PHASES.index(phase)] / total * us / ctx.chunks
+    return cycles[PHASES.index(phase)] / total * us[card] / ctx.chunks

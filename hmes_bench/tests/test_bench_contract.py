@@ -55,6 +55,10 @@ def test_cells():
                    discover.cell_metrics(BENCH, w["name"], False)) == 1
         assert len(discover.cell_metrics(BENCH, w["name"], False)) >= 2
         assert discover.cell_metrics(BENCH, w["name"], True)
+    # Of the cells at most a quarter, rounded down, ask for four cards, and
+    # one always may.
+    fours = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert fours <= max(1, len(names) // 4)
 
 
 def test_metrics():

@@ -46,7 +46,7 @@ def test_added_files_make_a_new_cell(fresh_root):
         discover.load_benchmark(fresh_root), "tiny-leela.grid2", False)]
     assert names == ["emulated_req_per_s", "answer_ms.p95", "setup_s",
                      "answers_per_s"]
-    r = harness.run_cell(fresh_root, "tiny-leela.grid2", 3, 0.3, False,
+    r = harness.run_cell(fresh_root, "tiny-leela.grid2", 3, 0.01, False,
                          torch.device("cpu"), time.perf_counter())
     assert r["correct"] and set(r["metrics"]) == set(names)
     assert r["metrics"]["answers_per_s"]["unit"] == "1/s"
@@ -67,12 +67,15 @@ def test_unknown_names_are_refused(scratch_root):
         discover.reader(scratch_root, "no_such_metric")
 
 
-@pytest.mark.parametrize("cell", ["tiny.run", "tiny.sweep4"])
+@pytest.mark.parametrize("cell", ["tiny.run", "tiny.sweep4", "tiny.sweep8x4"])
 @pytest.mark.parametrize("traced", [False, True])
 def test_sound_run_is_correct(scratch_root, cell, traced):
-    r = harness.run_cell(scratch_root, cell, 2 ** 33 + 1, 0.3, traced,
+    # A window shorter than one answer still holds the harness's least
+    # number of answers, however slow the host.
+    r = harness.run_cell(scratch_root, cell, 2 ** 33 + 1, 0.01, traced,
                          torch.device("cpu"), time.perf_counter())
-    assert r["correct"] and r["failed"] == 0 and r["attempted"] >= 1
+    assert r["correct"] and r["failed"] == 0
+    assert r["attempted"] == harness.MIN_ANSWERS
     assert list(r)[-1] == "checks"
     assert all(c == {"value": 0, "limit": 0} for c in r["checks"].values())
     if not traced:

@@ -1,7 +1,7 @@
 """A run with the timed path broken underneath comes out not correct:
 the harness's look for a card skipped, the rest of a run driven on the
-CPU with one fault planted in the program. The exchange between chips
-has no fault to plant: every cell runs on one card (``mesh=None``)."""
+CPU with one fault planted in the program; in the split sweep
+(``entries/sweep_mesh.py``) also the exchange between cards left out."""
 import time
 
 import pytest
@@ -44,7 +44,7 @@ FAULTS = {"unchanged_state": _unchanged_state, "half_batch": _half_batch,
           "altered_answer": _altered_answer}
 
 
-@pytest.mark.parametrize("cell", ["tiny.run", "tiny.sweep4"])
+@pytest.mark.parametrize("cell", ["tiny.run", "tiny.sweep4", "tiny.sweep8x4"])
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_planted_fault_is_not_correct(scratch_root, monkeypatch, cell,
                                       fault):
@@ -75,3 +75,18 @@ def test_half_of_the_points_left_out_is_not_correct(scratch_root,
     r = harness.run_cell(scratch_root, "tiny.sweep4", 9, 0.2, False,
                          torch.device("cpu"), time.perf_counter())
     assert r["correct"] is False
+
+
+def test_exchange_left_out_is_not_correct(scratch_root, monkeypatch):
+    """The split sweep's gather: no share of another card brought home,
+    the engine's own card's share in each one's place."""
+    from repro_torch.engine import Engine
+    real = Engine._gather
+
+    def gather(self, shares, n):
+        return real(self, [shares[0]] * len(shares), n)
+    monkeypatch.setattr(Engine, "_gather", gather)
+    r = harness.run_cell(scratch_root, "tiny.sweep8x4", 9, 0.2, False,
+                         torch.device("cpu"), time.perf_counter())
+    assert r["correct"] is False
+    assert r["checks"]["outs_differ"]["value"] > 0

@@ -171,7 +171,14 @@ def workload_spec(name: str, scale: float = 1e-6, page_size: int = 4096,
                   min_requests: int = 2048) -> TraceSpec:
     """The :class:`TraceSpec` of one workload at ``scale``; the request
     count is clamped to [min_requests, max_requests]."""
-    w = WORKLOADS[name]
+    return recipe_spec(WORKLOADS[name], scale, page_size, seed, max_requests,
+                       min_requests)
+
+
+def recipe_spec(w: Workload, scale: float = 1e-6, page_size: int = 4096,
+                seed: int = 0, max_requests: int = 4_000_000,
+                min_requests: int = 2048) -> TraceSpec:
+    """:func:`workload_spec` of a recipe that need not be in the table."""
     n = int(w.total_traffic_bytes * scale / 64)
     n = max(min_requests, min(max_requests, n))
     return TraceSpec(
